@@ -6,7 +6,9 @@ under ``_build/`` in this package, at first use, from the sources in the
 checkout only. The library's file name carries a hash of its source and of
 the compiler flags, so an edited source is rebuilt and a stale library is
 never loaded. Libraries are loaded with ``ctypes``: no PyTorch headers are
-compiled, which keeps a build at seconds.
+compiled, which keeps a build at seconds. The compiler's report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``) is kept
+beside its library and read back with :func:`build_log`.
 
 Nothing here runs at import time; the CPU tests import the package without
 a compiler.
@@ -22,7 +24,7 @@ import subprocess
 import threading
 from typing import Dict, Sequence
 
-__all__ = ["build", "load", "nvcc_path"]
+__all__ = ["build", "build_log", "load", "nvcc_path"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -36,6 +38,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _lock = threading.Lock()
@@ -105,10 +109,20 @@ def build(names: Sequence[str]) -> Dict[str, str]:
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
+            with open(f"{path}.log", "wb") as f:
+                f.write(out)
             os.replace(tmp, path)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for kernel ``name``'s current library (the
+    ``-Xptxas -v`` resource report), building it first if needed."""
+    with open(f"{build([name])[name]}.log", encoding="utf-8",
+              errors="replace") as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

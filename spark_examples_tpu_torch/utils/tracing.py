@@ -2,7 +2,9 @@
 
 A stage is timed on the host clock. Device work is asynchronous, so a
 caller that times device work ends its stage with a device synchronize
-(the driver does); otherwise the stage measures the enqueue.
+(the driver does); otherwise the stage measures the enqueue. Each stage
+is also a ``torch.profiler.record_function`` range of the same name, so
+a profiler window over a run can split each stage's host and device time.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import contextlib
 import time
 from typing import Dict, Iterator, List
+
+from torch.profiler import record_function
 
 __all__ = ["StageTimer"]
 
@@ -38,7 +42,8 @@ class StageTimer:
         t0 = time.perf_counter()
         self._stack.append(name)
         try:
-            yield
+            with record_function(name):
+                yield
         finally:
             self._stack.pop()
             self.seconds[name] = (
