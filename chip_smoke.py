@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
-Drives the port's main path — meshless ``pca --pca-mode sparse`` through
-``VariantsPcaDriver.run()`` at the 1000 Genomes phase-3 cohort width
-(N = 2504 samples, V = 65536 rare variants) — and holds every hand-written
-kernel of that path against its plain PyTorch version on the card. Phases,
-each of which exits non-zero on failure:
+Drives the port's two paths through ``VariantsPcaDriver.run()`` at the
+1000 Genomes phase-3 cohort width (N = 2504 samples): meshless
+``pca --pca-mode sparse`` over V = 65536 rare variants, and the default
+``pca`` (``--pca-mode auto``: dense-blockwise ingest through the bit-packed
+pinned feed, then the fused finish) over V = 16384 common variants; and
+holds every hand-written kernel against its plain PyTorch version on the
+card. Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, CUDA version, name and power limit;
 2. build: every kernel of the path compiled from ``csrc/`` (timed), with
@@ -28,7 +30,29 @@ each of which exits non-zero on failure:
    the cohort) and at the K = 8 and K = 512 shapes of phase 3: kernel,
    plain version, one-call library yardstick, the bound the card's memory
    and f32 rates set, and the library/kernel ratio;
-6. the CLI in a subprocess on the card.
+6. the CLI in a subprocess on the card: ``--pca-mode sparse``, and the
+   default command (no ``--pca-mode``);
+7. odd sample counts: ``gramian_accumulate_packed`` at N ∈ {12, 13, 2500}
+   (shapes ``torch._int_mm`` refuses unpadded) equal to the host int64
+   product; ``gramian`` and ``fused_forward`` given a numpy block compute
+   on the card by default, G exact and coordinates within 1e-4 of the
+   oracle;
+8. the dense main path (``--pca-mode auto``, V = 16384 at about 25 %
+   carrier density): scatter launch count reset, one driver run, count
+   read (it must be 0: meshless ``auto`` routes dense, as in the JAX
+   package); G bit-identical to the host product; coordinates within 1e-4
+   of the host float64 oracle; ``fused`` and ``stream`` runs of the cohort
+   agree within 1e-4; ``fused`` with ``--precise`` raises before ingest;
+   the feed's count of pinned copies equals the block count in every run;
+   then a second run under ``torch.profiler``: device time by kernel, the
+   idle share per stage, and every feed copy from pinned memory;
+9. the bench shape (N = 2504, V = 65536 in 8 blocks of 8192, ``bench.py``'s
+   cohort formula) through ``pcoa_fused_blocks``: wall-clock, the
+   north-star rate samples²·variants/s, the ``torch._int_mm`` time per
+   block against its bound (2·N²·V int8 operations at 1,979 TOP/s), the
+   host→device copy rate of one packed block from pinned memory, the
+   feed's count of pinned copies equal to the block count in every run,
+   and coordinates within 1e-4 of the oracle.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -48,13 +72,19 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# float32 rate outside the tensor cores (the kernel does f32 adds).
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
+# float32 rate outside the tensor cores (the kernel does f32 adds) and the
+# dense int8 tensor-core rate (the dense route's product).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 N_SAMPLES = 2504  # 1000 Genomes phase 3
 N_VARIANTS = 65536
+# The dense path's depth: bench.py's 65536 cut to 16384, because the record
+# fixture holds about 170 KB of host memory per variant at 25 % density.
+DENSE_VARIANTS = 16384
+BENCH_BLOCK_V, BENCH_BLOCKS = 8192, 8  # bench.py's shape
 COORD_TOL = 1e-4  # the MLlib-oracle parity bar
 
 
@@ -97,6 +127,24 @@ def time_cuda(fn, reps: int, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def time_cuda_loop(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn()`` by CUDA events around ``reps``
+    calls in a row, after one warm-up: the host enqueues ahead of the
+    card, so its launch overhead does not show between calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def random_case(rng, t_r, t_c, v_pad, k, same, negative=False):
@@ -236,6 +284,10 @@ def ptxas_report(log: str):
 
 
 STAGES = ("ingest+gramian", "pca", "emit")
+# Host ranges of the dense route; like the stages, they also appear on the
+# device timeline as annotations, which are not device work.
+DENSE_RANGES = ("ingest.pack", "ingest.put", "gramian.accumulate",
+                "pcoa_fused_blocks")
 
 
 def merged_busy_us(intervals, lo, hi) -> float:
@@ -258,7 +310,7 @@ def profile_split(prof) -> None:
     # The stage ranges also appear on the device timeline as annotations;
     # only kernels, copies and sets are device work.
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES]
+              and e.name not in STAGES + DENSE_RANGES]
     stages = {e.name: (e.time_range.start, e.time_range.end)
               for e in events
               if e.name in STAGES and e.device_type == DeviceType.CPU}
@@ -270,7 +322,20 @@ def profile_split(prof) -> None:
             lo, hi = stages[name]
             print(f"  {name}: {(hi - lo) / 1e3:.3f} ms wall-clock, device "
                   "idle share not measured")
-        return
+        return {}
+    by_name = print_device_time(device)
+    spans = [(e.time_range.start, e.time_range.end) for e in device]
+    for name in STAGES:
+        lo, hi = stages[name]
+        busy = merged_busy_us(spans, lo, hi)
+        print(f"  {name}: {(hi - lo) / 1e3:.3f} ms wall-clock, device busy "
+              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.4f}")
+    return by_name
+
+
+def print_device_time(device, top=14):
+    """Device time by kernel name over ``device`` events, the largest
+    first; returns ``{name: (total us, count)}``."""
     by_name = {}
     for e in device:
         total, count = by_name.get(e.name, (0.0, 0))
@@ -279,14 +344,64 @@ def profile_split(prof) -> None:
     print(f"  device busy {total_us / 1e3:.3f} ms over {len(device)} "
           "kernels and copies; the largest by total time:")
     for name, (t, count) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][0])[:14]:
+                                   key=lambda kv: -kv[1][0])[:top]:
         print(f"    {t / 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
-    spans = [(e.time_range.start, e.time_range.end) for e in device]
-    for name in STAGES:
-        lo, hi = stages[name]
-        busy = merged_busy_us(spans, lo, hi)
-        print(f"  {name}: {(hi - lo) / 1e3:.3f} ms wall-clock, device busy "
-              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.4f}")
+    return by_name
+
+
+def host_ranges(prof, names):
+    """Host time of the named ``record_function`` ranges, summed over the
+    profile (any thread): ``{name: (total ms, count)}``."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.name in names and e.device_type == DeviceType.CPU:
+            total, count = out.get(e.name, (0.0, 0))
+            out[e.name] = (total + e.time_range.elapsed_us() / 1e3,
+                           count + 1)
+    return out
+
+
+def all_threads_profile(torch):
+    """A CPU and CUDA profiler over every thread of the process, so the
+    feed's producer-thread ranges (pack, put) are captured too, where this
+    torch offers that; else over the calling thread, said so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except TypeError:
+        print("  (this torch profiles the calling thread only: the feed "
+              "thread's host ranges are not captured)")
+    return profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw)
+
+
+def pageable_copies_in(prof, stage):
+    """Host-to-device copies from pageable memory that ran on the device
+    inside the host range ``stage``."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    windows = [(e.time_range.start, e.time_range.end) for e in events
+               if e.name == stage and e.device_type == DeviceType.CPU]
+    return sum(1 for e in events
+               if e.device_type == DeviceType.CUDA and "HtoD" in e.name
+               and "Pageable" in e.name
+               and any(lo <= e.time_range.start <= hi
+                       for lo, hi in windows))
+
+
+def copies_by_kind(by_name):
+    """Host-to-device copy counts from pinned and from pageable memory."""
+    pinned = sum(c for n, (_, c) in by_name.items()
+                 if "HtoD" in n and "Pinned" in n)
+    pageable = sum(c for n, (_, c) in by_name.items()
+                   if "HtoD" in n and "Pageable" in n)
+    return pinned, pageable
 
 
 def valid_pairs(torch, r, c, n_rows, n_cols):
@@ -337,6 +452,367 @@ def time_shape(torch, sk, dev, flush, name, shape, r, c):
           f"{library_ms / ms:.1f}x")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def exact_product(x: np.ndarray) -> np.ndarray:
+    """``X @ X.T`` of a 0/1 block on the host, as int64. A float32 BLAS
+    product is exact here: every partial sum is an integer no larger than
+    the variant count, below 2^24."""
+    check(x.shape[1] < 1 << 24, "too many variants for an exact f32 sum")
+    xf = x.astype(np.float32)
+    return (xf @ xf.T).astype(np.int64)
+
+
+def make_bench_cohort(seed=0):
+    """``bench.py``'s cohort formula (its ``make_cohort``): 3 populations
+    with distinct allele frequencies, N_SAMPLES x BLOCK_V*BLOCKS int8."""
+    n_variants = BENCH_BLOCK_V * BENCH_BLOCKS
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(0, 3, N_SAMPLES)
+    base = rng.random(n_variants) * 0.12
+    shift = (
+        (rng.random((3, n_variants)) < 0.15)
+        * rng.random((3, n_variants))
+        * 0.5
+    )
+    prob = np.clip(base[None, :] + shift[pop], 0, 0.9)
+    return (rng.random((N_SAMPLES, n_variants)) < prob).astype(np.int8)
+
+
+def odd_sample_counts(torch, dev):
+    """Phase 7: the int8 product at sample counts ``torch._int_mm`` takes
+    only zero-padded, equal to the host product; and the whole-block
+    entry points on the card by default."""
+    from spark_examples_tpu_torch.ops.fused import fused_forward
+    from spark_examples_tpu_torch.ops.gramian import (
+        gramian,
+        gramian_accumulate_packed,
+        int_mm_rows,
+        pack_indicator_block,
+    )
+    from spark_examples_tpu_torch.ops.pcoa import (
+        mllib_principal_components_reference,
+    )
+
+    for n in (12, 13, 2500):
+        rng = np.random.default_rng(n)
+        for n_bits in (8192, 8190):
+            x = (rng.random((n, n_bits)) < 0.25).astype(np.int8)
+            xp = torch.from_numpy(pack_indicator_block(x)).to(dev)
+            g = torch.zeros((n, n), device=dev)
+            gramian_accumulate_packed(g, xp, n_bits)
+            torch.cuda.synchronize()
+            got = g.cpu().numpy()
+            want = exact_product(x)
+            check(np.array_equal(got.astype(np.int64), want)
+                  and np.array_equal(got, want.astype(np.float32)),
+                  f"int8 product at N={n}, {n_bits} bits != host product")
+            print(f"  N={n} (operand rows {int_mm_rows(n)}), {n_bits} "
+                  f"bits: equal to the host product (max {want.max()})")
+
+    # The whole-block entry points take a numpy block to the card by
+    # default: ``__graft_entry__``'s shape (128 x 512), 3 subpopulations.
+    rng = np.random.default_rng(1)
+    n, v = 128, 512
+    pop = rng.integers(0, 3, n)
+    base = rng.random(v) * 0.12
+    shift = (rng.random((3, v)) < 0.2) * rng.random((3, v)) * 0.5
+    prob = np.clip(base[None, :] + shift[pop], 0, 0.9)
+    x = (rng.random((n, v)) < prob).astype(np.int8)
+    want_g = exact_product(x)
+    g = gramian(x)
+    check(g.device.type == "cuda"
+          and np.array_equal(g.cpu().numpy(), want_g.astype(np.float32)),
+          "gramian of a numpy block must run on the card, exact")
+    coords = fused_forward(x, 2)
+    want, _ = mllib_principal_components_reference(want_g, 2)
+    err = float(np.abs(coords.cpu().numpy() - want).max())
+    print(f"  gramian and fused_forward of a numpy {n}x{v} block on "
+          f"{coords.device}: G exact, coordinates vs host f64 oracle "
+          f"{err:.3e}")
+    check(coords.device.type == "cuda" and err <= COORD_TOL,
+          "fused_forward of a numpy block must run on the card, within "
+          "the oracle bar")
+
+
+def dense_main_path(torch, dev):
+    """Phase 8: the default ``pca`` (``--pca-mode auto``) at N = 2504."""
+    from spark_examples_tpu_torch.arrays import feed
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+        synthetic_cohort,
+    )
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.pcoa import (
+        mllib_principal_components_reference,
+    )
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+    from spark_examples_tpu_torch.utils.tracing import (
+        GRAMIAN_ACCUMULATE,
+        INGEST_PACK,
+        INGEST_PUT,
+    )
+
+    t0 = time.perf_counter()
+    source = synthetic_cohort(
+        N_SAMPLES, DENSE_VARIANTS, seed=0, population_structure=3,
+        sparse_calls=True,
+    )
+    print(f"  cohort generated in {time.perf_counter() - t0:.2f} s")
+
+    def conf(mode, **kw):
+        return PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                         pca_mode=mode, device="cuda", **kw)
+
+    partitions = source.stats.partitions
+    try:
+        VariantsPcaDriver(conf("fused", precise=True), source)
+    except ValueError as e:
+        print(f"  fused --precise refused before ingest: {e}")
+    else:
+        fail("--pca-mode fused with --precise must raise")
+    check(source.stats.partitions == partitions,
+          "the refused run must read no shard")
+
+    def run(mode):
+        sk.SCATTER_KERNEL_LAUNCHES = 0
+        feed.PINNED_COPIES = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            driver = VariantsPcaDriver(conf(mode), source)
+            result = driver.run()
+        run_s = time.perf_counter() - t0
+        launches = sk.SCATTER_KERNEL_LAUNCHES
+        pinned_copies[mode] = feed.PINNED_COPIES
+        lines = out.getvalue().splitlines()
+        tsv = [line for line in lines if line.count("\t") == 3]
+        stage_s = {k: round(v, 6) for k, v in driver.timer.seconds.items()}
+        print(f"  {mode}: driver.run() {run_s:.3f} s, {len(tsv)} result "
+              f"lines, scatter launches {launches}, pinned feed copies "
+              f"{feed.PINNED_COPIES}, stage seconds {json.dumps(stage_s)}")
+        check(len(tsv) == N_SAMPLES, f"expected {N_SAMPLES} result lines")
+        check(launches == 0,
+              "meshless auto/fused/stream must not launch the scatter "
+              "kernel (the dense-blockwise route)")
+        return driver, result, lines
+
+    pinned_copies = {}
+    driver, result, lines = run("auto")
+    for line in lines:
+        if line.count("\t") != 3:
+            print(f"  | {line}")
+
+    t0 = time.perf_counter()
+    calls = []
+    for shard in driver.conf.shards():
+        calls.extend(source.stream_carrying(
+            DEFAULT_VARIANT_SET_ID, shard, driver.index.indexes))
+    x = np.zeros((N_SAMPLES, len(calls)), np.int8)
+    for col, carriers in enumerate(calls):
+        x[carriers, col] = 1
+    g_ref = exact_product(x)
+    print(f"  {len(calls)} variants, carrier density {x.mean():.4f}, "
+          f"{-(-len(calls) // driver.conf.block_variants)} blocks; host "
+          f"product in {time.perf_counter() - t0:.2f} s")
+    want, _ = mllib_principal_components_reference(g_ref, 2)
+
+    def check_run(name, drv, res):
+        g_dev = drv.g.cpu().numpy()
+        check(np.array_equal(g_dev.astype(np.int64), g_ref)
+              and np.array_equal(g_dev, g_ref.astype(np.float32)),
+              f"{name}: G is not bit-identical to the host int64 product")
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in res])
+        check(coords.shape == (N_SAMPLES, 2) and np.isfinite(coords).all(),
+              f"{name}: coordinates must be finite, one pair per sample")
+        err = float(np.abs(coords - want).max())
+        print(f"  {name}: G bit-identical (max entry {g_ref.max()}); "
+              f"coordinates vs host f64 oracle {err:.3e} (bar {COORD_TOL})")
+        check(err <= COORD_TOL, f"{name}: coordinates beyond the bar")
+        return coords
+
+    auto_coords = check_run("auto", driver, result)
+    fused_coords = check_run("fused", *run("fused")[:2])
+    stream_coords = check_run("stream", *run("stream")[:2])
+    agree = float(np.abs(fused_coords - stream_coords).max())
+    print(f"  fused vs stream: max abs difference {agree:.3e}")
+    check(agree <= COORD_TOL, "fused and stream disagree beyond 1e-4")
+    check(np.array_equal(auto_coords, fused_coords),
+          "auto at N <= --dense-eigh-limit must run the fused finish")
+
+    n_blocks = -(-len(calls) // driver.conf.block_variants)
+    check(all(n == n_blocks for n in pinned_copies.values()),
+          f"each run must copy its {n_blocks} feed blocks from pinned "
+          f"memory, copied {pinned_copies}")
+
+    print("  a second auto run under torch.profiler:", flush=True)
+    feed.PINNED_COPIES = 0
+    with contextlib.redirect_stdout(io.StringIO()), all_threads_profile(
+        torch
+    ) as prof:
+        profiled = VariantsPcaDriver(conf("auto"), source)
+        profiled.run()
+    check(feed.PINNED_COPIES == n_blocks,
+          "the profiled run must copy every feed block from pinned memory")
+    stage_s = {k: round(v, 6) for k, v in profiled.timer.seconds.items()}
+    print(f"  stage seconds under the profiler: {json.dumps(stage_s)}")
+    by_name = profile_split(prof)
+    pinned, pageable = copies_by_kind(by_name)
+    in_ingest = pageable_copies_in(prof, "ingest+gramian")
+    print(f"  host-to-device copies in the profile: {pinned} from pinned "
+          f"memory, {pageable} from pageable memory ({in_ingest} of them "
+          f"inside ingest+gramian); the feed's own count: "
+          f"{feed.PINNED_COPIES} of {n_blocks} blocks copied from pinned "
+          "memory")
+    # The profiler keeps the device records of none, some or all of this
+    # window's feed copies (0, 1 and 2 of 2 in three runs on one card),
+    # so the feed's own count above is the proof that every block was
+    # copied from pinned memory, and the profile shows that nothing in
+    # the ingest stage was copied from pageable memory.
+    check(in_ingest == 0,
+          "the ingest stage must copy nothing from pageable memory")
+    for name, (ms, count) in sorted(host_ranges(
+            prof, (INGEST_PACK, INGEST_PUT, GRAMIAN_ACCUMULATE)).items()):
+        print(f"  host range {name}: {ms:.3f} ms over {count}")
+
+
+def bench_shape(torch, dev):
+    """Phase 9: ``pcoa_fused_blocks`` at the bench shape."""
+    from spark_examples_tpu_torch.arrays import feed
+    from spark_examples_tpu_torch.ops.fused import pcoa_fused_blocks
+    from spark_examples_tpu_torch.ops.gramian import (
+        gramian_accumulate_packed,
+        int_mm_rows,
+        pack_indicator_block,
+    )
+    from spark_examples_tpu_torch.ops.pcoa import (
+        mllib_principal_components_reference,
+    )
+    from spark_examples_tpu_torch.utils.tracing import (
+        GRAMIAN_ACCUMULATE,
+        INGEST_PACK,
+        INGEST_PUT,
+    )
+
+    t0 = time.perf_counter()
+    x = make_bench_cohort()
+    n_variants = x.shape[1]
+    blocks = [x[:, i:i + BENCH_BLOCK_V]
+              for i in range(0, n_variants, BENCH_BLOCK_V)]
+    print(f"  cohort {x.shape}, density {x.mean():.4f}, {len(blocks)} "
+          f"blocks, made in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def fused_run():
+        feed.PINNED_COPIES = 0
+        t0 = time.perf_counter()
+        out = pcoa_fused_blocks(iter(blocks), N_SAMPLES, 2, device=dev)
+        wall = time.perf_counter() - t0
+        check(feed.PINNED_COPIES == len(blocks),
+              f"the feed must copy all {len(blocks)} blocks from pinned "
+              f"memory, copied {feed.PINNED_COPIES}")
+        return wall, out
+
+    walls = []
+    for _ in range(4):  # the first run pays first-use library set-up
+        wall, (coords, vals, row_sums) = fused_run()
+        walls.append(wall)
+    best = min(walls[1:])
+    rate = N_SAMPLES ** 2 * n_variants / best
+    print(f"  pcoa_fused_blocks wall-clock: first {walls[0]:.4f} s, then "
+          + ", ".join(f"{w:.4f}" for w in walls[1:]) + " s")
+    print(f"  north-star rate (best of the warm runs): {rate:.4e} "
+          "samples^2*variants/s")
+
+    t0 = time.perf_counter()
+    g_ref = exact_product(x)
+    want, _ = mllib_principal_components_reference(g_ref, 2)
+    check(np.array_equal(row_sums.astype(np.int64), g_ref.sum(axis=1)),
+          "row sums of G must equal the host product's")
+    err = float(np.abs(coords - want).max())
+    print(f"  coordinates vs host f64 oracle {err:.3e} (bar {COORD_TOL}); "
+          f"row sums exact; host check {time.perf_counter() - t0:.2f} s")
+    check(coords.shape == (N_SAMPLES, 2) and np.isfinite(coords).all(),
+          "coordinates must be finite, one pair per sample")
+    check(err <= COORD_TOL, "coordinates beyond the oracle bar")
+
+    xb = torch.from_numpy(np.ascontiguousarray(blocks[0])).to(dev)
+    xp = torch.from_numpy(pack_indicator_block(blocks[0])).to(dev)
+    g = torch.zeros((N_SAMPLES, N_SAMPLES), device=dev)
+    int_mm_ms = time_cuda_loop(lambda: torch._int_mm(xb, xb.t()), 50)
+    step_ms = time_cuda_loop(lambda: gramian_accumulate_packed(g, xp), 50)
+    rows = int_mm_rows(N_SAMPLES)
+    ops = 2 * rows * rows * BENCH_BLOCK_V
+    bound_ms = ops / PEAK_INT8_OPS_PER_S * 1e3
+    print(f"  torch._int_mm per {BENCH_BLOCK_V}-variant block: "
+          f"{int_mm_ms:.4f} ms against a {bound_ms:.4f} ms bound "
+          f"(operations: {ops:.4e} int8 ops at 1979 TOP/s), share "
+          f"{bound_ms / int_mm_ms:.3f}")
+    print(f"  one accumulate step (unpack, product, add into G): "
+          f"{step_ms:.4f} ms")
+
+    host = torch.empty(tuple(xp.shape), dtype=torch.uint8, pin_memory=True)
+    check(host.is_pinned(), "the staging buffer must be page-locked")
+    pageable = torch.empty(tuple(xp.shape), dtype=torch.uint8)
+    dst = torch.empty_like(xp)
+    pin_ms = time_cuda_loop(
+        lambda: dst.copy_(host, non_blocking=True), 50)
+    page_ms = time_cuda_loop(lambda: dst.copy_(pageable), 50)
+    nbytes = host.numel()
+    print(f"  host-to-device copy of one packed block ({nbytes} bytes): "
+          f"pinned {pin_ms:.4f} ms = {nbytes / pin_ms / 1e6:.2f} GB/s; "
+          f"pageable {page_ms:.4f} ms = {nbytes / page_ms / 1e6:.2f} GB/s")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    feed.PINNED_COPIES = 0
+    with all_threads_profile(torch) as prof:
+        with record_function("pcoa_fused_blocks"):
+            pcoa_fused_blocks(iter(blocks), N_SAMPLES, 2, device=dev)
+    print(f"  the feed's own count: {feed.PINNED_COPIES} of {len(blocks)} "
+          "blocks copied from pinned memory")
+    check(feed.PINNED_COPIES == len(blocks),
+          "every feed block must be copied from pinned memory")
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in DENSE_RANGES]
+    window = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "pcoa_fused_blocks"
+              and e.device_type == DeviceType.CPU]
+    print("  one run under torch.profiler:")
+    if device and window:
+        by_name = print_device_time(device, top=10)
+        lo, hi = window[0]
+        busy = merged_busy_us(
+            [(e.time_range.start, e.time_range.end) for e in device], lo, hi)
+        print(f"  wall-clock {(hi - lo) / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.4f}")
+        pinned, pageable_n = copies_by_kind(by_name)
+        products = sum(c for n, (_, c) in by_name.items() if "i8i32" in n)
+        for kind, keys in (("int8 products", ("i8i32",)),
+                           ("pinned host-to-device copies",
+                            ("HtoD", "Pinned"))):
+            starts = sorted((e.time_range.start - lo) / 1e3 for e in device
+                            if all(k in e.name for k in keys))
+            print(f"  {kind} start at ms " + ", ".join(
+                f"{t:.2f}" for t in starts) + " of the window")
+        print(f"  host-to-device copies: {pinned} pinned, {pageable_n} "
+              f"pageable; device records of {products} of {len(blocks)} "
+              f"int8 products and {pinned} of {len(blocks)} feed copies "
+              "captured")
+        # This window has lost the records of its first block or two in
+        # runs where it was the process's third profiler window: the
+        # feed's own count above proves all its copies pinned, and the
+        # profile that none came from pageable memory (the one pageable
+        # copy is the finish's start panel).
+        check(pinned >= 1 and pageable_n <= 1,
+              "the feed's copies must come from pinned memory")
+    else:
+        print("  device time by kernel: not measured (no CUDA events)")
+    for name, (ms, count) in sorted(host_ranges(
+            prof, (INGEST_PACK, INGEST_PUT, GRAMIAN_ACCUMULATE)).items()):
+        print(f"  host range {name}: {ms:.3f} ms over {count}")
 
 
 def host_windows(source, conf, indexes):
@@ -519,6 +995,29 @@ def main() -> int:
           f"CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
     check(sum(line.count("\t") == 3 for line in cli_lines) == 256,
           "CLI must emit one result line per sample")
+    cli = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
+         "--fixture-samples", "256", "--fixture-variants", "2048"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+    )
+    cli_lines = cli.stdout.splitlines()
+    print("  the default command (no --pca-mode):")
+    for line in cli_lines:
+        if line.count("\t") != 3:
+            print(f"  | {line}")
+    check(cli.returncode == 0,
+          f"default CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    check(sum(line.count("\t") == 3 for line in cli_lines) == 256,
+          "the default CLI must emit one result line per sample")
+
+    print("== 7. odd sample counts", flush=True)
+    odd_sample_counts(torch, dev)
+
+    print("== 8. dense main path (--pca-mode auto)", flush=True)
+    dense_main_path(torch, dev)
+
+    print("== 9. bench shape through pcoa_fused_blocks", flush=True)
+    bench_shape(torch, dev)
 
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",

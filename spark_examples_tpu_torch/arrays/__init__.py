@@ -1,1 +1,1 @@
-"""Host-side window building for the sparse Gramian engine."""
+"""Host-side ingest: carrier windows, dense blocks, the device feed."""

@@ -1,22 +1,26 @@
-"""CSR carrier windows: the host side of the sparse Gramian engine.
+"""Carrier lists → CSR windows and dense 0/1 blocks: the host side of ingest.
 
 The bridge between the ragged host world (per-variant lists of carrying
 sample indices, the ``RDD[Seq[Int]]`` interface at VariantsPca.scala:153-168)
 and the device: per-block ``(indices, lens)`` CSR windows of
-``block_variants`` variants, which the sparse engine scatters from directly
-or densifies into a 0/1 indicator block ``X_blk ∈ {0,1}^(N × width)`` for
-the dense route. Padding is free correctness-wise: an all-zero variant
-column contributes nothing to the Gramian.
+``block_variants`` variants, which the sparse engine scatters from directly,
+and 0/1 indicator blocks ``X_blk ∈ {0,1}^(N × width)`` of a fixed width for
+the dense-blockwise route and the sparse engine's dense windows. Padding is
+free correctness-wise: an all-zero variant column contributes nothing to
+the Gramian, so the final partial block is zero-padded.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 __all__ = [
     "DEFAULT_BLOCK_VARIANTS",
+    "blocks_from_calls",
+    "densify_calls",
     "round_up_multiple",
     "windows_from_calls",
 ]
@@ -92,3 +96,43 @@ def _densify_window(
     x = np.zeros((n_samples, block_variants), dtype=np.int8)
     x[window_idx, cols] = 1
     return x
+
+
+def densify_calls(
+    calls: Sequence[Sequence[int]], n_samples: int, width: int = None
+) -> np.ndarray:
+    """Per-variant index lists → one (n_samples, width) 0/1 int8 block.
+
+    The hot host loop of ingest: the lists become one CSR window and the
+    block is filled by one vectorized scatter (:func:`_densify_window`),
+    not a write per variant. Out-of-range indices raise.
+    """
+    width = width if width is not None else len(calls)
+    if width < len(calls):
+        raise ValueError(
+            f"width {width} < number of variants {len(calls)}"
+        )
+    lens = np.fromiter(map(len, calls), dtype=np.int64, count=len(calls))
+    idx = np.fromiter(
+        itertools.chain.from_iterable(calls),
+        dtype=np.int64,
+        count=int(lens.sum()),
+    )
+    _check_indices(idx, n_samples)
+    return _densify_window(idx, lens, n_samples, width)
+
+
+def blocks_from_calls(
+    calls_iter: Iterable[Sequence[int]],
+    n_samples: int,
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+) -> Iterator[np.ndarray]:
+    """Stream ragged call lists into fixed-shape zero-padded blocks."""
+    buf: List[Sequence[int]] = []
+    for calls in calls_iter:
+        buf.append(calls)
+        if len(buf) == block_variants:
+            yield densify_calls(buf, n_samples, block_variants)
+            buf = []
+    if buf:
+        yield densify_calls(buf, n_samples, block_variants)

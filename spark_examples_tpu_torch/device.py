@@ -1,8 +1,10 @@
 """Device resolution: the card by default, the CPU only when asked.
 
-Every entry point of the port (``VariantsPcaDriver``,
-``sparse_gramian_blockwise``, ``fused_finish``, the CLI) takes a ``device``
-argument that defaults to ``"cuda"`` and resolves it here. Without CUDA,
+Every entry point of the port (``VariantsPcaDriver``, ``gramian``,
+``gramian_blockwise``, ``sparse_gramian_blockwise``, ``fused_forward``,
+``fused_finish``, ``pcoa_fused_blocks``, ``pcoa_fused_packed``, the CLI)
+takes a ``device`` argument that defaults to ``"cuda"`` and resolves it
+here. Without CUDA,
 and unless the caller passed ``"cpu"``, resolution raises: a run never
 carries on silently on the CPU. ``"cpu"`` is the port's counterpart of the
 JAX package's ``JAX_PLATFORMS=cpu``; the tests use it.

@@ -1,4 +1,5 @@
-"""The PCoA pipeline driver on PyTorch: meshless ``--pca-mode sparse``.
+"""The PCoA pipeline driver on PyTorch: meshless ``--pca-mode
+auto|fused|stream|sparse``.
 
 The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 ``VariantsPca.scala:36-246``) with the same stage surface — get_data /
@@ -6,14 +7,21 @@ filter_dataset / get_calls / ingest_gramian / compute_pca / emit_result /
 report_io_stats — for a single-process, meshless, uncheckpointed run:
 
 - ingest: per-variant carrier lists from the source (the fused fast path,
-  or the staged Variant path under ``--debug-datasets``) grouped into CSR
-  windows of ``--block-variants`` variants;
-- Gramian: :func:`~spark_examples_tpu_torch.ops.sparse.
-  sparse_gramian_blockwise` on the device — rare windows through the
-  hand-written CUDA scatter kernel, dense ones through the int8 product;
-- finish: the fused centering + CholeskyQR subspace eig for N ≤
-  ``--dense-eigh-limit`` (dense ``eigh`` above it, or when the fused finish
-  collapses on a degenerate G), or host float64 with ``--precise``;
+  shards extracted on ``--ingest-workers`` threads in manifest order, or
+  the staged Variant path under ``--debug-datasets``);
+- Gramian, dense-blockwise (``auto``, ``fused``, ``stream``): the lists
+  densified into 0/1 blocks of ``--block-variants`` variants, bit-packed
+  and copied through the double-buffered pinned feed
+  (``--prefetch-depth``), accumulated as int8 products
+  (:func:`~spark_examples_tpu_torch.ops.gramian.gramian_blockwise`);
+- Gramian, sparse (``sparse``): CSR windows through
+  :func:`~spark_examples_tpu_torch.ops.sparse.sparse_gramian_blockwise` —
+  rare windows through the hand-written CUDA scatter kernel, dense ones
+  through the int8 product;
+- finish: the fused centering + CholeskyQR subspace eig (``fused``; under
+  ``auto`` and ``sparse`` for N ≤ ``--dense-eigh-limit``, with dense
+  ``eigh`` when it collapses on a degenerate G), dense ``eigh``
+  (``stream``, or above the limit), or host float64 with ``--precise``;
 - emission byte-format compatible with ``emitResult``
   (``VariantsPca.scala:233-246``): stdout ``name\\tdataset\\tpc1\\tpc2``
   sorted by name; ``--output-path`` writes ``<path>-pca.tsv`` lines
@@ -32,13 +40,17 @@ from typing import Iterable, Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch.arrays.blocks import windows_from_calls
+from spark_examples_tpu_torch.arrays.blocks import (
+    blocks_from_calls,
+    windows_from_calls,
+)
 from spark_examples_tpu_torch.device import resolve_device
 from spark_examples_tpu_torch.genomics.callsets import CallsetIndex
 from spark_examples_tpu_torch.genomics.datasets import af_filter, calls_stream
 from spark_examples_tpu_torch.genomics.shards import SexChromosomeFilter
 from spark_examples_tpu_torch.genomics.types import Variant
 from spark_examples_tpu_torch.ops.fused import fused_finish
+from spark_examples_tpu_torch.ops.gramian import gramian_blockwise
 from spark_examples_tpu_torch.ops.pcoa import (
     mllib_principal_components_reference,
     pcoa,
@@ -50,6 +62,7 @@ from spark_examples_tpu_torch.utils.config import (
     PcaConfig,
     unported,
 )
+from spark_examples_tpu_torch.utils.concurrency import ordered_parallel_map
 from spark_examples_tpu_torch.utils.tracing import StageTimer
 
 __all__ = ["VariantsPcaDriver"]
@@ -59,6 +72,17 @@ class VariantsPcaDriver:
     def __init__(self, conf: PcaConfig, source, index=None):
         if conf.num_pc < 1:
             raise ValueError(f"--num-pc must be >= 1, got {conf.num_pc}")
+        if conf.prefetch_depth < 1:
+            # A zero/negative staging depth would deadlock the bounded
+            # feed queue — refuse before any ingest work.
+            raise ValueError(
+                f"--prefetch-depth must be >= 1, got {conf.prefetch_depth}"
+            )
+        if conf.ingest_workers < 0:
+            raise ValueError(
+                f"--ingest-workers must be >= 1 (or 0 = auto), got "
+                f"{conf.ingest_workers}"
+            )
         if conf.pca_mode not in PCA_MODES:
             allowed = ", ".join(repr(m) for m in PCA_MODES)
             raise ValueError(
@@ -70,13 +94,16 @@ class VariantsPcaDriver:
                 "--sparse-density-threshold must be >= 0, got "
                 f"{conf.sparse_density_threshold}"
             )
+        if conf.pca_mode == "fused" and conf.precise:
+            # Fail before ingest, not after the Gramian: --precise is
+            # definitionally the host-f64 route.
+            raise ValueError(
+                "--pca-mode fused requires a single-process, meshless, "
+                "non---precise run (use --pca-mode auto to fall back "
+                "automatically)"
+            )
         if conf.pca_mode == "sketch":
             raise unported("--pca-mode sketch", "item 2, sketch engine")
-        if conf.pca_mode != "sparse":
-            raise unported(
-                f"--pca-mode {conf.pca_mode}",
-                "item 1, auto/fused/stream dense-blockwise ingest",
-            )
         if conf.mesh_shape:
             raise unported("--mesh-shape", "item 5, the mesh layer")
         if conf.checkpoint_dir:
@@ -166,26 +193,94 @@ class VariantsPcaDriver:
             print(
                 f"Min allele frequency {self.conf.min_allele_frequency}."
             )
-        for shard in self._manifest():
-            yield from self.source.stream_carrying(
+        yield from self._parallel_shard_calls(vsid, self._manifest())
+
+    def _ingest_workers(self) -> int:
+        """--ingest-workers; auto = core count capped at 16 (1 → serial).
+
+        The cap bounds peak host memory: each in-flight worker holds one
+        shard's call lists (ordered_parallel_map keeps workers+2 results
+        buffered). Users with the RAM opt into more explicitly.
+        """
+        if self.conf.ingest_workers:
+            return self.conf.ingest_workers
+        return min(os.cpu_count() or 1, 16)
+
+    def _parallel_shard_calls(self, vsid: str, shards):
+        """Per-shard carrier lists in EXACT manifest order: block
+        composition and accumulation order — and so G — never change with
+        the worker count. With one extraction thread (``--ingest-workers
+        1``, or a manifest of one shard) each shard streams straight into
+        the block builder; with more, ``ordered_parallel_map`` extracts
+        whole shards on worker threads."""
+        shards = list(shards)
+
+        def stream(shard):
+            return self.source.stream_carrying(
                 vsid,
                 shard,
                 self.index.indexes,
                 self.conf.min_allele_frequency,
             )
 
+        workers = min(self._ingest_workers(), len(shards))
+        if workers <= 1:
+            for shard in shards:
+                yield from stream(shard)
+            return
+        for calls in ordered_parallel_map(
+            lambda shard: list(stream(shard)), shards, workers
+        ):
+            yield from calls
+
     # -- stage 4: the Gramian ------------------------------------------------
+
+    def _cohort_calls(self) -> Iterator[List[int]]:
+        """The ingest tier's per-variant carrier lists: the fused fast
+        path, else the staged Variant path."""
+        if self._fused_ingest_possible():
+            return self.get_calls_fused()
+        return self.get_calls(
+            [self.filter_dataset(d) for d in self.get_data()]
+        )
+
+    def _blocks_to_gramian(self, blocks):
+        """Dense 0/1 blocks → (N, N) G on the device, meshless: bit-packed
+        (8× fewer host→device bytes, bit-identical) through the
+        double-buffered feed at ``--prefetch-depth``."""
+        return gramian_blockwise(
+            blocks,
+            self.index.size,
+            packed=True,
+            prefetch_depth=self.conf.prefetch_depth,
+            device=self.device,
+        )
+
+    def get_similarity_matrix(self, calls: Iterable[List[int]]):
+        """Stream carrier lists as fixed-width blocks through the device
+        accumulator → (N, N) G. The densify and pack run in the feed's
+        producer thread, overlapping the product."""
+        blocks = blocks_from_calls(
+            calls, self.index.size, self.conf.block_variants
+        )
+        return self._blocks_to_gramian(blocks)
+
+    def _sparse_selected(self) -> bool:
+        """Route the Gramian through the sparse-aware engine?
+
+        ``--pca-mode sparse`` forces it. In the JAX package ``auto``
+        selects it only on a sample-sharded mesh, which the port does not
+        serve yet (``--mesh-shape`` raises), so a meshless ``auto`` — like
+        ``fused`` and ``stream`` — takes the dense-blockwise route.
+        """
+        return self.conf.pca_mode == "sparse"
 
     def _cohort_windows(self):
         """The ingest tier's carrier lists as CSR windows of
         ``--block-variants`` variants (never densified blocks)."""
-        if self._fused_ingest_possible():
-            calls = self.get_calls_fused()
-        else:
-            calls = self.get_calls(
-                [self.filter_dataset(d) for d in self.get_data()]
-            )
-        return windows_from_calls(calls, self.conf.block_variants)
+        return windows_from_calls(
+            self._cohort_calls(), self.conf.block_variants
+        )
 
     def _windows_to_gramian(self, windows):
         """CSR carrier windows → finished (N, N) G on the device, each
@@ -202,18 +297,30 @@ class VariantsPcaDriver:
         return self._windows_to_gramian(self._cohort_windows())
 
     def ingest_gramian(self):
-        """Stages 1-4 as one call: the finished (N, N) float32 G tensor."""
-        return self._gramian_sparse()
+        """Stages 1-4 as one call: route the configured ingest tier and
+        return the finished (N, N) float32 G tensor — the sparse engine,
+        else the fused-ingest carrier lists, else the staged Variant
+        path, both through the dense-blockwise accumulator."""
+        if self._sparse_selected():
+            return self._gramian_sparse()
+        return self.get_similarity_matrix(self._cohort_calls())
 
     # -- stage 5: eigendecomposition ----------------------------------------
 
     def _pca_fused_eligible(self) -> bool:
-        """The fused finish serves N ≤ --dense-eigh-limit unless
-        --precise asks for the host float64 route."""
-        return (
-            not self.conf.precise
-            and self.index.size <= self.conf.dense_eigh_limit
-        )
+        """Route the PCA stage through the fused finish?
+
+        ``stream`` never; ``--precise`` never (host float64 is its own
+        route); ``fused`` always (its config was checked in __init__,
+        before ingest); ``auto`` and ``sparse`` for N ≤
+        ``--dense-eigh-limit``.
+        """
+        mode = self.conf.pca_mode
+        if mode == "stream" or self.conf.precise:
+            return False
+        if mode == "fused":
+            return True
+        return self.index.size <= self.conf.dense_eigh_limit
 
     def compute_pca(self, g, timer=None) -> List[Tuple[str, float, float]]:
         if self._pca_fused_eligible():
@@ -229,8 +336,12 @@ class VariantsPcaDriver:
                 )
             except FloatingPointError as e:
                 # The CholeskyQR panel collapses on numerically degenerate
-                # centered Gramians; dense eigh handles rank deficiency
-                # exactly, and N is ≤ --dense-eigh-limit here.
+                # centered Gramians. A forced --pca-mode fused keeps the
+                # hard error (the user asked for exactly that program);
+                # otherwise dense eigh handles rank deficiency exactly,
+                # and N is ≤ --dense-eigh-limit here.
+                if self.conf.pca_mode == "fused":
+                    raise
                 warnings.warn(
                     "fused finish collapsed on a numerically "
                     f"degenerate centered Gramian ({e}); falling back "

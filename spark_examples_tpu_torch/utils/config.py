@@ -1,10 +1,10 @@
 """Flag system: the ``pca`` subcommand's configuration.
 
-The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what this slice
-of the port serves (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
+The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
+serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default. Options
 of routes not ported yet (meshes, checkpoints, file and network sources,
-the dense and sketch engines) are accepted and then refused with
+the sketch engine) are accepted and then refused with
 ``NotImplementedError`` naming the ROADMAP.md item that ports them, never
 silently ignored. ``--device`` is the port's own: ``cuda`` by default,
 ``cpu`` only when asked.
@@ -38,7 +38,7 @@ __all__ = [
     "unported",
 ]
 
-# The JAX package's --pca-mode registry. This slice serves "sparse".
+# The JAX package's --pca-mode registry. The port serves all but "sketch".
 PCA_MODES = ("auto", "fused", "stream", "sparse", "sketch")
 
 # Reference well-known variantset id (SearchVariantsExample.scala:27-31).
@@ -78,6 +78,10 @@ class PcaConfig:
     dense_eigh_limit: int = 8192
     # Convergence target of the fused finish (None = its default 1e-3).
     eig_tol: Optional[float] = None
+    # Shard-extraction threads of the fused ingest (0 = auto).
+    ingest_workers: int = 0
+    # Blocks the host→device feed stages ahead of the product.
+    prefetch_depth: int = 2
     device: str = DEFAULT_DEVICE
 
     def shards(
@@ -161,10 +165,14 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "--pca-mode",
         choices=PCA_MODES,
         default="auto",
-        help="PCA pipeline route; this slice serves 'sparse': sparse-aware "
-        "Gramian accumulation straight from CSR carrier windows (a "
-        "hand-written CUDA scatter for rare windows, an int8 product for "
-        "dense ones) and the fused finish",
+        help="PCA pipeline route: 'auto' (default) accumulates the "
+        "Gramian from bit-packed dense blocks through the double-buffered "
+        "feed and runs the fused finish (centering + subspace eig + row "
+        "sums on the device) up to --dense-eigh-limit samples, dense eigh "
+        "above; 'fused' forces the fused finish; 'stream' forces the "
+        "dense-eigh finish; 'sparse' accumulates straight from CSR carrier "
+        "windows (a hand-written CUDA scatter for rare windows, an int8 "
+        "product for dense ones). 'sketch' is not ported yet",
     )
     p.add_argument(
         "--sparse-density-threshold",
@@ -181,6 +189,22 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="Fused-finish convergence target |Cv - lv|/|l| per top-k "
         "pair (default 1e-3): above it the sweep retries with doubled "
         "iterations, then warns",
+    )
+    p.add_argument(
+        "--ingest-workers",
+        type=int,
+        default=0,
+        help="Threads extracting shards concurrently on the host (fused "
+        "ingest; 0 = auto — one per core capped at 16; 1 = serial; < 0 "
+        "rejected). Results are bit-identical at any setting; only "
+        "wall-clock changes",
+    )
+    p.add_argument(
+        "--prefetch-depth",
+        type=int,
+        default=PcaConfig.prefetch_depth,
+        help="Blocks the double-buffered host→device feed stages ahead "
+        "of the accumulating product (default 2; must be >= 1)",
     )
     p.add_argument(
         "--device",

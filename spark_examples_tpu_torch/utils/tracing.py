@@ -5,6 +5,13 @@ caller that times device work ends its stage with a device synchronize
 (the driver does); otherwise the stage measures the enqueue. Each stage
 is also a ``torch.profiler.record_function`` range of the same name, so
 a profiler window over a run can split each stage's host and device time.
+
+Inside the dense-blockwise Gramian three more ranges, named after the JAX
+package's spans, split the ingest stage: :data:`INGEST_PACK` (the host
+bit-pack of one block, in the feed's producer thread), :data:`INGEST_PUT`
+(staging one block into pinned memory and enqueueing its copy) and
+:data:`GRAMIAN_ACCUMULATE` (enqueueing one block's unpack, product and
+add).
 """
 
 from __future__ import annotations
@@ -15,7 +22,16 @@ from typing import Dict, Iterator, List
 
 from torch.profiler import record_function
 
-__all__ = ["StageTimer"]
+__all__ = [
+    "GRAMIAN_ACCUMULATE",
+    "INGEST_PACK",
+    "INGEST_PUT",
+    "StageTimer",
+]
+
+INGEST_PACK = "ingest.pack"
+INGEST_PUT = "ingest.put"
+GRAMIAN_ACCUMULATE = "gramian.accumulate"
 
 
 class StageTimer:

@@ -40,8 +40,17 @@ def _port_sources():
 
 def test_every_module_imports_without_jax():
     modules = _port_modules()
-    assert "spark_examples_tpu_torch.ops.scatter_kernel" in modules
-    assert "spark_examples_tpu_torch.models.pca" in modules
+    for name in (
+        "arrays.blocks",
+        "arrays.feed",
+        "models.pca",
+        "ops.fused",
+        "ops.gramian",
+        "ops.scatter_kernel",
+        "tools.ingest_workers",
+        "utils.concurrency",
+    ):
+        assert f"spark_examples_tpu_torch.{name}" in modules
     script = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -1,15 +1,19 @@
-"""The port's ``pca --pca-mode sparse`` end to end against the JAX package's.
+"""The port's ``pca`` driver end to end against the JAX package's.
 
-Both drivers run the same seeded fixture on the CPU with a density
-threshold that sends some windows to the scatter route and some to the
-dense route. G must be bit-identical; coordinates within 1e-4 (the JAX
-package's fused-vs-stream bar); the "Non zero rows" print identical; the
-TSV identical in names, dataset column and line count.
+``--pca-mode sparse``: both drivers run the same seeded fixture on the CPU
+with a density threshold that sends some windows to the scatter route and
+some to the dense route. ``auto``/``fused``/``stream``: both drivers take
+the dense-blockwise route on the JAX package's fused-vs-stream cohort
+(``tests/test_pca_pipeline.py::TestFusedPcaMode``). G must be
+bit-identical; coordinates within 1e-4 (the JAX package's fused-vs-stream
+bar); the "Non zero rows" print identical; the TSV identical in names,
+dataset column and line count.
 """
 
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
     synthetic_cohort,
 )
+from spark_examples_tpu_torch.models import pca as port_pca
 from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
 from spark_examples_tpu_torch.ops import scatter_kernel
 from spark_examples_tpu_torch.ops.sparse import window_route
@@ -149,15 +154,12 @@ def test_cpu_run_launches_no_kernel(tmp_path, capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"pca_mode": "auto"}, "item 1"),
-        ({"pca_mode": "fused"}, "item 1"),
-        ({"pca_mode": "stream"}, "item 1"),
         ({"pca_mode": "sketch"}, "item 2"),
         ({"mesh_shape": "data:2"}, "item 5"),
         ({"checkpoint_dir": "/nonexistent"}, "item 6"),
         ({"variant_set_ids": ["a", "b"]}, "item 8"),
     ],
-    ids=["auto", "fused", "stream", "sketch", "mesh", "checkpoint", "multi"],
+    ids=["sketch", "mesh", "checkpoint", "multi"],
 )
 def test_unported_options_raise_before_ingest(kw, match):
     settings = {**SETTINGS, **kw}
@@ -202,3 +204,227 @@ def test_cli_refuses_unported_sources():
                "--pca-mode", "sparse")
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "item 8" in out.stderr
+
+
+# -- the dense-blockwise modes: auto, fused, stream --------------------------
+
+# The JAX package's fused-vs-stream cohort: 2 populations, a clean top-2
+# eigenbasis, 400 variants in 7 blocks of 64 (the last one ragged).
+DENSE_N, DENSE_V = 48, 400
+DENSE_COHORT = dict(population_structure=2, seed=3)
+DENSE_SETTINGS = dict(
+    variant_set_ids=[DEFAULT_VARIANT_SET_ID], block_variants=64
+)
+DENSE_MODES = ("auto", "fused", "stream")
+
+
+def _dense_port(mode, **kw):
+    conf = PcaConfig(device="cpu", pca_mode=mode, **DENSE_SETTINGS, **kw)
+    return VariantsPcaDriver(
+        conf, synthetic_cohort(DENSE_N, DENSE_V, **DENSE_COHORT)
+    )
+
+
+def _dense_jax(mode, **kw):
+    conf = JaxConfig(pca_mode=mode, **DENSE_SETTINGS, **kw)
+    return JaxDriver(
+        conf, jax_synthetic_cohort(DENSE_N, DENSE_V, **DENSE_COHORT)
+    )
+
+
+def _coords(result):
+    return np.array([r[1:] for r in result])
+
+
+@pytest.mark.parametrize("mode", DENSE_MODES)
+def test_dense_modes_match_the_jax_driver(mode, tmp_path, capsys):
+    driver = _dense_port(mode, output_path=str(tmp_path / "port"))
+    result = driver.run()
+    out = capsys.readouterr().out
+    jax_driver = _dense_jax(mode, output_path=str(tmp_path / "jax"))
+    want = jax_driver.run()
+    want_out = capsys.readouterr().out
+    want_g = np.asarray(_dense_jax(mode).ingest_gramian())
+    capsys.readouterr()
+
+    assert not driver._sparse_selected()
+    assert driver.g.dtype == torch.float32
+    np.testing.assert_array_equal(driver.g.numpy(), want_g)
+    assert [r[0] for r in result] == [r[0] for r in want]
+    got = _coords(result)
+    assert np.isfinite(got).all()
+    assert np.abs(got - _coords(want)).max() <= 1e-4
+    assert _nonzero_line(out) and _nonzero_line(out) == _nonzero_line(
+        want_out
+    )
+    port_tsv = (tmp_path / "port-pca.tsv").read_text().splitlines()
+    jax_tsv = (tmp_path / "jax-pca.tsv").read_text().splitlines()
+    assert len(port_tsv) == len(jax_tsv) == DENSE_N
+    assert [(r.split("\t")[0], r.split("\t")[3]) for r in port_tsv] == [
+        (r.split("\t")[0], r.split("\t")[3]) for r in jax_tsv
+    ]
+    port_rows = [l for l in out.splitlines() if l.count("\t") == 3]
+    jax_rows = [l for l in want_out.splitlines() if l.count("\t") == 3]
+    assert sorted(r.split("\t")[0] for r in port_rows) == [
+        r.split("\t")[0] for r in port_rows
+    ]
+    assert [r.split("\t")[:2] for r in port_rows] == [
+        r.split("\t")[:2] for r in jax_rows
+    ]
+
+
+def test_fused_and_stream_agree(capsys):
+    fused = _dense_port("fused").run()
+    stream = _dense_port("stream").run()
+    capsys.readouterr()
+    assert [r[0] for r in fused] == [r[0] for r in stream]
+    assert np.abs(_coords(fused) - _coords(stream)).max() <= 1e-4
+
+
+# 8192 bases per shard cut the cohort's BRCA1 range into 10 shards, so
+# four extraction threads really run in parallel.
+MANY_SHARDS = dict(bases_per_partition=8192)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_ingest_workers_and_depth_leave_g_unchanged(depth, capsys):
+    serial = _dense_port("auto", ingest_workers=1).ingest_gramian()
+    parallel_driver = _dense_port(
+        "auto", ingest_workers=4, prefetch_depth=depth, **MANY_SHARDS
+    )
+    assert len(parallel_driver._manifest()) > 4
+    parallel = parallel_driver.ingest_gramian()
+    capsys.readouterr()
+    np.testing.assert_array_equal(serial.numpy(), parallel.numpy())
+
+
+@pytest.mark.parametrize(
+    "kw", [{"ingest_workers": 1}, {"ingest_workers": 4},
+           {"ingest_workers": 1, **MANY_SHARDS}],
+    ids=["one-thread", "one-shard", "one-thread-many-shards"],
+)
+def test_one_extraction_thread_streams_each_shard(kw, capsys):
+    """With one extraction thread the first carrier list reaches the
+    block builder before its shard has been read to the end."""
+    driver = _dense_port("auto", **kw)
+    produced = []
+    carrying = driver.source.stream_carrying
+
+    def counted(*args, **kwargs):
+        for calls in carrying(*args, **kwargs):
+            produced.append(1)
+            yield calls
+
+    driver.source.stream_carrying = counted
+    calls = driver.get_calls_fused()
+    next(calls)
+    assert len(produced) == 1
+    rest = sum(1 for _ in calls)
+    capsys.readouterr()
+    assert 1 + rest == len(produced) > 1
+
+
+def test_parallel_extraction_matches_the_jax_order(capsys):
+    """Four threads over 10 shards yield the JAX driver's carrier lists
+    in the same order."""
+    port = _dense_port("auto", ingest_workers=4, **MANY_SHARDS)
+    want = _dense_jax("auto", ingest_workers=4, **MANY_SHARDS)
+    got_calls = [list(c) for c in port.get_calls_fused()]
+    want_calls = [list(c) for c in want.get_calls_fused()]
+    capsys.readouterr()
+    assert got_calls == want_calls and len(got_calls) > 0
+
+
+def test_ingest_workers_auto_is_cores_capped_at_16(monkeypatch):
+    monkeypatch.setattr(os, "cpu_count", lambda: 64)
+    assert _dense_port("auto")._ingest_workers() == 16
+    monkeypatch.setattr(os, "cpu_count", lambda: 3)
+    assert _dense_port("auto")._ingest_workers() == 3
+    assert _dense_port("auto", ingest_workers=5)._ingest_workers() == 5
+
+
+def test_fused_eligibility_routes_as_the_jax_driver(capsys):
+    g = np.eye(4, dtype=np.float32)
+    table = []
+    for mode in ("auto", "fused", "stream", "sparse"):
+        for precise in (False, True):
+            if mode == "fused" and precise:
+                continue  # refused before ingest, below
+            for limit in (8, 8192):
+                kw = dict(precise=precise, dense_eigh_limit=limit)
+                got = _dense_port(mode, **kw)._pca_fused_eligible()
+                want = _dense_jax(mode, **kw)._pca_fused_eligible(g)
+                assert got == want, (mode, precise, limit)
+                table.append(got)
+    capsys.readouterr()
+    assert True in table and False in table
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [
+        ({"pca_mode": "fused", "precise": True}, "pca-mode fused"),
+        ({"prefetch_depth": 0}, "prefetch-depth"),
+        ({"ingest_workers": -1}, "ingest-workers"),
+    ],
+    ids=["fused-precise", "prefetch-depth-0", "ingest-workers-negative"],
+)
+def test_bad_dense_options_raise_before_ingest(kw, match):
+    settings = {"pca_mode": "auto", **kw}
+    with pytest.raises(ValueError, match=match):
+        VariantsPcaDriver(PcaConfig(device="cpu", **DENSE_SETTINGS,
+                                    **settings), None)
+    with pytest.raises(ValueError, match=match):
+        JaxDriver(JaxConfig(**DENSE_SETTINGS, **settings), None)
+
+
+def _collapse(*args, **kwargs):
+    raise FloatingPointError("fused eigendecomposition produced NaN")
+
+
+def test_forced_fused_reraises_a_collapsed_finish(monkeypatch, capsys):
+    monkeypatch.setattr(port_pca, "fused_finish", _collapse)
+    with pytest.raises(FloatingPointError, match="NaN"):
+        _dense_port("fused").run()
+    capsys.readouterr()
+
+
+def test_auto_falls_back_to_dense_eigh_on_a_collapsed_finish(
+    monkeypatch, capsys
+):
+    stream = _dense_port("stream").run()
+    monkeypatch.setattr(port_pca, "fused_finish", _collapse)
+    with pytest.warns(UserWarning, match="falling back"):
+        auto = _dense_port("auto").run()
+    capsys.readouterr()
+    np.testing.assert_array_equal(_coords(auto), _coords(stream))
+
+
+def test_default_mode_is_auto_and_launches_no_scatter(capsys):
+    driver = VariantsPcaDriver(
+        PcaConfig(device="cpu", **DENSE_SETTINGS),
+        synthetic_cohort(DENSE_N, DENSE_V, **DENSE_COHORT),
+    )
+    before = scatter_kernel.SCATTER_KERNEL_LAUNCHES
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        driver.run()
+    out = capsys.readouterr().out
+    assert driver.conf.pca_mode == "auto" and not driver._sparse_selected()
+    assert scatter_kernel.SCATTER_KERNEL_LAUNCHES == before
+    # The fused finish ran, and did not fall back to dense eigh.
+    assert "fused eig residual" in out
+    assert not [w for w in caught if "falling back" in str(w.message)]
+
+
+def test_cli_default_command_on_the_cpu(tmp_path):
+    out = _cli(
+        "--fixture-samples", "48", "--fixture-variants", "300",
+        "--block-variants", "64", "--device", "cpu",
+        "--output-path", str(tmp_path / "cli"),
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Non zero rows in matrix: 48 / 48." in out.stdout
+    assert "fused eig residual" in out.stdout  # the auto route's finish
+    assert sum(l.count("\t") == 3 for l in out.stdout.splitlines()) == 48
+    assert len((tmp_path / "cli-pca.tsv").read_text().splitlines()) == 48
