@@ -54,6 +54,28 @@ card. Phases, each of which exits non-zero on failure:
    feed's count of pinned copies equal to the block count in every run,
    and coordinates within 1e-4 of the oracle.
 
+10. the biobank width of ``bench.py``'s sketch leg, uncut: N = 2^20
+    samples, V = 2048 variants of 128 distinct carriers each (its
+    formula, copied), one ``csr_windows`` window, k = 10, seed 0, through
+    ``sketch_panel_blockwise`` and ``sketch_eig`` on the card: a warm run,
+    then the best of 2 (seconds, samples per second), a ``torch.profiler``
+    window (host/device split), peak card memory beside the documented
+    panel bound and the 4 TiB of an f32 G; Y within 1e-5 relative
+    (Frobenius) of a host float64 panel of the same CSR, row sums exact,
+    every run's panel bit-identical, no scatter launch, under 2 GiB;
+11. ``--pca-mode auto`` past the 4 GiB G bound: the driver on
+    ``synthetic_cohort(40000, 4096, rare_variant_af=0.01)`` must return a
+    ``SketchPanel`` with no scatter launch and under 2 GiB of card memory
+    (stage times, route mix, idle share per stage from a profiled run
+    with ``--sketch-power-iters 2``); the same windows all dense and all
+    scattered give panels within 1e-5 of each other; a float64 oracle on
+    the card (the V×V dual Xᵀ·H·X) gives the exact top 2, against which
+    the sketch's error is printed; and on a common-variant cohort at the
+    same width (``synthetic_cohort(40000, 256)``, whose spectrum has the
+    gap the reference's top-k contract assumes), ``auto`` with
+    ``--sketch-power-iters 2`` must meet ``SKETCH_TOPK_ATOL`` and
+    ``SKETCH_TOPK_RTOL`` against that oracle.
+
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -86,6 +108,15 @@ N_VARIANTS = 65536
 DENSE_VARIANTS = 16384
 BENCH_BLOCK_V, BENCH_BLOCKS = 8192, 8  # bench.py's shape
 COORD_TOL = 1e-4  # the MLlib-oracle parity bar
+# bench.py's sketch leg (_sketch_scale_leg): the 2^20-sample biobank width,
+# 2048 variants of 128 carriers, k = 10, one window of at most 8192.
+BIOBANK_N, BIOBANK_V, BIOBANK_CARRIERS, BIOBANK_K = 1 << 20, 2048, 128, 10
+SKETCH_BLOCK_V = 8192
+# auto's flip: the smallest round width past N = 32768, where the float32
+# G would exceed 4 GiB (6.4 GB here).
+FLIP_N, FLIP_V, FLIP_COMMON_V = 40000, 4096, 256
+SKETCH_PEAK_BYTES = 2 << 30  # card memory the sketch phases may use
+PANEL_RTOL = 1e-5  # float32 panel sums against float64 ones
 
 
 def fail(msg: str) -> None:
@@ -284,10 +315,14 @@ def ptxas_report(log: str):
 
 
 STAGES = ("ingest+gramian", "pca", "emit")
-# Host ranges of the dense route; like the stages, they also appear on the
-# device timeline as annotations, which are not device work.
+# Host ranges of the dense route and of the sketch engine; like the stages,
+# they also appear on the device timeline as annotations, which are not
+# device work.
 DENSE_RANGES = ("ingest.pack", "ingest.put", "gramian.accumulate",
                 "pcoa_fused_blocks")
+SKETCH_RANGES = ("gramian.sketch.accumulate", "gramian.sketch.window",
+                 "gramian.sketch.finish", "sketch_run")
+ANNOTATIONS = STAGES + DENSE_RANGES + SKETCH_RANGES
 
 
 def merged_busy_us(intervals, lo, hi) -> float:
@@ -310,7 +345,7 @@ def profile_split(prof) -> None:
     # The stage ranges also appear on the device timeline as annotations;
     # only kernels, copies and sets are device work.
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in STAGES + DENSE_RANGES]
+              and e.name not in ANNOTATIONS]
     stages = {e.name: (e.time_range.start, e.time_range.end)
               for e in events
               if e.name in STAGES and e.device_type == DeviceType.CPU}
@@ -815,6 +850,303 @@ def bench_shape(torch, dev):
         print(f"  host range {name}: {ms:.3f} ms over {count}")
 
 
+def biobank_csr():
+    """``bench.py``'s sketch-leg cohort (its ``_sketch_scale_leg`` formula,
+    copied): per variant, 128 distinct carriers of 2^20 samples."""
+    rng = np.random.default_rng(1000)
+    kc = BIOBANK_CARRIERS
+    idx = np.empty(BIOBANK_V * kc, dtype=np.int64)
+    for v in range(BIOBANK_V):
+        idx[v * kc:(v + 1) * kc] = rng.choice(BIOBANK_N, size=kc,
+                                              replace=False)
+    offsets = np.arange(BIOBANK_V + 1, dtype=np.int64) * kc
+    return idx, offsets
+
+
+def rel_frobenius(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def biobank_sketch(torch, dev):
+    """Phase 10: the sketch engine at N = 2^20 on the card."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from spark_examples_tpu_torch.arrays.blocks import csr_windows
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops import sketch
+    from spark_examples_tpu_torch.ops.pcoa import randomized_panel_width
+    from spark_examples_tpu_torch.utils.tracing import (
+        SKETCH_ACCUMULATE,
+        SKETCH_FINISH,
+        SKETCH_WINDOW,
+    )
+
+    n, k = BIOBANK_N, BIOBANK_K
+    t0 = time.perf_counter()
+    idx, offsets = biobank_csr()
+    l = randomized_panel_width(n, k)
+    print(f"  cohort: N={n}, V={BIOBANK_V}, {BIOBANK_CARRIERS} carriers per "
+          f"variant, nnz={idx.size}, panel width l={l}; made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def windows():
+        return csr_windows(iter([(idx, offsets)]), SKETCH_BLOCK_V)
+
+    check(len(list(windows())) == 1, "the cohort must be one window")
+
+    def run():
+        t0 = time.perf_counter()
+        panel = sketch.sketch_panel_blockwise(
+            windows, n, k, power_iters=0, seed=0,
+            block_variants=SKETCH_BLOCK_V, device=dev,
+        )
+        t1 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            coords, vals = sketch.sketch_eig(panel, k)
+        t2 = time.perf_counter()
+        return t2 - t0, t1 - t0, panel, coords, vals, len(caught)
+
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    before = dict(sketch.SKETCH_WINDOWS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    runs = [run() for _ in range(3)]  # one warm run, then the best of 2
+    peak = torch.cuda.max_memory_allocated()
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    routes = {r: sketch.SKETCH_WINDOWS[r] - before[r] for r in before}
+    best = min(runs[1:], key=lambda r: r[0])
+    print(f"  sketch_panel_blockwise + sketch_eig: warm {runs[0][0]:.4f} s, "
+          "then " + ", ".join(f"{r[0]:.4f}" for r in runs[1:]) + " s (panel "
+          + ", ".join(f"{r[1]:.4f}" for r in runs) + " s)")
+    print(f"  sketch_samples_per_sec (best of 2): {n / best[0]:.2f}")
+    print(f"  windows by route {routes}; scatter kernel launches {launches}; "
+          f"spectral-gap warnings per run {runs[0][5]} (the cohort has no "
+          "structure)")
+    print(f"  peak card memory {peak} bytes ({peak / 2**20:.1f} MiB), "
+          f"{peak - held} of them allocated by these runs; the "
+          f"documented panel bound sketch_host_bytes(N, l) = "
+          f"{sketch.sketch_host_bytes(n, l)} bytes; an f32 G would take "
+          f"{4 * n * n} bytes (4 TiB)")
+    check(launches == 0, "the sketch engine must not launch the scatter "
+          "kernel")
+    check(routes == {"scatter": 3, "dense": 0},
+          f"each run must scatter its one window, got {routes}")
+    check(peak < SKETCH_PEAK_BYTES, "peak card memory must stay under 2 GiB")
+
+    _, _, panel, coords, vals, _ = runs[0]
+    check(coords.shape == (n, k) and np.isfinite(coords).all()
+          and np.isfinite(vals).all(),
+          "coordinates must be finite, (N, k)")
+    for other in runs[1:]:
+        check(np.array_equal(other[2].y, panel.y)
+              and np.array_equal(other[2].omega, panel.omega)
+              and np.array_equal(other[2].row_sums, panel.row_sums)
+              and np.array_equal(other[3], coords),
+              "two runs with one seed must give bit-identical panels")
+    print("  the three runs' panels and coordinates are bit-identical")
+
+    t0 = time.perf_counter()
+    om = sketch.gaussian_test_matrix(n, l, 0).astype(np.float64)
+    om -= om.mean(axis=0, keepdims=True)
+    t = om[idx].reshape(BIOBANK_V, BIOBANK_CARRIERS, l).sum(axis=1)
+    t = np.repeat(t, BIOBANK_CARRIERS, axis=0)
+    y_ref = np.stack([np.bincount(idx, weights=t[:, j], minlength=n)
+                      for j in range(l)], axis=1)
+    y_ref -= y_ref.mean(axis=0, keepdims=True)
+    err = rel_frobenius(panel.y, y_ref)
+    want_sums = BIOBANK_CARRIERS * np.bincount(idx, minlength=n)
+    print(f"  Y vs the host float64 panel: relative Frobenius error "
+          f"{err:.3e} (bar {PANEL_RTOL}); row sums exact: "
+          f"{np.array_equal(panel.row_sums, want_sums)}; host check "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(err <= PANEL_RTOL, "Y beyond the float64 panel's bar")
+    check(np.array_equal(panel.row_sums, want_sums.astype(np.float64)),
+          "row sums must be exact")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("sketch_run"):
+            run()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in ANNOTATIONS]
+    window = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "sketch_run" and e.device_type == DeviceType.CPU]
+    print("  one run under torch.profiler:")
+    if device and window:
+        print_device_time(device, top=10)
+        lo, hi = window[0]
+        busy = merged_busy_us(
+            [(e.time_range.start, e.time_range.end) for e in device], lo, hi)
+        print(f"  wall-clock {(hi - lo) / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (hi - lo):.4f}")
+    else:
+        print("  device time by kernel: not measured (no CUDA events)")
+    for name, (ms, count) in sorted(host_ranges(
+            prof, (SKETCH_ACCUMULATE, SKETCH_WINDOW, SKETCH_FINISH)).items()):
+        print(f"  host range {name}: {ms:.3f} ms over {count}")
+
+
+def dual_oracle(torch, dev, windows, n, k=3):
+    """Exact top-k eigenpairs of C = H·X·Xᵀ·H in float64 on the card,
+    through the V×V dual (H·X)ᵀ·(H·X): sign-normalized unit eigenvectors
+    of C and their eigenvalues, descending."""
+    from spark_examples_tpu_torch.ops.pcoa import normalize_eigvec_signs
+
+    v = sum(lens.size for _, lens in windows)
+    x = torch.zeros((n, v), dtype=torch.float64, device=dev)
+    col = 0
+    for idx, lens in windows:
+        cols = np.repeat(np.arange(col, col + lens.size), lens)
+        x[torch.from_numpy(np.asarray(idx, np.int64)).to(dev),
+          torch.from_numpy(cols).to(dev)] = 1.0
+        col += lens.size
+    x -= x.mean(dim=0, keepdim=True)
+    w, vecs = torch.linalg.eigh(x.T @ x)
+    top = torch.argsort(w, descending=True)[:k]
+    u = (x @ vecs[:, top]) / torch.sqrt(w[top])
+    return normalize_eigvec_signs(u.cpu().numpy()), w[top].cpu().numpy()
+
+
+def auto_flip(torch, dev):
+    """Phase 11: ``--pca-mode auto`` flips to the sketch engine past the
+    4 GiB G bound, on the driver."""
+    import warnings
+
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+        synthetic_cohort,
+    )
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops import sketch
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    def conf(**kw):
+        return PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                         pca_mode="auto", num_pc=2, device="cuda", **kw)
+
+    def drive(source, name, profiled=False, **kw):
+        sk.SCATTER_KERNEL_LAUNCHES = 0
+        before = dict(sketch.SKETCH_WINDOWS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases
+        out = io.StringIO()
+        prof = all_threads_profile(torch) if profiled else (
+            contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings(
+                record=True), prof:
+            warnings.simplefilter("always")
+            driver = VariantsPcaDriver(conf(**kw), source)
+            selected = driver.sketch_selected()
+            result = driver.run()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = sk.SCATTER_KERNEL_LAUNCHES
+        routes = {r: sketch.SKETCH_WINDOWS[r] - before[r] for r in before}
+        lines = out.getvalue().splitlines()
+        tsv = [line for line in lines if line.count("\t") == 3]
+        for line in lines:
+            if line not in tsv and not line.startswith(("Stage", "---")):
+                print(f"  | {line}")
+        stage_s = {k: round(v, 6) for k, v in driver.timer.seconds.items()}
+        print(f"  {name}: driver.run() {run_s:.3f} s, stage seconds "
+              f"{json.dumps(stage_s)}; windows by route {routes}; scatter "
+              f"launches {launches}; peak card memory {peak} bytes "
+              f"({peak / 2**20:.1f} MiB), {peak - held} of them allocated "
+              f"by the run, against {4 * FLIP_N * FLIP_N} bytes of an f32 "
+              "G", flush=True)
+        check(selected and isinstance(driver.g, sketch.SketchPanel),
+              f"{name}: auto past 4 GiB of G must return a SketchPanel")
+        check(launches == 0, f"{name}: no scatter kernel launch")
+        check(peak < SKETCH_PEAK_BYTES,
+              f"{name}: peak card memory must stay under 2 GiB")
+        check(len(tsv) == FLIP_N, f"expected {FLIP_N} result lines")
+        if profiled:
+            profile_split(prof)
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), f"{name}: coordinates not finite")
+        return driver, coords
+
+    def against_oracle(name, driver, coords, windows):
+        t0 = time.perf_counter()
+        want, want_vals = dual_oracle(torch, dev, windows, FLIP_N)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, vals = sketch.sketch_eig(driver.g, 2)
+        ratio = want_vals[2] / want_vals[1]
+        val_err = np.abs(vals - want_vals[:2]) / want_vals[:2]
+        coord_err = float(np.abs(coords - want[:, :2]).max())
+        q, _ = np.linalg.qr(coords)
+        cos = np.linalg.svd(want[:, :2].T @ q, compute_uv=False)
+        sin = float(np.sqrt(max(0.0, 1.0 - cos.min() ** 2)))
+        print(f"  {name} vs the float64 dual oracle "
+              f"({time.perf_counter() - t0:.2f} s): exact top 3 {want_vals.tolist()}, λ3/λ2 {ratio:.4f}; "
+              f"sketch {vals.tolist()}, eigenvalue relative errors "
+              f"{val_err.tolist()} (bar {sketch.SKETCH_TOPK_RTOL}), "
+              f"coordinates max abs err {coord_err:.3e} (bar "
+              f"{sketch.SKETCH_TOPK_ATOL}), sine of the largest angle between "
+              f"the top-2 subspaces {sin:.3e}", flush=True)
+        return ratio, val_err, coord_err
+
+    t0 = time.perf_counter()
+    source = synthetic_cohort(FLIP_N, FLIP_V, seed=0, population_structure=3,
+                              rare_variant_af=0.01, sparse_calls=True)
+    print(f"  rare-variant cohort N={FLIP_N}, V={FLIP_V} generated in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    drive(source, "auto")
+    driver, coords = drive(source, "auto --sketch-power-iters 2 (profiled)",
+                           profiled=True, sketch_power_iters=2)
+
+    t0 = time.perf_counter()
+    windows = host_windows(source, driver.conf, driver.index.indexes)
+    panels = {}
+    for route, threshold in (("dense", 0.0), ("scatter", float("inf"))):
+        before = dict(sketch.SKETCH_WINDOWS)
+        panels[route] = sketch.sketch_panel_blockwise(
+            lambda: iter(windows), FLIP_N, 2, density_threshold=threshold,
+            device=dev)
+        applied = sketch.SKETCH_WINDOWS[route] - before[route]
+        check(applied == len(windows),
+              f"threshold {threshold} must route every window {route}")
+    err = rel_frobenius(panels["dense"].y, panels["scatter"].y)
+    same_sums = np.array_equal(panels["dense"].row_sums,
+                               panels["scatter"].row_sums)
+    print(f"  all-dense vs all-scatter panels of the same {len(windows)} "
+          f"window(s): relative Frobenius error {err:.3e} (bar "
+          f"{PANEL_RTOL}), row sums equal {same_sums}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(err <= PANEL_RTOL, "the dense and scatter routes disagree")
+    check(same_sums, "the two routes' row sums must be equal")
+    ratio, _, _ = against_oracle("rare cohort, 2 power iterations", driver,
+                                 coords, windows)
+    check(ratio < 0.95, "the rare cohort's λ3/λ2 must be below 0.95")
+    del source, driver, windows, panels
+
+    t0 = time.perf_counter()
+    common = synthetic_cohort(FLIP_N, FLIP_COMMON_V, seed=0,
+                              population_structure=3, sparse_calls=True)
+    print(f"  common-variant cohort N={FLIP_N}, V={FLIP_COMMON_V} generated "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    driver, coords = drive(common, "common cohort, auto "
+                           "--sketch-power-iters 2", sketch_power_iters=2)
+    windows = host_windows(common, driver.conf, driver.index.indexes)
+    ratio, val_err, coord_err = against_oracle(
+        "common cohort, 2 power iterations", driver, coords, windows)
+    check(ratio < 0.95, "the common cohort's λ3/λ2 must be below 0.95")
+    check(val_err.max() <= sketch.SKETCH_TOPK_RTOL
+          and coord_err <= sketch.SKETCH_TOPK_ATOL,
+          "the sketch must meet the reference's top-k bars on a gapped "
+          "spectrum")
+
+
 def host_windows(source, conf, indexes):
     """The driver's CSR windows, rebuilt on the host from the same source."""
     from spark_examples_tpu_torch.arrays.blocks import windows_from_calls
@@ -1018,6 +1350,13 @@ def main() -> int:
 
     print("== 9. bench shape through pcoa_fused_blocks", flush=True)
     bench_shape(torch, dev)
+
+    print("== 10. sketch engine at the biobank width (N = 2^20)", flush=True)
+    biobank_sketch(torch, dev)
+
+    print("== 11. --pca-mode auto past the 4 GiB G bound (N = 40000)",
+          flush=True)
+    auto_flip(torch, dev)
 
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",

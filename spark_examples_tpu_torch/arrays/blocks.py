@@ -1,17 +1,19 @@
 """Carrier lists → CSR windows and dense 0/1 blocks: the host side of ingest.
 
 The bridge between the ragged host world (per-variant lists of carrying
-sample indices, the ``RDD[Seq[Int]]`` interface at VariantsPca.scala:153-168)
-and the device: per-block ``(indices, lens)`` CSR windows of
-``block_variants`` variants, which the sparse engine scatters from directly,
-and 0/1 indicator blocks ``X_blk ∈ {0,1}^(N × width)`` of a fixed width for
-the dense-blockwise route and the sparse engine's dense windows. Padding is
-free correctness-wise: an all-zero variant column contributes nothing to
-the Gramian, so the final partial block is zero-padded.
+sample indices, the ``RDD[Seq[Int]]`` interface at VariantsPca.scala:153-168,
+or per-shard CSR ``(indices, offsets)`` pairs) and the device: per-block
+``(indices, lens)`` CSR windows of ``block_variants`` variants, which the
+sparse and sketch engines consume directly, and 0/1 indicator blocks
+``X_blk ∈ {0,1}^(N × width)`` of a fixed width for the dense-blockwise
+route and the dense windows of both engines. Padding is free
+correctness-wise: an all-zero variant column contributes nothing to the
+Gramian, so the final partial block is zero-padded.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 from typing import Iterable, Iterator, List, Sequence, Tuple
 
@@ -20,6 +22,7 @@ import numpy as np
 __all__ = [
     "DEFAULT_BLOCK_VARIANTS",
     "blocks_from_calls",
+    "csr_windows",
     "densify_calls",
     "round_up_multiple",
     "windows_from_calls",
@@ -81,6 +84,67 @@ def windows_from_calls(
             buf_idx, buf_lens = [], []
     if buf_lens:
         yield emit()
+
+
+def csr_windows(
+    csr_iter: Iterable,
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Regroup per-shard CSR pairs into per-block windows.
+
+    Consumes ``(indices, offsets)`` pairs in arrival order (``offsets`` of
+    length rows+1; ``None`` or empty shards are skipped) and yields one
+    ``(indices, lens)`` window per ``block_variants`` variants, the tail
+    window smaller: ``lens[i]`` is variant i's carrier count and
+    ``indices`` its carriers concatenated, as int64. Window composition
+    depends only on the pair arrival order. A pair that spans many blocks
+    is sliced with a moving cursor of zero-copy views, never
+    re-concatenated per emitted window.
+    """
+    pend: collections.deque = collections.deque()
+    rows_buf = 0
+
+    def emit(take: int):
+        """Slice the first ``take`` buffered variants into one window."""
+        nonlocal rows_buf
+        idx_parts: List[np.ndarray] = []
+        lens_parts: List[np.ndarray] = []
+        need = take
+        while need:
+            idx, lens = pend[0]
+            if lens.size <= need:
+                pend.popleft()
+                idx_parts.append(idx)
+                lens_parts.append(lens)
+                need -= lens.size
+            else:
+                cut = int(lens[:need].sum())
+                idx_parts.append(idx[:cut])
+                lens_parts.append(lens[:need])
+                pend[0] = (idx[cut:], lens[need:])
+                need = 0
+        rows_buf -= take
+        if len(lens_parts) == 1:
+            return idx_parts[0], lens_parts[0]
+        return np.concatenate(idx_parts), np.concatenate(lens_parts)
+
+    for pair in csr_iter:
+        if pair is None:
+            continue
+        indices, offsets = pair
+        if offsets.size <= 1:
+            continue
+        pend.append(
+            (
+                np.asarray(indices, dtype=np.int64),
+                np.diff(np.asarray(offsets, dtype=np.int64)),
+            )
+        )
+        rows_buf += offsets.size - 1
+        while rows_buf >= block_variants:
+            yield emit(block_variants)
+    if rows_buf:
+        yield emit(rows_buf)
 
 
 def _densify_window(

@@ -1,5 +1,5 @@
 """The PCoA pipeline driver on PyTorch: meshless ``--pca-mode
-auto|fused|stream|sparse``.
+auto|fused|stream|sparse|sketch``.
 
 The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 ``VariantsPca.scala:36-246``) with the same stage surface — get_data /
@@ -18,6 +18,12 @@ report_io_stats — for a single-process, meshless, uncheckpointed run:
   :func:`~spark_examples_tpu_torch.ops.sparse.sparse_gramian_blockwise` —
   rare windows through the hand-written CUDA scatter kernel, dense ones
   through the int8 product;
+- no Gramian (``sketch``, and ``auto`` where the float32 G would exceed
+  4 GiB, N > 32768): the same CSR windows accumulate an (N, k+p)
+  randomized panel
+  (:func:`~spark_examples_tpu_torch.ops.sketch.sketch_panel_blockwise`),
+  finished on the host in float64 (:func:`~spark_examples_tpu_torch.ops.
+  sketch.sketch_eig`);
 - finish: the fused centering + CholeskyQR subspace eig (``fused``; under
   ``auto`` and ``sparse`` for N ≤ ``--dense-eigh-limit``, with dense
   ``eigh`` when it collapses on a degenerate G), dense ``eigh``
@@ -56,6 +62,11 @@ from spark_examples_tpu_torch.ops.pcoa import (
     pcoa,
     topk_with_gap_check,
 )
+from spark_examples_tpu_torch.ops.sketch import (
+    SketchPanel,
+    sketch_eig,
+    sketch_panel_blockwise,
+)
 from spark_examples_tpu_torch.ops.sparse import sparse_gramian_blockwise
 from spark_examples_tpu_torch.utils.config import (
     PCA_MODES,
@@ -89,6 +100,31 @@ class VariantsPcaDriver:
                 f"pca_mode must be one of {allowed}; got "
                 f"{conf.pca_mode!r}"
             )
+        if conf.pca_mode == "sketch" and conf.checkpoint_dir:
+            # The sketch panel has no snapshot grid (and a resumed partial
+            # panel would silently double-count windows).
+            raise ValueError(
+                "--pca-mode sketch does not compose with checkpointed "
+                "ingest; drop --checkpoint-dir or use --pca-mode auto"
+            )
+        if conf.pca_mode == "sketch" and conf.precise:
+            # --precise is the host-f64 exact route; the sketch engine is
+            # approximate by contract.
+            raise ValueError(
+                "--pca-mode sketch is the randomized approximate "
+                "engine and cannot honor --precise; drop one"
+            )
+        if conf.sketch_oversample < 1:
+            raise ValueError(
+                "--sketch-oversample must be >= 1 (the panel needs a "
+                "value past k for the spectral-gap check), got "
+                f"{conf.sketch_oversample}"
+            )
+        if conf.sketch_power_iters < 0:
+            raise ValueError(
+                "--sketch-power-iters must be >= 0, got "
+                f"{conf.sketch_power_iters}"
+            )
         if conf.sparse_density_threshold < 0:
             raise ValueError(
                 "--sparse-density-threshold must be >= 0, got "
@@ -102,8 +138,6 @@ class VariantsPcaDriver:
                 "non---precise run (use --pca-mode auto to fall back "
                 "automatically)"
             )
-        if conf.pca_mode == "sketch":
-            raise unported("--pca-mode sketch", "item 2, sketch engine")
         if conf.mesh_shape:
             raise unported("--mesh-shape", "item 5, the mesh layer")
         if conf.checkpoint_dir:
@@ -123,7 +157,8 @@ class VariantsPcaDriver:
             if index is not None
             else CallsetIndex.from_source(source, conf.variant_set_ids)
         )
-        # Set by run(): the finished Gramian and the stage timings.
+        # Set by run(): the finished Gramian (or the sketch panel) and the
+        # stage timings.
         self.g = None
         self.timer = None
 
@@ -296,11 +331,62 @@ class VariantsPcaDriver:
     def _gramian_sparse(self):
         return self._windows_to_gramian(self._cohort_windows())
 
+    # The auto-sketch trigger, the JAX package's: above 4 GiB of float32 G
+    # (N > 32768) its exact engines refuse, and only there does auto trade
+    # exactness for the approximate engine.
+    SKETCH_AUTO_G_BYTES = 4 << 30
+
+    def _sparse_host_g_bytes(self) -> int:
+        """Bytes of the float32 (N, N) G a meshless exact run holds."""
+        n = self.index.size
+        return n * n * 4
+
+    def sketch_selected(self) -> bool:
+        """Will :meth:`ingest_gramian` return a Gramian-free
+        :class:`~spark_examples_tpu_torch.ops.sketch.SketchPanel` instead of
+        an (N, N) G?"""
+        return self._sketch_selected()
+
+    def _sketch_selected(self) -> bool:
+        """Route ingest through the sketch engine?
+
+        ``--pca-mode sketch`` forces it; ``auto`` selects it only where the
+        float32 G would exceed :attr:`SKETCH_AUTO_G_BYTES`. (The JAX
+        package also requires an uncheckpointed run; here
+        ``--checkpoint-dir`` raises in ``__init__``.)
+        """
+        mode = self.conf.pca_mode
+        if mode == "sketch":
+            return True
+        if mode != "auto":
+            return False
+        return self._sparse_host_g_bytes() > self.SKETCH_AUTO_G_BYTES
+
+    def _sketch_panel(self) -> SketchPanel:
+        """Sketch-engine ingest: the cohort's CSR windows into an
+        (N, k+p) randomized panel. The factory returns fresh windows on
+        each call, because each power iteration re-streams the source."""
+        return sketch_panel_blockwise(
+            self._cohort_windows,
+            self.index.size,
+            self.conf.num_pc,
+            oversample=self.conf.sketch_oversample,
+            power_iters=self.conf.sketch_power_iters,
+            seed=self.conf.sketch_seed,
+            density_threshold=self.conf.sparse_density_threshold,
+            block_variants=self.conf.block_variants,
+            device=self.device,
+        )
+
     def ingest_gramian(self):
         """Stages 1-4 as one call: route the configured ingest tier and
-        return the finished (N, N) float32 G tensor — the sparse engine,
-        else the fused-ingest carrier lists, else the staged Variant
-        path, both through the dense-blockwise accumulator."""
+        return the finished (N, N) float32 G tensor — or, under the sketch
+        engine, a host :class:`~spark_examples_tpu_torch.ops.sketch.
+        SketchPanel` and no G at all; else the sparse engine, else the
+        fused-ingest carrier lists, else the staged Variant path, both
+        through the dense-blockwise accumulator."""
+        if self._sketch_selected():
+            return self._sketch_panel()
         if self._sparse_selected():
             return self._gramian_sparse()
         return self.get_similarity_matrix(self._cohort_calls())
@@ -323,6 +409,12 @@ class VariantsPcaDriver:
         return self.index.size <= self.conf.dense_eigh_limit
 
     def compute_pca(self, g, timer=None) -> List[Tuple[str, float, float]]:
+        if isinstance(g, SketchPanel):
+            # Gramian-free finish: the row sums rode the panel's companion
+            # column, so the parity print survives without G.
+            self._print_nonzero_rows(g.row_sums)
+            coords, _ = sketch_eig(g, self.conf.num_pc, timer=timer)
+            return self._emit_tuples(coords)
         if self._pca_fused_eligible():
             kwargs = (
                 {"resid_warn": self.conf.eig_tol}
@@ -438,8 +530,9 @@ class VariantsPcaDriver:
 
     def run(self) -> List[Tuple[str, float, float]]:
         """main() stage order — VariantsPca.scala:38-50. Keeps the
-        finished Gramian (``self.g``) and the stage timer (``self.timer``)
-        for callers that verify the run."""
+        finished Gramian (``self.g``: a tensor, or a host ``SketchPanel``
+        under the sketch engine) and the stage timer (``self.timer``) for
+        callers that verify the run."""
         self.timer = timer = StageTimer()
         with timer.stage("ingest+gramian"):
             self.g = self.ingest_gramian()

@@ -28,14 +28,44 @@ import torch
 from spark_examples_tpu_torch.ops.centering import double_center
 
 __all__ = [
+    "DEFAULT_RANDOMIZED_OVERSAMPLE",
+    "DEFAULT_SKETCH_POWER_ITERS",
     "SpectralGapWarning",
     "check_spectral_gap",
     "mllib_principal_components_reference",
     "normalize_eigvec_signs",
     "pcoa",
     "principal_components",
+    "randomized_panel_width",
     "topk_with_gap_check",
 ]
+
+# The one oversampling default of the randomized top-k solvers: the sketch
+# engine (ops/sketch.py, --sketch-oversample) sizes its panel through
+# randomized_panel_width with it. The JAX package's value: a drifted copy
+# would change which Ritz pairs exist for the gap check.
+DEFAULT_RANDOMIZED_OVERSAMPLE = 8
+
+# Extra streamed passes of the sketch engine, with Ω ← orth(Y) between them
+# (--sketch-power-iters). 0 = one pass over the windows.
+DEFAULT_SKETCH_POWER_ITERS = 0
+
+
+def randomized_panel_width(
+    n: int, k: int, oversample: int = DEFAULT_RANDOMIZED_OVERSAMPLE
+) -> int:
+    """Panel width of a randomized top-k eigensolve: ``min(n, k +
+    max(oversample, 1))``.
+
+    The panel must carry at least ``min(k + 1, n)`` Ritz pairs: ``k`` for
+    the returned components plus one past the gap for
+    :func:`check_spectral_gap`, which returns silently when no value past
+    index k−1 exists. The floor of 1 on ``oversample`` guarantees that
+    value whenever the spectrum has one (n > k).
+    """
+    if k < 1:
+        raise ValueError(f"top-k eigensolve needs k >= 1, got {k}")
+    return min(n, k + max(int(oversample), 1))
 
 
 class SpectralGapWarning(UserWarning):

@@ -154,6 +154,13 @@ def padded_carrier_matrix(
     return mat
 
 
+def _pad_rows_for_scan(rows: int) -> int:
+    """Variant-axis padding of a carrier matrix: a multiple of
+    :data:`SCATTER_CHUNK_VARIANTS` (at least one chunk), so the chunked
+    steps divide it evenly."""
+    return round_up_multiple(max(rows, 1), SCATTER_CHUNK_VARIANTS)
+
+
 def sparse_gramian_accumulate(g: torch.Tensor, window_idx, lens):
     """One sparse accumulation step: scatter a CSR window into G in place.
 
@@ -166,9 +173,7 @@ def sparse_gramian_accumulate(g: torch.Tensor, window_idx, lens):
         window_idx,
         lens,
         sentinel=g.shape[0],
-        n_rows=round_up_multiple(
-            max(np.asarray(lens).size, 1), SCATTER_CHUNK_VARIANTS
-        ),
+        n_rows=_pad_rows_for_scan(np.asarray(lens).size),
     )
     idx = torch.from_numpy(idx).to(g.device)
     return scatter_pairs(g, idx, idx)

@@ -3,11 +3,10 @@
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default. Options
-of routes not ported yet (meshes, checkpoints, file and network sources,
-the sketch engine) are accepted and then refused with
-``NotImplementedError`` naming the ROADMAP.md item that ports them, never
-silently ignored. ``--device`` is the port's own: ``cuda`` by default,
-``cpu`` only when asked.
+of routes not ported yet (meshes, checkpoints, file and network sources)
+are accepted and then refused with ``NotImplementedError`` naming the
+ROADMAP.md item that ports them, never silently ignored. ``--device`` is
+the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
 
 from __future__ import annotations
@@ -26,6 +25,10 @@ from spark_examples_tpu_torch.genomics.shards import (
     shards_for_all_references,
     shards_for_references,
 )
+from spark_examples_tpu_torch.ops.pcoa import (
+    DEFAULT_RANDOMIZED_OVERSAMPLE,
+    DEFAULT_SKETCH_POWER_ITERS,
+)
 from spark_examples_tpu_torch.ops.sparse import (
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
 )
@@ -38,7 +41,7 @@ __all__ = [
     "unported",
 ]
 
-# The JAX package's --pca-mode registry. The port serves all but "sketch".
+# The JAX package's --pca-mode registry.
 PCA_MODES = ("auto", "fused", "stream", "sparse", "sketch")
 
 # Reference well-known variantset id (SearchVariantsExample.scala:27-31).
@@ -69,6 +72,14 @@ class PcaConfig:
     num_pc: int = 2
     precise: bool = False  # host-f64 eigendecomposition
     pca_mode: str = "auto"
+    # The sketch engine's knobs (--pca-mode sketch, or auto past the 4 GiB
+    # G bound): panel oversampling p (the panel has randomized_panel_width
+    # = k+p columns), the seed of the Gaussian test matrix Ω (a run is
+    # reproducible bit for bit from it), and the extra streamed passes with
+    # Ω ← orth(Y) between them.
+    sketch_oversample: int = DEFAULT_RANDOMIZED_OVERSAMPLE
+    sketch_seed: int = 0
+    sketch_power_iters: int = DEFAULT_SKETCH_POWER_ITERS
     # Dense/sparse switch of the sparse Gramian: a window whose carrier
     # density is strictly below this scatters, at or above it goes dense.
     sparse_density_threshold: float = DEFAULT_SPARSE_DENSITY_THRESHOLD
@@ -172,7 +183,40 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "above; 'fused' forces the fused finish; 'stream' forces the "
         "dense-eigh finish; 'sparse' accumulates straight from CSR carrier "
         "windows (a hand-written CUDA scatter for rare windows, an int8 "
-        "product for dense ones). 'sketch' is not ported yet",
+        "product for dense ones); 'sketch' forces the Gramian-free "
+        "randomized sketch engine: the same CSR windows accumulate an "
+        "(N, k+p) panel, no N x N matrix anywhere, O(N*(k+p)) memory, "
+        "then a host float64 Nystrom finish, held to the reference's "
+        "spectrum tolerance (see --sketch-seed); auto selects it only "
+        "where the float32 G would exceed 4 GiB (N > 32768)",
+    )
+    p.add_argument(
+        "--sketch-oversample",
+        type=int,
+        default=PcaConfig.sketch_oversample,
+        help="Sketch-engine panel oversampling p: the streamed panel "
+        "carries k+p columns (floor p >= 1, so the spectral-gap check "
+        "always has a value past k). Larger p tightens the approximation "
+        "at O(N*p) memory and per-window cost; p >= N-k makes the "
+        "Nystrom reconstruction exact to roundoff",
+    )
+    p.add_argument(
+        "--sketch-seed",
+        type=int,
+        default=PcaConfig.sketch_seed,
+        help="Seed of the sketch engine's Gaussian test matrix: a fixed "
+        "seed reproduces coordinates bit for bit; different seeds agree "
+        "within the documented spectrum tolerance (ops/sketch.py), not "
+        "bit for bit",
+    )
+    p.add_argument(
+        "--sketch-power-iters",
+        type=int,
+        default=PcaConfig.sketch_power_iters,
+        help="Extra full streamed passes of the sketch engine with "
+        "Omega <- orth(Y) between them: 0 (default) streams the windows "
+        "once; >= 2 sharpens coordinates to the top-k tolerance bars on "
+        "gapped spectra. Each pass re-streams every CSR window once",
     )
     p.add_argument(
         "--sparse-density-threshold",

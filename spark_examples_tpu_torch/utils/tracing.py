@@ -11,7 +11,9 @@ package's spans, split the ingest stage: :data:`INGEST_PACK` (the host
 bit-pack of one block, in the feed's producer thread), :data:`INGEST_PUT`
 (staging one block into pinned memory and enqueueing its copy) and
 :data:`GRAMIAN_ACCUMULATE` (enqueueing one block's unpack, product and
-add).
+add). The sketch engine has three of its own: :data:`SKETCH_ACCUMULATE`
+(one streamed pass over the windows), :data:`SKETCH_WINDOW` (one window's
+panel update) and :data:`SKETCH_FINISH` (the host float64 eigensolve).
 """
 
 from __future__ import annotations
@@ -26,12 +28,18 @@ __all__ = [
     "GRAMIAN_ACCUMULATE",
     "INGEST_PACK",
     "INGEST_PUT",
+    "SKETCH_ACCUMULATE",
+    "SKETCH_FINISH",
+    "SKETCH_WINDOW",
     "StageTimer",
 ]
 
 INGEST_PACK = "ingest.pack"
 INGEST_PUT = "ingest.put"
 GRAMIAN_ACCUMULATE = "gramian.accumulate"
+SKETCH_ACCUMULATE = "gramian.sketch.accumulate"
+SKETCH_WINDOW = "gramian.sketch.window"
+SKETCH_FINISH = "gramian.sketch.finish"
 
 
 class StageTimer:

@@ -47,6 +47,7 @@ def test_every_module_imports_without_jax():
         "ops.fused",
         "ops.gramian",
         "ops.scatter_kernel",
+        "ops.sketch",
         "tools.ingest_workers",
         "utils.concurrency",
     ):
