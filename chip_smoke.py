@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py          # from the repository root, on a GPU host
 
-Drives the port's two paths through ``VariantsPcaDriver.run()`` at the
-1000 Genomes phase-3 cohort width (N = 2504 samples): meshless
-``pca --pca-mode sparse`` over V = 65536 rare variants, and the default
-``pca`` (``--pca-mode auto``: dense-blockwise ingest through the bit-packed
-pinned feed, then the fused finish) over V = 16384 common variants; and
-holds every hand-written kernel against its plain PyTorch version on the
-card. Phases, each of which exits non-zero on failure:
+Drives the port's paths through ``VariantsPcaDriver.run()`` at the 1000
+Genomes phase-3 cohort width (N = 2504 samples): meshless
+``pca --pca-mode sparse`` over V = 65536 rare variants, from the in-memory
+fixture and from the same cohort on disk (``--input-path``, through the CSR
+sidecar), and the default ``pca`` (``--pca-mode auto``: dense-blockwise
+ingest through the bit-packed pinned feed, then the fused finish); the
+sketch engine at the biobank width (N = 2^20), alone and through the
+driver over an on-disk cohort; and holds every hand-written kernel against
+its plain PyTorch version on the card. Phases, each of which exits non-zero
+on failure:
 
 1. device: the card's name, CUDA version, name and power limit;
 2. build: every kernel of the path compiled from ``csrc/`` (timed), with
@@ -30,8 +33,10 @@ card. Phases, each of which exits non-zero on failure:
    the cohort) and at the K = 8 and K = 512 shapes of phase 3: kernel,
    plain version, one-call library yardstick, the bound the card's memory
    and f32 rates set, and the library/kernel ratio;
-6. the CLI in a subprocess on the card: ``--pca-mode sparse``, and the
-   default command (no ``--pca-mode``);
+6. the CLI in a subprocess on the card: ``--pca-mode sparse``, the
+   default command (no ``--pca-mode``), and ``--input-path`` over phase 4's
+   cohort written to disk with ``FixtureSource.dump`` (phase 12's
+   directory; the run builds the CSR sidecar);
 7. odd sample counts: ``gramian_accumulate_packed`` at N ∈ {12, 13, 2500}
    (shapes ``torch._int_mm`` refuses unpadded) equal to the host int64
    product; ``gramian`` and ``fused_forward`` given a numpy block compute
@@ -74,7 +79,27 @@ card. Phases, each of which exits non-zero on failure:
     same width (``synthetic_cohort(40000, 256)``, whose spectrum has the
     gap the reference's top-k contract assumes), ``auto`` with
     ``--sketch-power-iters 2`` must meet ``SKETCH_TOPK_ATOL`` and
-    ``SKETCH_TOPK_RTOL`` against that oracle.
+    ``SKETCH_TOPK_RTOL`` against that oracle;
+12. ``pca --input-path`` over phase 4's cohort on disk, uncut (N = 2504,
+    V = 65536): a ``--pca-mode sparse`` run that builds the sidecar (cold)
+    and one that maps it (warm), each with the scatter launch count set to
+    0 before and read after: it must equal phase 4's, and G must be phase
+    4's bit for bit, coordinates within 1e-4 of the oracle; ``auto`` (the
+    CSR-direct dense route): no scatter launch, one pinned copy per block,
+    G bit-identical; the same ``auto`` run from the fixture source (the
+    record loop) for comparison; ``--samples`` with the first 2000 callset
+    ids: G the 2000 x 2000 corner; ``--ingest-order completion`` over 9
+    shards on 4 threads: G bit-identical; a ``torch.profiler`` window over
+    a warm ``auto`` and a warm ``sparse`` run (idle share per stage, the
+    ingest host ranges and the threads they ran on); the sidecar's build,
+    map and per-shard query times;
+13. the biobank width through the driver, uncut: phase 10's cohort written
+    as a JSONL directory (2^20 callsets, 2048 variants) and read with
+    ``--input-path --pca-mode auto --num-pc 10``: a cold-sidecar, a warm
+    and a profiled warm run must each return a ``SketchPanel``, launch no
+    scatter kernel, stay under 2 GiB of card memory, and give phase 10's
+    panel and coordinates bit for bit; stage times, samples per second,
+    idle share per stage, and the ordinal lookup over 2^20 ids.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -84,12 +109,15 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -322,7 +350,12 @@ DENSE_RANGES = ("ingest.pack", "ingest.put", "gramian.accumulate",
                 "pcoa_fused_blocks")
 SKETCH_RANGES = ("gramian.sketch.accumulate", "gramian.sketch.window",
                  "gramian.sketch.finish", "sketch_run")
-ANNOTATIONS = STAGES + DENSE_RANGES + SKETCH_RANGES
+# Host ranges of the on-disk cohort's CSR-direct ingest (one shard stream,
+# each shard's sidecar extraction, each block's build in a builder thread).
+FILE_RANGES = ("ingest.stream", "ingest.fetch", "jsonl.stream_carrying_csr",
+               "ingest.build", "ingest.pack", "ingest.put",
+               "gramian.accumulate")
+ANNOTATIONS = STAGES + DENSE_RANGES + SKETCH_RANGES + FILE_RANGES
 
 
 def merged_busy_us(intervals, lo, hi) -> float:
@@ -416,18 +449,24 @@ def all_threads_profile(torch):
 
 
 def pageable_copies_in(prof, stage):
-    """Host-to-device copies from pageable memory that ran on the device
-    inside the host range ``stage``."""
+    """Host-to-device copies from pageable memory issued inside the host
+    range ``stage``, and all pageable copies the profile attributes to a
+    host op. Each device copy is attributed to the op that launched it
+    (the profiler's correlation), and the op's host time is compared with
+    the range's: the device clock's alignment with the host's, which can
+    put a copy launched just after the range inside it, plays no part."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     windows = [(e.time_range.start, e.time_range.end) for e in events
                if e.name == stage and e.device_type == DeviceType.CPU]
-    return sum(1 for e in events
-               if e.device_type == DeviceType.CUDA and "HtoD" in e.name
-               and "Pageable" in e.name
-               and any(lo <= e.time_range.start <= hi
-                       for lo, hi in windows))
+    launched = [e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                for k in e.kernels
+                if "HtoD" in k.name and "Pageable" in k.name]
+    inside = sum(1 for t in launched
+                 if any(lo <= t <= hi for lo, hi in windows))
+    return inside, len(launched)
 
 
 def copies_by_kind(by_name):
@@ -694,9 +733,10 @@ def dense_main_path(torch, dev):
     print(f"  stage seconds under the profiler: {json.dumps(stage_s)}")
     by_name = profile_split(prof)
     pinned, pageable = copies_by_kind(by_name)
-    in_ingest = pageable_copies_in(prof, "ingest+gramian")
+    in_ingest, attributed = pageable_copies_in(prof, "ingest+gramian")
     print(f"  host-to-device copies in the profile: {pinned} from pinned "
-          f"memory, {pageable} from pageable memory ({in_ingest} of them "
+          f"memory, {pageable} from pageable memory ({attributed} of them "
+          f"attributed to the host op that issued it, {in_ingest} issued "
           f"inside ingest+gramian); the feed's own count: "
           f"{feed.PINNED_COPIES} of {n_blocks} blocks copied from pinned "
           "memory")
@@ -705,6 +745,8 @@ def dense_main_path(torch, dev):
     # so the feed's own count above is the proof that every block was
     # copied from pinned memory, and the profile shows that nothing in
     # the ingest stage was copied from pageable memory.
+    check(attributed == pageable,
+          "every pageable copy must be attributed to the op that issued it")
     check(in_ingest == 0,
           "the ingest stage must copy nothing from pageable memory")
     for name, (ms, count) in sorted(host_ranges(
@@ -990,6 +1032,7 @@ def biobank_sketch(torch, dev):
     for name, (ms, count) in sorted(host_ranges(
             prof, (SKETCH_ACCUMULATE, SKETCH_WINDOW, SKETCH_FINISH)).items()):
         print(f"  host range {name}: {ms:.3f} ms over {count}")
+    return panel, coords, n / best[0]
 
 
 def dual_oracle(torch, dev, windows, n, k=3):
@@ -1145,6 +1188,279 @@ def auto_flip(torch, dev):
           and coord_err <= sketch.SKETCH_TOPK_ATOL,
           "the sketch must meet the reference's top-k bars on a gapped "
           "spectrum")
+
+
+def same_g(g, g_ref) -> bool:
+    """G bit-identical to the host int64 product (exact as float32)."""
+    return (g.shape == g_ref.shape
+            and np.array_equal(g.astype(np.int64), g_ref)
+            and np.array_equal(g, g_ref.astype(np.float32)))
+
+
+def thread_sets(prof, names):
+    """The threads each named host range ran on: ``{name: [thread ids]}``."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.name in names and e.device_type == DeviceType.CPU:
+            out.setdefault(e.name, set()).add(e.thread)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def drive_file(torch, source, name, profiled=False, **kw):
+    """One ``VariantsPcaDriver.run()`` on the card with the scatter and
+    pinned-copy counts set to 0 just before and read just after; stdout
+    captured. Returns the driver, its result, G on the host (or None
+    under the sketch engine), the two counts and the profile."""
+    from spark_examples_tpu_torch.arrays import feed
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.sketch import SketchPanel
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    conf = PcaConfig(device="cuda", **kw)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    feed.PINNED_COPIES = 0
+    out = io.StringIO()
+    prof = all_threads_profile(torch) if profiled else (
+        contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), prof:
+        t1 = time.perf_counter()
+        driver = VariantsPcaDriver(conf, source)
+        init_s = time.perf_counter() - t1
+        result = driver.run()
+    run_s = time.perf_counter() - t0
+    launches, pinned = sk.SCATTER_KERNEL_LAUNCHES, feed.PINNED_COPIES
+    lines = out.getvalue().splitlines()
+    n_tsv = sum(line.count("\t") == 3 for line in lines)
+    stage_s = {k: round(v, 6) for k, v in driver.timer.seconds.items()}
+    print(f"  {name}: driver construction {init_s:.3f} s, run() "
+          f"{run_s - init_s:.3f} s, stage seconds {json.dumps(stage_s)}; "
+          f"scatter launches {launches}, pinned feed copies {pinned}",
+          flush=True)
+    check(n_tsv == driver.cohort.size,
+          f"{name}: expected {driver.cohort.size} result lines, got {n_tsv}")
+    g = None if isinstance(driver.g, SketchPanel) else driver.g.cpu().numpy()
+    return driver, result, g, launches, pinned, prof
+
+
+def on_disk_cohort(torch, root, fixture, g_ref, want, n_blocks,
+                   phase4_launches):
+    """Phase 12: ``pca --input-path`` over phase 4's cohort on disk."""
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.sources import (
+        LINEIDX_BASENAME,
+        SIDECAR_BASENAME,
+        JsonlSource,
+    )
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
+    sidecar = os.path.join(root, SIDECAR_BASENAME)
+    for name in (SIDECAR_BASENAME, LINEIDX_BASENAME):
+        path = os.path.join(root, name)
+        if os.path.exists(path):
+            os.unlink(path)  # written by phase 6's CLI run
+    print(f"  cohort directory: variants.jsonl "
+          f"{os.path.getsize(os.path.join(root, 'variants.jsonl'))} bytes; "
+          "no sidecar", flush=True)
+
+    def coords_err(result):
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), "coordinates must be finite")
+        return float(np.abs(coords - want).max())
+
+    for name in ("sparse, cold sidecar", "sparse, warm sidecar"):
+        _, result, g, launches, _, _ = drive_file(
+            torch, JsonlSource(root), name, pca_mode="sparse", **base)
+        err = coords_err(result)
+        print(f"    G bit-identical to phase 4's: {same_g(g, g_ref)}; "
+              f"coordinates vs host f64 oracle {err:.3e}")
+        check(os.path.exists(sidecar), "the run must write the sidecar")
+        check(launches == phase4_launches,
+              f"{name}: {launches} scatter launches, phase 4 launched "
+              f"{phase4_launches}")
+        check(same_g(g, g_ref), f"{name}: G is not phase 4's bit for bit")
+        check(err <= COORD_TOL, f"{name}: coordinates beyond the bar")
+    main_launches = launches
+
+    driver, result, g, launches, pinned, _ = drive_file(
+        torch, JsonlSource(root), "auto, warm sidecar", pca_mode="auto",
+        **base)
+    err = coords_err(result)
+    print(f"    G bit-identical to phase 4's: {same_g(g, g_ref)}; "
+          f"coordinates vs host f64 oracle {err:.3e}; {n_blocks} blocks")
+    check(launches == 0, "auto must route dense: no scatter launch")
+    check(pinned == n_blocks,
+          f"auto: {pinned} pinned copies for {n_blocks} blocks")
+    check(same_g(g, g_ref), "auto: G is not phase 4's bit for bit")
+    check(err <= COORD_TOL, "auto: coordinates beyond the bar")
+
+    _, _, g_fix, _, _, _ = drive_file(
+        torch, fixture, "auto, the same cohort from the fixture source "
+        "(the record loop)", pca_mode="auto", **base)
+    check(same_g(g_fix, g_ref), "the fixture auto run's G differs")
+
+    ids = [c.id for c in JsonlSource(root).list_callsets(
+        DEFAULT_VARIANT_SET_ID)]
+    _, _, g, _, _, _ = drive_file(
+        torch, JsonlSource(root), "auto --samples <the first 2000 ids>",
+        pca_mode="auto", samples=ids[:2000], **base)
+    print(f"    G bit-identical to G[:2000, :2000]: "
+          f"{same_g(g, g_ref[:2000, :2000])}")
+    check(same_g(g, g_ref[:2000, :2000]),
+          "--samples: G is not the unrestricted G's submatrix")
+
+    driver, _, g, _, pinned, _ = drive_file(
+        torch, JsonlSource(root),
+        "auto --ingest-order completion --ingest-workers 4 "
+        "--bases-per-partition 10000", pca_mode="auto",
+        ingest_order="completion", ingest_workers=4,
+        bases_per_partition=10_000, **base)
+    shards = len(driver._manifest())
+    print(f"    {shards} shards; G bit-identical: {same_g(g, g_ref)}")
+    check(shards >= 8, "the completion run needs at least 8 shards")
+    check(same_g(g, g_ref), "completion order: G must stay bit-identical")
+    check(pinned == n_blocks,
+          f"completion order: {pinned} pinned copies for {n_blocks} blocks")
+
+    for mode in ("auto", "sparse"):
+        print(f"  a warm {mode} run under torch.profiler (all threads):",
+              flush=True)
+        driver, _, _, _, _, prof = drive_file(
+            torch, JsonlSource(root), f"{mode}, profiled", profiled=True,
+            pca_mode=mode, **base)
+        profile_split(prof)
+        for name, (ms, count) in sorted(host_ranges(
+                prof, FILE_RANGES).items()):
+            print(f"  host range {name}: {ms:.3f} ms over {count}")
+        threads = thread_sets(prof, FILE_RANGES + STAGES)
+        print(f"  threads per host range: {json.dumps(threads)}")
+
+    os.unlink(sidecar)
+    t0 = time.perf_counter()
+    cold = JsonlSource(root)._ensure_csr()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm_src = JsonlSource(root)
+    warm_src._ensure_csr()
+    map_s = time.perf_counter() - t0
+    nnz = int(cold._d["ords"].size)
+    index = driver.index.indexes
+    shard_ms = []
+    for shard in PcaConfig(bases_per_partition=10_000).shards():
+        t0 = time.perf_counter()
+        warm_src.stream_carrying_csr(DEFAULT_VARIANT_SET_ID, shard, index)
+        shard_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  sidecar: built in {build_s:.3f} s "
+          f"({os.path.getsize(sidecar)} bytes, "
+          f"{int(cold._d['starts'].size)} variants, {nnz} carriers), "
+          f"mapped warm in {map_s * 1e3:.3f} ms; warm query per shard "
+          f"(9 shards, ms): " + ", ".join(f"{t:.3f}" for t in shard_ms))
+    return main_launches
+
+
+def write_biobank_cohort(root, idx, offsets, vsid):
+    """The phase-10 cohort as a JSONL directory, written with ``json``
+    only: 2^20 callsets in column order, and one record per variant at
+    ascending starts inside the BRCA1 range, carriers in ``biobank_csr()``
+    order."""
+    ids = [f"bb{i}" for i in range(BIOBANK_N)]
+    with open(os.path.join(root, "callsets.json"), "w") as f:
+        json.dump([{"id": cid, "name": f"S{i:07d}", "variant_set_id": vsid}
+                   for i, cid in enumerate(ids)], f)
+    with open(os.path.join(root, "variants.jsonl"), "w") as f:
+        for v in range(BIOBANK_V):
+            start = 41196311 + 16 * v
+            carriers = idx[offsets[v]:offsets[v + 1]].tolist()
+            f.write(json.dumps({
+                "reference_name": "17", "start": start, "end": start + 1,
+                "reference_bases": "A", "alternate_bases": ["G"],
+                "info": {"AF": [f"{len(carriers) / BIOBANK_N:.6f}"]},
+                "variant_set_id": vsid,
+                "calls": [{"callset_id": ids[c], "genotype": [0, 1]}
+                          for c in carriers],
+            }) + "\n")
+
+
+def biobank_driver(torch, panel10, coords10, rate10):
+    """Phase 13: the biobank width through ``VariantsPcaDriver.run()``."""
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.ops import sketch
+    from spark_examples_tpu_torch.ops.sketch import SketchPanel
+    from spark_examples_tpu_torch.utils.stats import IoStats
+
+    vsid = "biobank"
+    root = tempfile.mkdtemp(prefix="chip_smoke_biobank_")
+    try:
+        t0 = time.perf_counter()
+        idx, offsets = biobank_csr()
+        write_biobank_cohort(root, idx, offsets, vsid)
+        print(f"  cohort directory written in {time.perf_counter() - t0:.2f}"
+              f" s: callsets.json "
+              f"{os.path.getsize(os.path.join(root, 'callsets.json'))} "
+              f"bytes, variants.jsonl "
+              f"{os.path.getsize(os.path.join(root, 'variants.jsonl'))} "
+              "bytes", flush=True)
+        kw = dict(variant_set_ids=[vsid], pca_mode="auto", num_pc=BIOBANK_K,
+                  sketch_power_iters=0, sketch_seed=0)
+        for name, profiled in (("cold sidecar", False),
+                               ("warm sidecar", False),
+                               ("warm sidecar, profiled", True)):
+            before = dict(sketch.SKETCH_WINDOWS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            driver, result, _, launches, _, prof = drive_file(
+                torch, JsonlSource(root), f"auto, {name}", profiled=profiled,
+                **kw)
+            peak = torch.cuda.max_memory_allocated()
+            routes = {r: sketch.SKETCH_WINDOWS[r] - before[r]
+                      for r in before}
+            panel = driver.g
+            secs = driver.timer.seconds
+            rate = BIOBANK_N / (secs["ingest+gramian"] + secs["pca"])
+            print(f"    SketchPanel: {isinstance(panel, SketchPanel)}; "
+                  f"windows by route {routes}; peak card memory {peak} "
+                  f"bytes ({peak / 2**20:.1f} MiB), {peak - held} of them "
+                  f"allocated by the run; samples/s over ingest+gramian and "
+                  f"pca {rate:.2f} (phase 10's panel and finish: "
+                  f"{rate10:.2f})", flush=True)
+            check(driver.sketch_selected() and isinstance(panel, SketchPanel),
+                  "auto at N = 2^20 must return a SketchPanel")
+            check(launches == 0, "the sketch route must not launch the "
+                  "scatter kernel")
+            check(peak < SKETCH_PEAK_BYTES,
+                  "peak card memory must stay under 2 GiB")
+            check(np.array_equal(panel.y, panel10.y)
+                  and np.array_equal(panel.omega, panel10.omega)
+                  and np.array_equal(panel.row_sums, panel10.row_sums),
+                  "the driver's panel must be phase 10's bit for bit")
+            coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+            check(np.array_equal(coords, coords10[:, :2]),
+                  "the emitted coordinates must be phase 10's bit for bit")
+            if profiled:
+                profile_split(prof)
+                for rng, (ms, count) in sorted(host_ranges(
+                        prof, FILE_RANGES + SKETCH_RANGES).items()):
+                    print(f"  host range {rng}: {ms:.3f} ms over {count}")
+        print("  every run's panel and coordinates are phase 10's, bit for "
+              "bit")
+        csr = driver.source._ensure_csr()
+        shard = driver._manifest()[0]
+        csr._lookup_indexes = None
+        t0 = time.perf_counter()
+        csr._shard_keep(shard, driver.index.indexes, vsid, IoStats(), None)
+        print(f"  _shard_keep with its ordinal->index lookup over 2^20 "
+              f"ids: {(time.perf_counter() - t0) * 1e3:.3f} ms; sidecar "
+              f"{os.path.getsize(os.path.join(root, '.variants.csr.npz'))} "
+              "bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def host_windows(source, conf, indexes):
@@ -1312,6 +1628,13 @@ def main() -> int:
     first = timings[0]
 
     print("== 6. CLI", flush=True)
+    cohort_dir = tempfile.mkdtemp(prefix="chip_smoke_cohort_")
+    atexit.register(shutil.rmtree, cohort_dir, True)
+    t0 = time.perf_counter()
+    source.dump(cohort_dir)
+    print(f"  phase 4's cohort dumped with FixtureSource.dump in "
+          f"{time.perf_counter() - t0:.2f} s (phase 12's directory)",
+          flush=True)
     cli = subprocess.run(
         [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
          "--fixture-samples", "256", "--fixture-variants", "2048",
@@ -1341,6 +1664,22 @@ def main() -> int:
           f"default CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
     check(sum(line.count("\t") == 3 for line in cli_lines) == 256,
           "the default CLI must emit one result line per sample")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
+         "--input-path", cohort_dir],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    cli_lines = cli.stdout.splitlines()
+    print(f"  pca --input-path <phase 12's directory> "
+          f"({time.perf_counter() - t0:.2f} s, sidecar built):")
+    for line in cli_lines:
+        if line.count("\t") != 3:
+            print(f"  | {line}")
+    check(cli.returncode == 0,
+          f"--input-path CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    check(sum(line.count("\t") == 3 for line in cli_lines) == N_SAMPLES,
+          "the --input-path CLI must emit one result line per sample")
 
     print("== 7. odd sample counts", flush=True)
     odd_sample_counts(torch, dev)
@@ -1352,11 +1691,20 @@ def main() -> int:
     bench_shape(torch, dev)
 
     print("== 10. sketch engine at the biobank width (N = 2^20)", flush=True)
-    biobank_sketch(torch, dev)
+    panel10, coords10, rate10 = biobank_sketch(torch, dev)
 
     print("== 11. --pca-mode auto past the 4 GiB G bound (N = 40000)",
           flush=True)
     auto_flip(torch, dev)
+
+    print("== 12. pca --input-path at the 1000 Genomes width (N = 2504, "
+          "V = 65536)", flush=True)
+    launches = on_disk_cohort(torch, cohort_dir, source, g_ref, want,
+                              len(windows), launches)
+
+    print("== 13. the biobank width through the driver (N = 2^20, "
+          "--input-path)", flush=True)
+    biobank_driver(torch, panel10, coords10, rate10)
 
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",

@@ -18,12 +18,21 @@ import itertools
 from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
+from torch.profiler import record_function
+
+from spark_examples_tpu_torch.utils.concurrency import (
+    completion_parallel_map,
+)
+from spark_examples_tpu_torch.utils.tracing import INGEST_BUILD
 
 __all__ = [
     "DEFAULT_BLOCK_VARIANTS",
     "blocks_from_calls",
+    "blocks_from_csr",
     "csr_windows",
     "densify_calls",
+    "packed_block_from_csr",
+    "packed_blocks_from_csr",
     "round_up_multiple",
     "windows_from_calls",
 ]
@@ -200,3 +209,79 @@ def blocks_from_calls(
             buf = []
     if buf:
         yield densify_calls(buf, n_samples, block_variants)
+
+
+def blocks_from_csr(
+    csr_iter,
+    n_samples: int,
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+) -> Iterator[np.ndarray]:
+    """Stream per-shard CSR pairs into fixed-shape 0/1 int8 blocks.
+
+    The vectorized twin of :func:`blocks_from_calls` for sources that serve
+    a shard's carrying lists as one ``(indices, offsets)`` pair
+    (``stream_carrying_csr``): each emitted block is a single fancy-index
+    scatter over the window's nonzeros instead of a Python loop over
+    variants. Emits the same blocks bit-for-bit in the same order.
+
+    ``csr_iter`` yields ``(indices, offsets)`` with ``offsets`` of length
+    rows+1 (or None for empty shards, skipped).
+    """
+    for window_idx, lens in csr_windows(csr_iter, block_variants):
+        _check_indices(window_idx, n_samples)
+        yield _densify_window(window_idx, lens, n_samples, block_variants)
+
+
+def packed_block_from_csr(
+    window_idx: np.ndarray,
+    lens: np.ndarray,
+    n_samples: int,
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+) -> np.ndarray:
+    """One CSR window → one BIT-PACKED ``(n_samples, ⌈Vb/8⌉)`` block.
+
+    The build stage of the CSR ingest (an :data:`~spark_examples_tpu_torch.
+    utils.tracing.INGEST_BUILD` range in the calling builder thread): the
+    JAX package's densify + ``np.packbits`` composition, byte for byte.
+    (Its native ``csr_to_packed_blocks`` scatter, which skips the int8
+    intermediate, is not ported.) Out-of-range indices raise.
+    """
+    window_idx = np.ascontiguousarray(window_idx, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    _check_indices(window_idx, n_samples)
+    with record_function(INGEST_BUILD):
+        return np.packbits(
+            _densify_window(
+                window_idx, lens, n_samples, block_variants
+            ).astype(bool),
+            axis=1,
+        )
+
+
+def packed_blocks_from_csr(
+    csr_iter,
+    n_samples: int,
+    block_variants: int = DEFAULT_BLOCK_VARIANTS,
+    workers: int = 1,
+) -> Iterator[np.ndarray]:
+    """Stream per-shard CSR pairs into BIT-PACKED blocks, ``workers``
+    at a time.
+
+    Windows are sliced sequentially (:func:`csr_windows` — composition
+    fixed by arrival order), built into packed blocks by up to ``workers``
+    threads, and yielded in COMPLETION order when ``workers > 1`` — safe
+    because the Gramian accumulates exact integer counts, so G is
+    bit-identical under any block arrival order. ``workers <= 1`` is the
+    serial in-order path, byte-identical to
+    ``pack_indicator_block(b) for b in blocks_from_csr(...)``.
+    """
+
+    def build(window):
+        window_idx, lens = window
+        return packed_block_from_csr(
+            window_idx, lens, n_samples, block_variants
+        )
+
+    yield from completion_parallel_map(
+        build, csr_windows(csr_iter, block_variants), workers
+    )

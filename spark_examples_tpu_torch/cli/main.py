@@ -1,8 +1,10 @@
 """CLI: ``python -m spark_examples_tpu_torch.cli.main pca [flags]``.
 
-The ``pca`` subcommand of the JAX package's CLI, on PyTorch, against the
-hermetic synthetic cohort (``--fixture-*`` flags). Computes on the card by
-default; ``--device cpu`` runs on the CPU.
+The ``pca`` subcommand of the JAX package's CLI, on PyTorch, against an
+on-disk JSONL cohort (``--input-path <dir>``: the same directory and CSR
+sidecar the JAX package's CLI reads) or the hermetic synthetic cohort
+(``--fixture-*`` flags). Computes on the card by default; ``--device cpu``
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from spark_examples_tpu_torch.genomics.fixtures import (
     synthetic_cohort,
 )
 from spark_examples_tpu_torch.genomics.shards import references_for_all
+from spark_examples_tpu_torch.genomics.sources import JsonlSource
 from spark_examples_tpu_torch.utils.config import (
     add_pca_flags,
     pca_config_from_args,
@@ -50,33 +53,43 @@ def _add_fixture_flags(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _offline_source(args, references: str):
+    """JSONL-dir or synthetic-fixture source, or None if neither flagged."""
+    if args.input_path:
+        return JsonlSource(args.input_path)
+    if args.fixture_samples:
+        return synthetic_cohort(
+            args.fixture_samples,
+            args.fixture_variants,
+            references=references,
+            seed=args.fixture_seed,
+            sparse_calls=args.fixture_sparse_calls,
+            rare_variant_af=args.fixture_rare_af,
+            variant_set_id=(
+                args.variant_set_ids or [DEFAULT_VARIANT_SET_ID]
+            )[0],
+        )
+    return None
+
+
 def _cmd_pca(args) -> int:
     from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
 
-    for flag, value in (("--api-url", args.api_url),
-                        ("--input-path", args.input_path)):
-        if value:
-            raise unported(flag, "item 8, JSONL/CSR/network sources")
+    if args.api_url:
+        raise unported("--api-url", "slice 6, the network tier of item 8")
     conf = pca_config_from_args(args)
     if not args.variant_set_ids:
         conf.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
-    if not args.fixture_samples:
-        raise SystemExit(
-            "No data source: pass --fixture-samples N (file and network "
-            "sources are not ported yet)"
-        )
-    source = synthetic_cohort(
-        args.fixture_samples,
-        args.fixture_variants,
+    source = _offline_source(
+        args,
         # Cover exactly what an --all-references manifest queries.
-        references=(
-            references_for_all() if conf.all_references else conf.references
-        ),
-        seed=args.fixture_seed,
-        sparse_calls=args.fixture_sparse_calls,
-        rare_variant_af=args.fixture_rare_af,
-        variant_set_id=conf.variant_set_ids[0],
+        references_for_all() if conf.all_references else conf.references,
     )
+    if source is None:
+        raise SystemExit(
+            "No data source: pass --input-path <jsonl cohort dir> or "
+            "--fixture-samples N (the network source is not ported yet)"
+        )
     VariantsPcaDriver(conf, source).run()
     return 0
 

@@ -15,6 +15,8 @@ weights across.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -29,6 +31,7 @@ __all__ = [
     "synthetic_cohort",
     "cohort_record_stream",
     "cohort_callsets",
+    "dump_cohort_stream",
     "DEFAULT_VARIANT_SET_ID",
 ]
 
@@ -221,3 +224,48 @@ def cohort_record_stream(
             "variant_set_id": variant_set_id,
             "calls": calls,
         }
+
+
+def dump_cohort_stream(
+    root: str,
+    n_samples: int,
+    n_variants: int,
+    variant_set_id: str = DEFAULT_VARIANT_SET_ID,
+    append: bool = False,
+    **kw,
+) -> None:
+    """Write a cohort as a JSONL directory WITHOUT materializing it —
+    the disk-scale twin of ``FixtureSource.dump`` for cohorts too large
+    for memory. ``append=True`` adds another variant set's records and
+    callsets to an existing directory (multi-dataset cohorts).
+    """
+    os.makedirs(root, exist_ok=True)
+    for name in ("callsets.json.gz", "variants.jsonl.gz"):
+        if os.path.exists(os.path.join(root, name)):
+            # Readers treat .gz as authoritative; appending plain files
+            # beside them would be silently invisible.
+            raise ValueError(
+                f"{root} holds gzipped cohort files ({name}); "
+                "dump_cohort_stream writes plain JSONL only"
+            )
+    callsets_path = os.path.join(root, "callsets.json")
+    rows = []
+    if append and os.path.exists(callsets_path):
+        with open(callsets_path) as f:
+            rows = json.load(f)
+    rows.extend(
+        {
+            "id": c.id,
+            "name": c.name,
+            "variant_set_id": c.variant_set_id,
+        }
+        for c in cohort_callsets(n_samples, variant_set_id)
+    )
+    with open(callsets_path, "w") as f:
+        json.dump(rows, f)
+    mode = "a" if append else "w"
+    with open(os.path.join(root, "variants.jsonl"), mode) as f:
+        for rec in cohort_record_stream(
+            n_samples, n_variants, variant_set_id=variant_set_id, **kw
+        ):
+            f.write(json.dumps(rec) + "\n")

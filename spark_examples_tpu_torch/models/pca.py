@@ -6,12 +6,21 @@ The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 filter_dataset / get_calls / ingest_gramian / compute_pca / emit_result /
 report_io_stats — for a single-process, meshless, uncheckpointed run:
 
-- ingest: per-variant carrier lists from the source (the fused fast path,
-  shards extracted on ``--ingest-workers`` threads in manifest order, or
-  the staged Variant path under ``--debug-datasets``);
+- ingest, routed as the JAX driver routes it: per-shard ``(indices,
+  offsets)`` CSR pairs straight off an on-disk cohort's sidecar (the
+  CSR-direct tier of ``--input-path``, in ``--ingest-order``), per-variant
+  carrier lists from the source (the fused fast path, shards extracted on
+  ``--ingest-workers`` threads in manifest order), keyed identity triples
+  joined or merged across two or more ``--variant-set-id`` datasets, or
+  the staged Variant path under ``--debug-datasets``;
+- cohort restriction (``--samples``/``--exclude-samples``): ingest
+  extracts in the full callset frame and carriers are remapped or dropped
+  at the window boundary, so G, the finish and the emission are sized by
+  the restricted cohort;
 - Gramian, dense-blockwise (``auto``, ``fused``, ``stream``): the lists
   densified into 0/1 blocks of ``--block-variants`` variants, bit-packed
-  and copied through the double-buffered pinned feed
+  (on the CSR tier by ``--ingest-workers`` builder threads) and copied
+  through the double-buffered pinned feed
   (``--prefetch-depth``), accumulated as int8 products
   (:func:`~spark_examples_tpu_torch.ops.gramian.gramian_blockwise`);
 - Gramian, sparse (``sparse``): CSR windows through
@@ -45,14 +54,21 @@ from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from spark_examples_tpu_torch.arrays.blocks import (
     blocks_from_calls,
+    csr_windows,
+    packed_blocks_from_csr,
     windows_from_calls,
 )
 from spark_examples_tpu_torch.device import resolve_device
 from spark_examples_tpu_torch.genomics.callsets import CallsetIndex
-from spark_examples_tpu_torch.genomics.datasets import af_filter, calls_stream
+from spark_examples_tpu_torch.genomics.datasets import (
+    af_filter,
+    calls_stream,
+    calls_stream_keyed,
+)
 from spark_examples_tpu_torch.genomics.shards import SexChromosomeFilter
 from spark_examples_tpu_torch.genomics.types import Variant
 from spark_examples_tpu_torch.ops.fused import fused_finish
@@ -69,20 +85,48 @@ from spark_examples_tpu_torch.ops.sketch import (
 )
 from spark_examples_tpu_torch.ops.sparse import sparse_gramian_blockwise
 from spark_examples_tpu_torch.utils.config import (
+    INGEST_ORDERS,
     PCA_MODES,
     PcaConfig,
     unported,
 )
-from spark_examples_tpu_torch.utils.concurrency import ordered_parallel_map
-from spark_examples_tpu_torch.utils.tracing import StageTimer
+from spark_examples_tpu_torch.utils.concurrency import (
+    completion_parallel_map,
+    ordered_parallel_map,
+)
+from spark_examples_tpu_torch.utils.tracing import (
+    INGEST_FETCH,
+    INGEST_STREAM,
+    StageTimer,
+)
 
 __all__ = ["VariantsPcaDriver"]
+
+
+def _contig_runs_unique(shards) -> bool:
+    """True when the manifest presents each contig as one contiguous run —
+    the precondition for contig-partitioned (bounded-memory) joins."""
+    seen = set()
+    last = None
+    for s in shards:
+        if s.contig != last:
+            if s.contig in seen:
+                return False
+            seen.add(s.contig)
+            last = s.contig
+    return True
 
 
 class VariantsPcaDriver:
     def __init__(self, conf: PcaConfig, source, index=None):
         if conf.num_pc < 1:
             raise ValueError(f"--num-pc must be >= 1, got {conf.num_pc}")
+        if conf.ingest_order not in INGEST_ORDERS:
+            # argparse choices only guard the CLI.
+            raise ValueError(
+                f"ingest_order must be 'auto', 'manifest', or "
+                f"'completion'; got {conf.ingest_order!r}"
+            )
         if conf.prefetch_depth < 1:
             # A zero/negative staging depth would deadlock the bounded
             # feed queue — refuse before any ingest work.
@@ -138,16 +182,27 @@ class VariantsPcaDriver:
                 "non---precise run (use --pca-mode auto to fall back "
                 "automatically)"
             )
+        # `samples is not None` rather than truthiness: an EXPLICITLY
+        # empty include list is a contradictory cohort and must hit the
+        # loud "leaves no samples" error, never silently run the full
+        # cohort. (An empty exclude list excludes nothing — that IS the
+        # unrestricted cohort.)
+        restricted = conf.samples is not None or bool(conf.exclude_samples)
+        if restricted and conf.checkpoint_dir:
+            raise ValueError(
+                "--samples/--exclude-samples do not compose with "
+                "checkpointed ingest; drop --checkpoint-dir"
+            )
+        if restricted and conf.mesh_shape:
+            raise ValueError(
+                "--samples/--exclude-samples require a meshless run "
+                "(drop --mesh-shape)"
+            )
         if conf.mesh_shape:
             raise unported("--mesh-shape", "item 5, the mesh layer")
         if conf.checkpoint_dir:
             raise unported(
                 "--checkpoint-dir", "item 6, checkpoint/elastic/bridge"
-            )
-        if len(conf.variant_set_ids) != 1:
-            raise unported(
-                "multi-dataset join/merge",
-                "item 8, JSONL/CSR/network sources",
             )
         self.conf = conf
         self.source = source
@@ -157,6 +212,18 @@ class VariantsPcaDriver:
             if index is not None
             else CallsetIndex.from_source(source, conf.variant_set_ids)
         )
+        # The COHORT frame: ingest always extracts in the full index
+        # frame (unknown callsets stay a hard error there), and a sample
+        # restriction remaps/filters carriers at the window boundary —
+        # `self.cohort` is what the Gramian, the finish and emission are
+        # sized by; `_sample_remap` (full dense index → cohort index, -1
+        # drops) is the one filter array.
+        if restricted:
+            self.cohort, self._sample_remap = self.index.restricted(
+                conf.samples, conf.exclude_samples
+            )
+        else:
+            self.cohort, self._sample_remap = self.index, None
         # Set by run(): the finished Gramian (or the sketch panel) and the
         # stage timings.
         self.g = None
@@ -176,6 +243,10 @@ class VariantsPcaDriver:
         """One lazy variant stream per configured variantset (the analog
         of ``VariantsCommon.data``, VariantsCommon.scala:52-66)."""
         shards = self._manifest()
+        # When the manifest visits each contig exactly once, multi-dataset
+        # joins may partition their state by contig instead of holding the
+        # whole cohort's identities.
+        self._contig_runs_unique = _contig_runs_unique(shards)
 
         def stream(vsid: str) -> Iterator[Variant]:
             for shard in shards:
@@ -196,10 +267,15 @@ class VariantsPcaDriver:
         self, streams: Sequence[Iterable[Variant]]
     ) -> Iterator[List[int]]:
         """Per-variant carrying-sample index lists (the RDD[Seq[Int]]
-        interface at VariantsPca.scala:153-168)."""
+        interface at VariantsPca.scala:153-168): one dataset's lists, or
+        the identity join (two) or merge (three or more) of several."""
         if self.conf.debug_datasets:
             streams = [self._debug_wrap(s) for s in streams]
-        return calls_stream(list(streams), self.index.indexes)
+        return calls_stream(
+            list(streams),
+            self.index.indexes,
+            contig_runs_unique=getattr(self, "_contig_runs_unique", False),
+        )
 
     @staticmethod
     def _debug_wrap(stream):
@@ -213,10 +289,13 @@ class VariantsPcaDriver:
 
     def _fused_ingest_possible(self) -> bool:
         """The fast path fuses ingest → AF filter → call extraction when
-        nothing needs full Variant/Call records: no --debug-datasets
-        printing, and a source that implements stream_carrying."""
-        return not self.conf.debug_datasets and hasattr(
-            self.source, "stream_carrying"
+        nothing needs full Variant/Call records: single dataset (no
+        identity join), no --debug-datasets printing, and a source that
+        implements stream_carrying."""
+        return (
+            len(self.conf.variant_set_ids) == 1
+            and not self.conf.debug_datasets
+            and hasattr(self.source, "stream_carrying")
         )
 
     def get_calls_fused(self) -> Iterator[List[int]]:
@@ -241,24 +320,42 @@ class VariantsPcaDriver:
             return self.conf.ingest_workers
         return min(os.cpu_count() or 1, 16)
 
-    def _parallel_shard_calls(self, vsid: str, shards):
-        """Per-shard carrier lists in EXACT manifest order: block
+    def _block_builder_workers(self) -> int:
+        """Builder threads for the packed-block production stage of the
+        CSR tier (``--ingest-workers``; auto = min(4, cores), 1 → serial).
+
+        A separate, smaller auto cap than shard extraction: each builder
+        holds exactly one packed block (N × ⌈Vb/8⌉ bytes) but the stage is
+        memory bandwidth, not cores. On a single-core host auto = 1, the
+        serial in-order path.
+        """
+        if self.conf.ingest_workers:
+            return self.conf.ingest_workers
+        return min(os.cpu_count() or 1, 4)
+
+    def _parallel_shard_calls(
+        self, vsid: str, shards, stream_method=None, workers=None
+    ):
+        """Per-shard extraction lists in EXACT manifest order: block
         composition and accumulation order — and so G — never change with
         the worker count. With one extraction thread (``--ingest-workers
         1``, or a manifest of one shard) each shard streams straight into
         the block builder; with more, ``ordered_parallel_map`` extracts
-        whole shards on worker threads."""
+        whole shards on worker threads. ``stream_method`` defaults to the
+        single-dataset fused stream; the keyed multi-dataset path passes
+        its own."""
         shards = list(shards)
+        method = stream_method or self.source.stream_carrying
 
         def stream(shard):
-            return self.source.stream_carrying(
+            return method(
                 vsid,
                 shard,
                 self.index.indexes,
                 self.conf.min_allele_frequency,
             )
 
-        workers = min(self._ingest_workers(), len(shards))
+        workers = min(workers or self._ingest_workers(), len(shards))
         if workers <= 1:
             for shard in shards:
                 yield from stream(shard)
@@ -268,25 +365,183 @@ class VariantsPcaDriver:
         ):
             yield from calls
 
-    # -- stage 4: the Gramian ------------------------------------------------
-
-    def _cohort_calls(self) -> Iterator[List[int]]:
-        """The ingest tier's per-variant carrier lists: the fused fast
-        path, else the staged Variant path."""
-        if self._fused_ingest_possible():
-            return self.get_calls_fused()
-        return self.get_calls(
-            [self.filter_dataset(d) for d in self.get_data()]
+    def _fused_csr_possible(self) -> bool:
+        """CSR-direct ingest: the fused single-dataset preconditions plus
+        a source that can serve whole shards as (indices, offsets) pairs
+        (the JSONL sidecar tier)."""
+        return self._fused_ingest_possible() and hasattr(
+            self.source, "stream_carrying_csr"
         )
 
-    def _blocks_to_gramian(self, blocks):
-        """Dense 0/1 blocks → (N, N) G on the device, meshless: bit-packed
-        (8× fewer host→device bytes, bit-identical) through the
-        double-buffered feed at ``--prefetch-depth``."""
+    def _cold_stream_active(self) -> bool:
+        """Is the source streaming a COLD remote cohort from the wire
+        while its mirror downloads? (Sources without the concept — local
+        sidecars, fixtures: every source of the port so far — answer
+        False.)"""
+        probe = getattr(self.source, "cold_stream_active", None)
+        return bool(probe()) if probe is not None else False
+
+    def get_csr_fused(self):
+        """Fused single-dataset ingest as per-shard CSR pairs — the
+        vectorized twin of :meth:`get_calls_fused` (same filters and
+        stats, no per-variant Python lists).
+
+        ``--ingest-order completion`` feeds pairs in SHARD-COMPLETION
+        order instead of manifest order, so one slow shard never
+        head-of-line-blocks the stream. Safe because the Gramian
+        accumulates exact integer co-occurrence counts (every count sits
+        far below 2^24, the f32 exact-integer bound), so G is
+        bit-identical under any arrival order; only block COMPOSITION
+        differs. ``auto`` resolves to completion on a cold-stream run and
+        to manifest otherwise. Each shard's extraction is an
+        ``ingest.fetch`` range and the whole stream an ``ingest.stream``
+        range.
+        """
+        vsid = self.conf.variant_set_ids[0]
+        shards = self._manifest()
+        if self.conf.min_allele_frequency is not None:
+            print(
+                f"Min allele frequency {self.conf.min_allele_frequency}."
+            )
+        order = self.conf.ingest_order
+        if order == "auto":
+            # An EXPLICIT --ingest-order is always honored; only the
+            # default resolves by run shape.
+            order = "completion" if self._cold_stream_active() else "manifest"
+
+        def extract(shard):
+            with record_function(INGEST_FETCH):
+                return self.source.stream_carrying_csr(
+                    vsid,
+                    shard,
+                    self.index.indexes,
+                    self.conf.min_allele_frequency,
+                )
+
+        pmap = (
+            completion_parallel_map
+            if order == "completion"
+            else ordered_parallel_map
+        )
+        with record_function(INGEST_STREAM):
+            yield from pmap(extract, shards, self._ingest_workers())
+
+    def _fused_multi_possible(self) -> bool:
+        """Keyed fused ingest for multi-dataset join/merge: identity
+        payloads + carrying indices straight from records (no
+        --debug-datasets, source implements stream_carrying_keyed)."""
+        return (
+            len(self.conf.variant_set_ids) > 1
+            and not self.conf.debug_datasets
+            and hasattr(self.source, "stream_carrying_keyed")
+        )
+
+    def get_calls_fused_multi(self) -> Iterator[List[int]]:
+        """Fused multi-dataset ingest: keyed triples per dataset →
+        identity join/merge, same observable behavior as the staged path,
+        without Call/Variant materialization."""
+        shards = self._manifest()
+        if self.conf.min_allele_frequency is not None:
+            for _ in self.conf.variant_set_ids:
+                # One parity print per dataset (filter_dataset prints per
+                # stream in the staged path).
+                print(
+                    f"Min allele frequency "
+                    f"{self.conf.min_allele_frequency}."
+                )
+        return self._keyed_calls(shards, _contig_runs_unique(shards))
+
+    def _keyed_calls(self, shards, contig_runs_unique: bool):
+        """The keyed multi-dataset ingest recipe: the worker budget split
+        across the datasets' streams, keyed streams, identity
+        join/merge."""
+        # One worker pool per dataset stream runs concurrently under
+        # calls_stream_keyed — split the budget so K datasets never
+        # oversubscribe the host K-fold.
+        per_stream = max(
+            1,
+            self._ingest_workers() // len(self.conf.variant_set_ids),
+        )
+
+        def keyed(vsid: str):
+            yield from self._parallel_shard_calls(
+                vsid,
+                shards,
+                stream_method=self.source.stream_carrying_keyed,
+                workers=per_stream,
+            )
+
+        return calls_stream_keyed(
+            [keyed(v) for v in self.conf.variant_set_ids],
+            contig_runs_unique=contig_runs_unique,
+        )
+
+    # -- cohort sample restriction (the window-boundary filter) -------------
+
+    def _restrict_calls(self, calls_iter):
+        """Full-frame per-variant carrier lists → cohort frame (lists
+        with no cohort carrier drop, matching calls_stream's no-carrier
+        drop; G is unaffected either way — empty columns are inert)."""
+        remap = self._sample_remap
+        if remap is None:
+            yield from calls_iter
+            return
+        for calls in calls_iter:
+            mapped = [int(remap[i]) for i in calls if remap[i] >= 0]
+            if mapped:
+                yield mapped
+
+    def _restrict_csr(self, pairs):
+        """Full-frame per-shard ``(indices, offsets)`` CSR pairs →
+        cohort frame, vectorized (drop + renumber carriers; empty rows
+        kept so window composition stays arrival-order-only)."""
+        remap = self._sample_remap
+        if remap is None:
+            yield from pairs
+            return
+        for pair in pairs:
+            if pair is None:
+                continue
+            indices, offsets = pair
+            offsets = np.asarray(offsets, dtype=np.int64)
+            if offsets.size <= 1:
+                continue
+            mapped = remap[np.asarray(indices, dtype=np.int64)]
+            keep = mapped >= 0
+            kept = np.zeros(mapped.size + 1, dtype=np.int64)
+            np.cumsum(keep, out=kept[1:])
+            yield mapped[keep], kept[offsets]
+
+    def _restrict_window(self, window):
+        """One full-frame ``(indices, lens)`` CSR window → cohort frame
+        (the per-window twin of :meth:`_restrict_csr`, for callers that
+        share one full-frame window stream)."""
+        remap = self._sample_remap
+        if remap is None:
+            return window
+        window_idx, lens = window
+        window_idx = np.asarray(window_idx, dtype=np.int64)
+        lens = np.asarray(lens, dtype=np.int64)
+        mapped = remap[window_idx]
+        keep = mapped >= 0
+        row_of = np.repeat(np.arange(lens.size, dtype=np.int64), lens)
+        new_lens = np.bincount(
+            row_of[keep], minlength=lens.size
+        ).astype(np.int64)
+        return mapped[keep], new_lens
+
+    # -- stage 4: the Gramian ------------------------------------------------
+
+    def _blocks_to_gramian(self, blocks, prepacked=False):
+        """Dense 0/1 blocks (or, with ``prepacked``, their bit-packed
+        bytes) → (N, N) G on the device, meshless: bit-packed (8× fewer
+        host→device bytes, bit-identical) through the double-buffered
+        feed at ``--prefetch-depth``."""
         return gramian_blockwise(
             blocks,
-            self.index.size,
+            self.cohort.size,
             packed=True,
+            prepacked=prepacked,
             prefetch_depth=self.conf.prefetch_depth,
             device=self.device,
         )
@@ -296,9 +551,27 @@ class VariantsPcaDriver:
         accumulator → (N, N) G. The densify and pack run in the feed's
         producer thread, overlapping the product."""
         blocks = blocks_from_calls(
-            calls, self.index.size, self.conf.block_variants
+            self._restrict_calls(calls),
+            self.cohort.size,
+            self.conf.block_variants,
         )
         return self._blocks_to_gramian(blocks)
+
+    def get_similarity_matrix_csr(self, csr_pairs):
+        """CSR-direct twin of :meth:`get_similarity_matrix` — the same
+        blocks bit for bit, built by vectorized scatter instead of
+        per-variant Python lists: ``--ingest-workers`` builder threads
+        densify and bit-pack the sidecar ``(indices, offsets)`` windows
+        (``ingest.build`` ranges), feeding the double-buffered device feed
+        in completion order — G is bit-identical under any block arrival
+        order (integer-exact accumulation)."""
+        blocks = packed_blocks_from_csr(
+            self._restrict_csr(csr_pairs),
+            self.cohort.size,
+            self.conf.block_variants,
+            workers=self._block_builder_workers(),
+        )
+        return self._blocks_to_gramian(blocks, prepacked=True)
 
     def _sparse_selected(self) -> bool:
         """Route the Gramian through the sparse-aware engine?
@@ -310,19 +583,37 @@ class VariantsPcaDriver:
         """
         return self.conf.pca_mode == "sparse"
 
-    def _cohort_windows(self):
-        """The ingest tier's carrier lists as CSR windows of
-        ``--block-variants`` variants (never densified blocks)."""
-        return windows_from_calls(
-            self._cohort_calls(), self.conf.block_variants
-        )
+    def _cohort_windows(self, restrict: bool = True):
+        """Route the best available tier's output as CSR carrier windows
+        of ``--block-variants`` variants (never densified blocks). The
+        CSR sidecar tier feeds windows straight from ``(indices,
+        offsets)`` pairs; call-list tiers go through
+        ``windows_from_calls`` — the same window composition as the dense
+        path's block composition. ``restrict=False`` yields FULL-frame
+        windows regardless of any cohort sample restriction."""
+        if self._fused_csr_possible():
+            pairs = self.get_csr_fused()
+            if restrict:
+                pairs = self._restrict_csr(pairs)
+            return csr_windows(pairs, self.conf.block_variants)
+        if self._fused_ingest_possible():
+            calls = self.get_calls_fused()
+        elif self._fused_multi_possible():
+            calls = self.get_calls_fused_multi()
+        else:
+            data = self.get_data()
+            filtered = [self.filter_dataset(d) for d in data]
+            calls = self.get_calls(filtered)
+        if restrict:
+            calls = self._restrict_calls(calls)
+        return windows_from_calls(calls, self.conf.block_variants)
 
     def _windows_to_gramian(self, windows):
         """CSR carrier windows → finished (N, N) G on the device, each
         window routed by density inside the sparse engine."""
         return sparse_gramian_blockwise(
             windows,
-            self.index.size,
+            self.cohort.size,
             density_threshold=self.conf.sparse_density_threshold,
             block_variants=self.conf.block_variants,
             device=self.device,
@@ -338,7 +629,7 @@ class VariantsPcaDriver:
 
     def _sparse_host_g_bytes(self) -> int:
         """Bytes of the float32 (N, N) G a meshless exact run holds."""
-        n = self.index.size
+        n = self.cohort.size
         return n * n * 4
 
     def sketch_selected(self) -> bool:
@@ -368,7 +659,7 @@ class VariantsPcaDriver:
         each call, because each power iteration re-streams the source."""
         return sketch_panel_blockwise(
             self._cohort_windows,
-            self.index.size,
+            self.cohort.size,
             self.conf.num_pc,
             oversample=self.conf.sketch_oversample,
             power_iters=self.conf.sketch_power_iters,
@@ -379,17 +670,27 @@ class VariantsPcaDriver:
         )
 
     def ingest_gramian(self):
-        """Stages 1-4 as one call: route the configured ingest tier and
-        return the finished (N, N) float32 G tensor — or, under the sketch
-        engine, a host :class:`~spark_examples_tpu_torch.ops.sketch.
-        SketchPanel` and no G at all; else the sparse engine, else the
-        fused-ingest carrier lists, else the staged Variant path, both
-        through the dense-blockwise accumulator."""
+        """Stages 1-4 as one call: route the configured ingest tier, in
+        the JAX driver's order, and return the finished (N, N) float32 G
+        tensor — or, under the sketch engine, a host
+        :class:`~spark_examples_tpu_torch.ops.sketch.SketchPanel` and no G
+        at all; else the sparse engine; else the CSR-direct sidecar tier,
+        the fused carrier lists, the keyed multi-dataset join/merge or the
+        staged Variant path, all through the dense-blockwise
+        accumulator."""
         if self._sketch_selected():
             return self._sketch_panel()
         if self._sparse_selected():
             return self._gramian_sparse()
-        return self.get_similarity_matrix(self._cohort_calls())
+        if self._fused_csr_possible():
+            return self.get_similarity_matrix_csr(self.get_csr_fused())
+        if self._fused_ingest_possible():
+            return self.get_similarity_matrix(self.get_calls_fused())
+        if self._fused_multi_possible():
+            return self.get_similarity_matrix(self.get_calls_fused_multi())
+        data = self.get_data()
+        filtered = [self.filter_dataset(d) for d in data]
+        return self.get_similarity_matrix(self.get_calls(filtered))
 
     # -- stage 5: eigendecomposition ----------------------------------------
 
@@ -406,7 +707,7 @@ class VariantsPcaDriver:
             return False
         if mode == "fused":
             return True
-        return self.index.size <= self.conf.dense_eigh_limit
+        return self.cohort.size <= self.conf.dense_eigh_limit
 
     def compute_pca(self, g, timer=None) -> List[Tuple[str, float, float]]:
         if isinstance(g, SketchPanel):
@@ -453,7 +754,7 @@ class VariantsPcaDriver:
             coords, _ = topk_with_gap_check(
                 lambda kk: mllib_principal_components_reference(gh, kk),
                 self.conf.num_pc,
-                self.index.size,
+                self.cohort.size,
                 timer=timer,
                 vals_are_squared=True,  # covariance eigenvalues = λ(C)²/(n−1)
             )
@@ -464,25 +765,25 @@ class VariantsPcaDriver:
                 return coords.cpu().numpy(), vals.cpu().numpy()
 
             coords, _ = topk_with_gap_check(
-                dense, self.conf.num_pc, self.index.size, timer=timer
+                dense, self.conf.num_pc, self.cohort.size, timer=timer
             )
         return self._emit_tuples(coords)
 
     def _print_nonzero_rows(self, row_sums) -> None:
         nonzero = int((np.asarray(row_sums) > 0).sum())
         print(
-            f"Non zero rows in matrix: {nonzero} / {self.index.size}."
+            f"Non zero rows in matrix: {nonzero} / {self.cohort.size}."
         )  # VariantsPca.scala:207-208
 
     def _emit_tuples(self, coords) -> List[Tuple[str, float, float]]:
         coords = np.asarray(coords)
-        callset_ids = self.index.callset_of_index()
+        callset_ids = self.cohort.callset_of_index()
         # The reference emits exactly two components regardless of --num-pc
         # (VariantsPca.scala:228-230: array(i), array(i + numRows)).
         pc2 = coords[:, 1] if coords.shape[1] > 1 else np.zeros(len(coords))
         return [
             (callset_ids[i], float(coords[i, 0]), float(pc2[i]))
-            for i in range(self.index.size)
+            for i in range(self.cohort.size)
         ]
 
     # -- stage 6: emission ---------------------------------------------------
@@ -494,7 +795,7 @@ class VariantsPcaDriver:
         sorted by name — without the emission side effects."""
         return sorted(
             (
-                self.index.names[cid],
+                self.cohort.names[cid],
                 pc1,
                 pc2,
                 cid.split("-")[0],  # dataset label, VariantsPca.scala:235

@@ -3,7 +3,7 @@
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default. Options
-of routes not ported yet (meshes, checkpoints, file and network sources)
+of routes not ported yet (meshes, checkpoints, the network sources)
 are accepted and then refused with ``NotImplementedError`` naming the
 ROADMAP.md item that ports them, never silently ignored. ``--device`` is
 the port's own: ``cuda`` by default, ``cpu`` only when asked.
@@ -34,6 +34,7 @@ from spark_examples_tpu_torch.ops.sparse import (
 )
 
 __all__ = [
+    "INGEST_ORDERS",
     "PCA_MODES",
     "PcaConfig",
     "add_pca_flags",
@@ -43,9 +44,17 @@ __all__ = [
 
 # The JAX package's --pca-mode registry.
 PCA_MODES = ("auto", "fused", "stream", "sparse", "sketch")
+# The JAX package's --ingest-order choices.
+INGEST_ORDERS = ("auto", "manifest", "completion")
 
 # Reference well-known variantset id (SearchVariantsExample.scala:27-31).
 PLATINUM_GENOMES = "3049512673186936334"
+
+
+def _csv_list(value: str) -> List[str]:
+    """argparse type for comma-separated id lists (empty items dropped,
+    so a trailing comma is not a silent empty id)."""
+    return [item for item in value.split(",") if item]
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -70,6 +79,13 @@ class PcaConfig:
     debug_datasets: bool = False
     min_allele_frequency: Optional[float] = None
     num_pc: int = 2
+    # Cohort sample restriction: `samples` keeps only the named callset
+    # ids (None = all), `exclude_samples` then drops ids. Ingest still
+    # extracts in the full callset frame; carriers are remapped/dropped
+    # at the window boundary, so the Gramian, finish, and emission are
+    # sized by the restricted cohort. Meshless uncheckpointed runs only.
+    samples: Optional[List[str]] = None
+    exclude_samples: Optional[List[str]] = None
     precise: bool = False  # host-f64 eigendecomposition
     pca_mode: str = "auto"
     # The sketch engine's knobs (--pca-mode sketch, or auto past the 4 GiB
@@ -89,8 +105,16 @@ class PcaConfig:
     dense_eigh_limit: int = 8192
     # Convergence target of the fused finish (None = its default 1e-3).
     eig_tol: Optional[float] = None
-    # Shard-extraction threads of the fused ingest (0 = auto).
+    # Shard-extraction (and, on the CSR tier, block-building) threads of
+    # the fused ingest (0 = auto).
     ingest_workers: int = 0
+    # Shard arrival order into the accumulator on the CSR-direct ingest
+    # tier: "manifest" keeps exact manifest order; "completion" feeds
+    # shards as their extraction completes. G is bit-identical either way
+    # (integer-exact accumulation); only block composition and wall-clock
+    # change. "auto" resolves to completion on a cold-stream run (the
+    # network tier's; none here) and to manifest everywhere else.
+    ingest_order: str = "auto"
     # Blocks the host→device feed stages ahead of the product.
     prefetch_depth: int = 2
     device: str = DEFAULT_DEVICE
@@ -126,7 +150,9 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--input-path",
         default=None,
-        help="JSONL cohort directory (not ported yet)",
+        help="JSONL cohort directory (callsets.json + variants.jsonl[.gz]); "
+        "the fused ingest reads it through a CSR sidecar built next to "
+        "the files on first use",
     )
     p.add_argument("--output-path", default=None)
     p.add_argument(
@@ -139,7 +165,7 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         action="append",
         dest="variant_set_ids",
         default=None,
-        help="VariantSet id (one dataset in this slice)",
+        help="VariantSet id (repeat to join/merge datasets)",
     )
     p.add_argument(
         "--mesh-shape", default=None, help="Device mesh (not ported yet)"
@@ -155,6 +181,24 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--debug-datasets", action="store_true")
     p.add_argument("--min-allele-frequency", type=float, default=None)
     p.add_argument("--num-pc", type=int, default=2)
+    p.add_argument(
+        "--samples",
+        type=_csv_list,
+        default=None,
+        help="Comma-separated callset ids restricting the cohort to "
+        "exactly these samples (default: every callset of the "
+        "variantsets). Ingest stays full-frame; carriers outside the "
+        "cohort drop at the window boundary, so results are identical "
+        "to a cohort containing only these samples. Meshless "
+        "uncheckpointed runs only",
+    )
+    p.add_argument(
+        "--exclude-samples",
+        type=_csv_list,
+        default=None,
+        help="Comma-separated callset ids dropped from the cohort "
+        "(applied after --samples)",
+    )
     p.add_argument(
         "--precise",
         action="store_true",
@@ -238,10 +282,11 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "--ingest-workers",
         type=int,
         default=0,
-        help="Threads extracting shards concurrently on the host (fused "
-        "ingest; 0 = auto — one per core capped at 16; 1 = serial; < 0 "
-        "rejected). Results are bit-identical at any setting; only "
-        "wall-clock changes",
+        help="Threads extracting shards AND building packed genotype "
+        "blocks concurrently on the host (fused ingest; 0 = auto — one "
+        "per core capped at 16 for extraction, min(4, cores) for the "
+        "block builders; 1 = serial; < 0 rejected). Results are "
+        "bit-identical at any setting; only wall-clock changes",
     )
     p.add_argument(
         "--prefetch-depth",
@@ -249,6 +294,17 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         default=PcaConfig.prefetch_depth,
         help="Blocks the double-buffered host→device feed stages ahead "
         "of the accumulating product (default 2; must be >= 1)",
+    )
+    p.add_argument(
+        "--ingest-order",
+        choices=INGEST_ORDERS,
+        default=PcaConfig.ingest_order,
+        help="Shard arrival order into the Gramian accumulator on the "
+        "CSR-direct ingest tier: 'manifest' preserves exact manifest "
+        "order; 'completion' feeds shards as their extraction completes; "
+        "'auto' (default) picks completion on cold-stream runs and "
+        "manifest otherwise. G is bit-identical either way "
+        "(integer-exact accumulation)",
     )
     p.add_argument(
         "--device",

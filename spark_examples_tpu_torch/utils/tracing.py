@@ -14,6 +14,13 @@ bit-pack of one block, in the feed's producer thread), :data:`INGEST_PUT`
 add). The sketch engine has three of its own: :data:`SKETCH_ACCUMULATE`
 (one streamed pass over the windows), :data:`SKETCH_WINDOW` (one window's
 panel update) and :data:`SKETCH_FINISH` (the host float64 eigensolve).
+
+The CSR-direct ingest of an on-disk cohort adds the JAX package's ingest
+spans as ranges: :data:`INGEST_STREAM` (the whole shard stream),
+:data:`INGEST_FETCH` (one shard's sidecar extraction) and
+:data:`INGEST_BUILD` (one CSR window built into a bit-packed block, in a
+builder thread); and a source's per-shard extraction is an
+:func:`rpc_range` (the JAX package's ``rpc_timer`` latency sample).
 """
 
 from __future__ import annotations
@@ -26,20 +33,33 @@ from torch.profiler import record_function
 
 __all__ = [
     "GRAMIAN_ACCUMULATE",
+    "INGEST_BUILD",
+    "INGEST_FETCH",
     "INGEST_PACK",
     "INGEST_PUT",
+    "INGEST_STREAM",
     "SKETCH_ACCUMULATE",
     "SKETCH_FINISH",
     "SKETCH_WINDOW",
     "StageTimer",
+    "rpc_range",
 ]
 
 INGEST_PACK = "ingest.pack"
 INGEST_PUT = "ingest.put"
+INGEST_STREAM = "ingest.stream"
+INGEST_FETCH = "ingest.fetch"
+INGEST_BUILD = "ingest.build"
 GRAMIAN_ACCUMULATE = "gramian.accumulate"
 SKETCH_ACCUMULATE = "gramian.sketch.accumulate"
 SKETCH_WINDOW = "gramian.sketch.window"
 SKETCH_FINISH = "gramian.sketch.finish"
+
+
+def rpc_range(transport: str, method: str) -> record_function:
+    """The range of one source request, named ``<transport>.<method>``
+    (``jsonl.stream_carrying_csr``)."""
+    return record_function(f"{transport}.{method}")
 
 
 class StageTimer:

@@ -43,6 +43,10 @@ def test_every_module_imports_without_jax():
     for name in (
         "arrays.blocks",
         "arrays.feed",
+        "genomics.datasets",
+        "genomics.fixtures",
+        "genomics.hashing",
+        "genomics.sources",
         "models.pca",
         "ops.fused",
         "ops.gramian",

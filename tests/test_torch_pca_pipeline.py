@@ -156,9 +156,8 @@ def test_cpu_run_launches_no_kernel(tmp_path, capsys):
     [
         ({"mesh_shape": "data:2"}, "item 5"),
         ({"checkpoint_dir": "/nonexistent"}, "item 6"),
-        ({"variant_set_ids": ["a", "b"]}, "item 8"),
     ],
-    ids=["mesh", "checkpoint", "multi"],
+    ids=["mesh", "checkpoint"],
 )
 def test_unported_options_raise_before_ingest(kw, match):
     settings = {**SETTINGS, **kw}
