@@ -6,8 +6,9 @@
 Drives the port's paths through ``VariantsPcaDriver.run()`` at the 1000
 Genomes phase-3 cohort width (N = 2504 samples): meshless
 ``pca --pca-mode sparse`` over V = 65536 rare variants, from the in-memory
-fixture and from the same cohort on disk (``--input-path``, through the CSR
-sidecar), and the default ``pca`` (``--pca-mode auto``: dense-blockwise
+fixture, from the same cohort on disk (``--input-path``, through the CSR
+sidecar) and from the same directory served over HTTP (``--api-url``), and
+the default ``pca`` (``--pca-mode auto``: dense-blockwise
 ingest through the bit-packed pinned feed, then the fused finish); the
 sketch engine at the biobank width (N = 2^20), alone and through the
 driver over an on-disk cohort; and holds every hand-written kernel against
@@ -99,7 +100,23 @@ on failure:
     and a profiled warm run must each return a ``SketchPanel``, launch no
     scatter kernel, stay under 2 GiB of card memory, and give phase 10's
     panel and coordinates bit for bit; stage times, samples per second,
-    idle share per stage, and the ordinal lookup over 2^20 ids.
+    idle share per stage, and the ordinal lookup over 2^20 ids;
+14. the network tier over HTTP, uncut: phase 12's directory behind the
+    port's ``GenomicsServiceServer`` (a thread, 127.0.0.1, a bearer
+    token), read through ``HttpVariantSource`` by the driver: ``sparse``
+    over the binary frame tier (the scatter launch count set to 0 before
+    and read after: it must be phase 4's; G phase 4's bit for bit; one
+    frame fetched per shard), warm ``sparse`` and ``auto`` (no launch,
+    one pinned copy per block) beside warm ``--input-path`` runs, the
+    gzip record tier, one injected ``transport.http.request`` fault on
+    ``/variants-csr`` (retried; G unchanged; IoStats clean), a profiled
+    run (idle share, the host ranges), the frame tier's host steps timed
+    alone (server slice and zlib encode, client decode and remap); then
+    ``serve-cohort`` and ``pca --api-url --trace-out --metrics-out
+    --manifest-out --fault-plan`` in subprocesses: the trace holds
+    ``ingest.fetch`` and ``wire_frame_fetch``, the metrics phase 4's
+    scatter windows, RPC latency samples and the one injected fault, the
+    manifest names the card.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -355,7 +372,13 @@ SKETCH_RANGES = ("gramian.sketch.accumulate", "gramian.sketch.window",
 FILE_RANGES = ("ingest.stream", "ingest.fetch", "jsonl.stream_carrying_csr",
                "ingest.build", "ingest.pack", "ingest.put",
                "gramian.accumulate")
-ANNOTATIONS = STAGES + DENSE_RANGES + SKETCH_RANGES + FILE_RANGES
+# Host ranges of the network tier (each shard's frame fetch and decode on
+# the client, its sidecar slice on the server) and of the sparse Gramian.
+NET_RANGES = ("ingest.stream", "ingest.fetch", "wire_frame_fetch",
+              "jsonl.stream_carrying_frame", "gramian.sparse.accumulate",
+              "gramian.sparse.window")
+ANNOTATIONS = (STAGES + DENSE_RANGES + SKETCH_RANGES + FILE_RANGES
+               + NET_RANGES + ("jsonl.stream_carrying",))
 
 
 def merged_busy_us(intervals, lo, hi) -> float:
@@ -1463,6 +1486,264 @@ def biobank_driver(torch, panel10, coords10, rate10):
         shutil.rmtree(root, ignore_errors=True)
 
 
+NET_TOKEN = "chip-smoke-token"
+
+
+def metric(snapshot, name):
+    """One counter of a registry snapshot (0.0 when never incremented)."""
+    return float(snapshot["counters"].get(name, 0.0))
+
+
+def serve_cli(root, env):
+    """``serve-cohort`` in a subprocess on an ephemeral port; returns the
+    process and its URL once it listens."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+         "serve-cohort", "--input-path", root, "--port", "0",
+         "--token", NET_TOKEN],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+    deadline = time.monotonic() + 120
+    for line in proc.stdout:
+        print(f"  serve-cohort | {line.rstrip()}", flush=True)
+        if "listening on http://" in line:
+            return proc, line.split("listening on ", 1)[1].split()[0]
+        check(time.monotonic() < deadline, "serve-cohort did not listen")
+    fail(f"serve-cohort exited {proc.wait()} before listening")
+
+
+def frame_breakdown(served, driver):
+    """The frame tier's host steps for the cohort's one shard, each timed
+    alone (best of 3): the server's sidecar slice and frame encoding
+    (zlib), the client's decode (CRC, inflate) and ordinal remap."""
+    from spark_examples_tpu_torch.genomics import wire
+
+    vsid = driver.conf.variant_set_ids[0]
+    shard = driver._manifest()[0]
+    ids = served.callset_order()
+    digest = wire.callsets_digest(ids)
+    lookup = wire.OrdinalLookupCache().get(ids, driver.index.indexes)
+    steps = {
+        "server slice": lambda: served.stream_carrying_frame(vsid, shard),
+    }
+    payload = steps["server slice"]()
+    steps["server encode (zlib)"] = lambda: wire.encode_shard_frames(
+        shard, payload, digest)
+    body = steps["server encode (zlib)"]()
+
+    def decode():
+        dec = wire.FrameDecoder(expect_digest=digest)
+        frames = [f for i in range(0, len(body), 1 << 20)
+                  for f in dec.feed(body[i:i + (1 << 20)])]
+        dec.finish()
+        return frames
+
+    steps["client decode (CRC, inflate)"] = decode
+    frames = decode()
+    steps["client remap"] = lambda: wire.remap_frames(
+        frames, lookup, ids, shard)
+    out = {}
+    for name, fn in steps.items():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = round(best * 1e3, 3)
+    print(f"  frame tier host steps, ms (best of 3; {len(body)} bytes, "
+          f"{int(payload[0].size)} carriers): {json.dumps(out)}")
+
+
+def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
+    """Phase 14: ``serve-cohort`` and ``pca --api-url http://`` over phase
+    12's directory. Returns the scatter launches of the frame-tier sparse
+    run."""
+    from spark_examples_tpu_torch import obs
+    from spark_examples_tpu_torch.genomics.auth import Credentials
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.service import (
+        GenomicsServiceServer,
+        HttpVariantSource,
+    )
+    from spark_examples_tpu_torch.genomics.sources import (
+        SIDECAR_BASENAME,
+        JsonlSource,
+    )
+    from spark_examples_tpu_torch.resilience import faults
+
+    base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
+    creds = Credentials(NET_TOKEN, "chip-smoke")
+    sidecar_bytes = os.path.getsize(os.path.join(root, SIDECAR_BASENAME))
+    served = JsonlSource(root)
+    t0 = time.perf_counter()
+    indexed = served.ensure_serving_index()
+    server = GenomicsServiceServer(served, port=0, token=NET_TOKEN).start()
+    url = f"http://127.0.0.1:{server.port}"
+    print(f"  server on {url} (token auth), {indexed} records indexed in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def client(**kw):
+        return HttpVariantSource(url, credentials=creds, timeout=120, **kw)
+
+    def coords_err(result):
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), "coordinates must be finite")
+        return float(np.abs(coords - want).max())
+
+    def ingest_s(driver):
+        return driver.timer.seconds["ingest+gramian"]
+
+    times = {}
+    try:
+        frames_client = client()
+        with obs.telemetry_session(command="chip_smoke") as session:
+            driver, result, g, launches, _, _ = drive_file(
+                torch, frames_client, "sparse over the frame tier",
+                pca_mode="sparse", **base)
+            snap = session.registry.snapshot()
+        shards = len(driver._manifest())
+        frames = metric(snap, 'wire_frames_total{transport="http"}')
+        wire_bytes = metric(snap, 'wire_frame_bytes_total{transport="http"}')
+        err = coords_err(result)
+        print(f"    G bit-identical to phase 4's: {same_g(g, g_ref)}; "
+              f"coordinates vs host f64 oracle {err:.3e}; {frames:.0f} "
+              f"frames for {shards} shards, {wire_bytes:.0f} frame bytes "
+              f"on the wire (the sidecar file: {sidecar_bytes} bytes)")
+        check(launches == phase4_launches,
+              f"network sparse: {launches} scatter launches, phase 4 "
+              f"launched {phase4_launches}")
+        check(same_g(g, g_ref), "network sparse: G is not phase 4's")
+        check(err <= COORD_TOL, "network sparse: coordinates beyond the bar")
+        check(frames == shards, "one frame per shard must be fetched")
+        net_launches = launches
+
+        for mode in ("sparse", "auto"):
+            driver, _, g, launches, pinned, _ = drive_file(
+                torch, frames_client, f"{mode} over the frame tier, warm",
+                pca_mode=mode, **base)
+            check(same_g(g, g_ref), f"network {mode}: G is not phase 4's")
+            if mode == "auto":
+                check(launches == 0, "network auto: no scatter launch")
+                check(pinned == n_blocks,
+                      f"network auto: {pinned} pinned copies for "
+                      f"{n_blocks} blocks")
+            times[f"{mode}, frame tier"] = ingest_s(driver)
+            driver, _, g, _, _, _ = drive_file(
+                torch, JsonlSource(root), f"{mode} --input-path, warm",
+                pca_mode=mode, **base)
+            check(same_g(g, g_ref), f"--input-path {mode}: G differs")
+            times[f"{mode}, --input-path"] = ingest_s(driver)
+
+        driver, _, g, launches, _, _ = drive_file(
+            torch, client(wire_frames=False), "sparse over the record tier "
+            "(gzip)", pca_mode="sparse", **base)
+        check(same_g(g, g_ref), "record tier: G is not phase 4's")
+        check(launches == phase4_launches, "record tier: scatter launches")
+        times["sparse, record tier"] = ingest_s(driver)
+
+        plan = faults.FaultPlan.from_spec(json.dumps({"seed": 0, "rules": [
+            {"site": "transport.http.request", "match": "/variants-csr",
+             "times": 1}]}))
+        faulted = client()
+        with faults.active_plan(plan):
+            _, _, g, _, _, _ = drive_file(
+                torch, faulted, "sparse, one injected transport.http.request "
+                "fault on /variants-csr", pca_mode="sparse", **base)
+        print("    " + " | ".join(faulted.stats.report().splitlines()[2:]))
+        check(plan.fired_total == 1, "the fault must fire exactly once")
+        check(same_g(g, g_ref), "the retried run's G is not phase 4's")
+        check(faulted.stats.unsuccessful_responses == 0
+              and faulted.stats.io_exceptions == 0,
+              "a retried fault must leave IoStats clean")
+
+        print("  a warm sparse run over the frame tier under torch.profiler "
+              "(all threads):", flush=True)
+        _, _, _, _, _, prof = drive_file(
+            torch, frames_client, "sparse over the frame tier, profiled",
+            profiled=True, pca_mode="sparse", **base)
+        profile_split(prof)
+        for name, (ms, count) in sorted(host_ranges(
+                prof, NET_RANGES).items()):
+            print(f"  host range {name}: {ms:.3f} ms over {count}")
+        frame_breakdown(served, driver)
+    finally:
+        server.stop()
+    print("  ingest+gramian seconds, warm: " + json.dumps(
+        {k: round(v, 6) for k, v in times.items()}))
+
+    print("  the CLI in subprocesses: serve-cohort and pca --api-url",
+          flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_net_")
+    atexit.register(shutil.rmtree, work, True)
+    token_file = os.path.join(work, "token.json")
+    with open(token_file, "w") as f:
+        json.dump({"token": NET_TOKEN}, f)
+    env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
+    proc, cli_url = serve_cli(root, env)
+    try:
+        outs = {k: os.path.join(work, k) for k in ("trace.json",
+                                                  "metrics.prom",
+                                                  "manifest.json")}
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+             "pca", "--api-url", cli_url, "--pca-mode", "sparse",
+             "--trace-out", outs["trace.json"],
+             "--metrics-out", outs["metrics.prom"],
+             "--manifest-out", outs["manifest.json"],
+             "--fault-plan", json.dumps({"seed": 0, "rules": [
+                 {"site": "transport.http.request",
+                  "match": "/variants-csr", "times": 1}]})],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    lines = cli.stdout.splitlines()
+    print(f"  pca --api-url ({cli_s:.2f} s):")
+    for line in lines:
+        if line.count("\t") != 3:
+            print(f"  | {line}")
+    check(cli.returncode == 0,
+          f"pca --api-url exited {cli.returncode}: {cli.stderr[-2000:]}")
+    check(sum(line.count("\t") == 3 for line in lines) == N_SAMPLES,
+          "pca --api-url must emit one result line per sample")
+    with open(outs["trace.json"]) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    with open(outs["metrics.prom"]) as f:
+        prom = f.read()
+    with open(outs["manifest.json"]) as f:
+        manifest = json.load(f)
+    samples = dict(line.rsplit(" ", 1) for line in prom.splitlines()
+                   if line and not line.startswith("#"))
+    scatter = float(samples.get(
+        'sparse_gramian_windows_total{route="scatter"}', 0))
+    rpc_count = sum(float(v) for k, v in samples.items()
+                    if k.startswith("genomics_rpc_latency_seconds_count"))
+    faults_fired = float(samples.get(
+        'resilience_faults_injected_total{kind="error",'
+        'site="transport.http.request"}', 0))
+    devices = manifest["environment"]["torch"]["device_names"]
+    print(f"  trace spans ingest.fetch {'ingest.fetch' in names}, "
+          f"wire_frame_fetch {'wire_frame_fetch' in names}; metrics: "
+          f"scatter windows {scatter:.0f}, RPC latency samples "
+          f"{rpc_count:.0f}, injected faults {faults_fired:.0f}; manifest "
+          f"devices {devices}")
+    check({"ingest.fetch", "wire_frame_fetch"} <= names,
+          "the trace must hold ingest.fetch and wire_frame_fetch spans")
+    check(scatter == phase4_launches,
+          "the metrics must count phase 4's scatter windows")
+    check(rpc_count > 0, "genomics_rpc_latency_seconds must have samples")
+    check(faults_fired == 1, "the CLI's --fault-plan must fire once")
+    check(torch.cuda.get_device_name(0) in devices,
+          "the manifest must name the card")
+    return net_launches
+
+
 def host_windows(source, conf, indexes):
     """The driver's CSR windows, rebuilt on the host from the same source."""
     from spark_examples_tpu_torch.arrays.blocks import windows_from_calls
@@ -1473,6 +1754,9 @@ def host_windows(source, conf, indexes):
             conf.variant_set_ids[0], shard, indexes
         ))
     return list(windows_from_calls(calls, conf.block_variants))
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -1705,6 +1989,14 @@ def main() -> int:
     print("== 13. the biobank width through the driver (N = 2^20, "
           "--input-path)", flush=True)
     biobank_driver(torch, panel10, coords10, rate10)
+
+    print("== 14. the network tier: serve-cohort and pca --api-url "
+          "http:// (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    launches = network_tier(torch, cohort_dir, g_ref, want, len(windows),
+                            launches)
+    print(f"  phase 14 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",

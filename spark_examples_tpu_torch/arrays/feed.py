@@ -26,8 +26,8 @@ from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from spark_examples_tpu_torch.utils.tracing import INGEST_PUT
 
@@ -120,7 +120,7 @@ def device_prefetch(
                 if stop.is_set():
                     return
                 arr = np.ascontiguousarray(block)
-                with record_function(INGEST_PUT):
+                with obs.span(INGEST_PUT, bytes=int(arr.nbytes)):
                     staged = (
                         stager.stage(arr)
                         if stager is not None

@@ -1,22 +1,36 @@
-"""CLI: ``python -m spark_examples_tpu_torch.cli.main pca [flags]``.
+"""CLI: ``python -m spark_examples_tpu_torch.cli.main <command> [flags]``.
 
-The ``pca`` subcommand of the JAX package's CLI, on PyTorch, against an
-on-disk JSONL cohort (``--input-path <dir>``: the same directory and CSR
-sidecar the JAX package's CLI reads) or the hermetic synthetic cohort
-(``--fixture-*`` flags). Computes on the card by default; ``--device cpu``
-runs on the CPU.
+The JAX package's CLI on PyTorch, for the commands the port serves so far:
+
+- ``pca`` against an HTTP genomics service (``--api-url http(s)://``), an
+  on-disk JSONL cohort (``--input-path <dir>``: the same directory and CSR
+  sidecar the JAX package's CLI reads) or the hermetic synthetic cohort
+  (``--fixture-*`` flags). Computes on the card by default; ``--device
+  cpu`` runs on the CPU;
+- ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service
+  (either package's client reads it);
+- ``generate-fixture``: write a synthetic JSONL cohort (variants only);
+- ``search-variants-klotho`` / ``search-variants-brca1``.
+
+``--trace-out/--metrics-out/--manifest-out`` open one telemetry session
+around the command, and ``--fault-plan`` installs a fault plan for it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
     synthetic_cohort,
 )
-from spark_examples_tpu_torch.genomics.shards import references_for_all
+from spark_examples_tpu_torch.genomics.shards import (
+    BRCA1_REFERENCES,
+    KLOTHO_REFERENCES,
+    references_for_all,
+)
 from spark_examples_tpu_torch.genomics.sources import JsonlSource
 from spark_examples_tpu_torch.utils.config import (
     add_pca_flags,
@@ -25,6 +39,8 @@ from spark_examples_tpu_torch.utils.config import (
 )
 
 __all__ = ["build_parser", "main"]
+
+_MIRRORS = "item 2, gRPC and mirrors"
 
 
 def _add_fixture_flags(p: argparse.ArgumentParser) -> None:
@@ -53,6 +69,36 @@ def _add_fixture_flags(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _network_source(args):
+    """HTTP source with credentials — the Client(auth) construction.
+
+    Resolves the credential once via get_access_token (the
+    Authentication.getAccessToken analog, Client.scala:29-46) and ships it
+    on every per-shard request, under one retry policy and one breaker
+    configuration.
+    """
+    if args.api_url.startswith("grpc://"):
+        raise unported("--api-url grpc://", _MIRRORS)
+    from spark_examples_tpu_torch.genomics.auth import get_access_token
+    from spark_examples_tpu_torch.genomics.service import HttpVariantSource
+    from spark_examples_tpu_torch.resilience import BreakerSet, RetryPolicy
+
+    return HttpVariantSource(
+        args.api_url,
+        credentials=get_access_token(args.client_secrets),
+        retry_policy=RetryPolicy(
+            max_attempts=max(1, args.rpc_retries),
+            deadline=args.rpc_retry_deadline,
+        ),
+        breakers=BreakerSet(
+            f"http:{args.api_url}:",
+            failure_threshold=args.breaker_threshold,
+            cooldown_s=args.breaker_cooldown,
+        ),
+        cold_stream=args.cold_stream,
+    )
+
+
 def _offline_source(args, references: str):
     """JSONL-dir or synthetic-fixture source, or None if neither flagged."""
     if args.input_path:
@@ -72,41 +118,201 @@ def _offline_source(args, references: str):
     return None
 
 
+def _resolve_source(args, references: str):
+    # Offline sources never consume credentials; --client-secrets
+    # applies to the network source only. The mirror options have no
+    # source to serve them yet, whichever source is chosen.
+    if args.cache_dir:
+        raise unported("--cache-dir", _MIRRORS)
+    if args.mirror_mode != "full":
+        raise unported("--mirror-mode", _MIRRORS)
+    if args.api_url:
+        return _network_source(args)
+    source = _offline_source(args, references)
+    if source is None:
+        raise SystemExit(
+            "No data source: pass --api-url <service>, --input-path "
+            "<jsonl cohort dir>, or --fixture-samples N (the Genomics v1 "
+            "API is retired; serve-cohort hosts a compatible service)"
+        )
+    return source
+
+
 def _cmd_pca(args) -> int:
     from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
 
-    if args.api_url:
-        raise unported("--api-url", "slice 6, the network tier of item 8")
     conf = pca_config_from_args(args)
     if not args.variant_set_ids:
         conf.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
-    source = _offline_source(
+    source = _resolve_source(
         args,
         # Cover exactly what an --all-references manifest queries.
         references_for_all() if conf.all_references else conf.references,
     )
+    VariantsPcaDriver(conf, source).run()
+    return 0
+
+
+def _cmd_generate_fixture(args) -> int:
+    """Write a JSONL cohort directory for offline runs (variants only)."""
+    src = synthetic_cohort(
+        args.fixture_samples or 100,
+        args.fixture_variants,
+        references=args.references,
+        seed=args.fixture_seed,
+        sparse_calls=args.fixture_sparse_calls,
+        rare_variant_af=args.fixture_rare_af,
+        variant_set_id=(args.variant_set_ids or [DEFAULT_VARIANT_SET_ID])[0],
+    )
+    src.dump(args.out)
+    print(f"Wrote cohort to {args.out}")
+    return 0
+
+
+def _cmd_search_variants(args, fn) -> int:
+    conf = pca_config_from_args(args)
+    if not args.variant_set_ids:
+        conf.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
+    source = _resolve_source(args, args.references)
+    fn(
+        source,
+        variant_set_id=conf.variant_set_ids[0],
+        references=args.references,
+        bases_per_shard=conf.bases_per_partition,
+    )
+    return 0
+
+
+def _cmd_serve_cohort(args) -> int:
+    """Host a cohort as a Genomics-compatible HTTP service."""
+    if args.grpc_port is not None:
+        raise unported("serve-cohort --grpc-port", _MIRRORS)
+    if args.analyze:
+        raise unported(
+            "serve-cohort --analyze", "item 6, delta and gang serving"
+        )
+    from spark_examples_tpu_torch.genomics.service import (
+        GenomicsServiceServer,
+    )
+
+    source = _offline_source(args, args.references)
     if source is None:
         raise SystemExit(
-            "No data source: pass --input-path <jsonl cohort dir> or "
-            "--fixture-samples N (the network source is not ported yet)"
+            "serve-cohort needs --input-path <jsonl dir> or "
+            "--fixture-samples N"
         )
-    VariantsPcaDriver(conf, source).run()
+    warm = getattr(source, "ensure_serving_index", None)
+    if warm is not None:
+        # Index BEFORE accepting requests: a lazy build on the first
+        # shard request of a large cohort outlives client socket timeouts.
+        print("Indexing cohort for serving ...", flush=True)
+        print(f"Indexed {warm()} variant records.", flush=True)
+    server = GenomicsServiceServer(
+        source, port=args.port, token=args.token, host=args.host
+    )
+    print(
+        f"Genomics service listening on http://{args.host}:{server.port}"
+        + (" (token auth)" if args.token else ""),
+        flush=True,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="spark_examples_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
     pca = sub.add_parser("pca", help="VariantsPcaDriver: PCoA over a cohort")
     add_pca_flags(pca)
     _add_fixture_flags(pca)
     pca.set_defaults(fn=_cmd_pca)
+
+    gen = sub.add_parser(
+        "generate-fixture", help="Write a synthetic JSONL cohort"
+    )
+    add_pca_flags(gen)
+    _add_fixture_flags(gen)
+    gen.add_argument("--out", required=True)
+    gen.set_defaults(fn=_cmd_generate_fixture)
+
+    from spark_examples_tpu_torch.models.search_variants import (
+        search_variants_brca1,
+        search_variants_klotho,
+    )
+
+    for name, fn, refs in (
+        ("search-variants-klotho", search_variants_klotho, KLOTHO_REFERENCES),
+        ("search-variants-brca1", search_variants_brca1, BRCA1_REFERENCES),
+    ):
+        sv = sub.add_parser(name, help=f"{name} example driver")
+        add_pca_flags(sv)
+        _add_fixture_flags(sv)
+        sv.set_defaults(references=refs)
+        sv.set_defaults(fn=lambda a, _f=fn: _cmd_search_variants(a, _f))
+
+    serve = sub.add_parser(
+        "serve-cohort",
+        help="Host a cohort as a Genomics-compatible HTTP service",
+    )
+    add_pca_flags(serve)
+    _add_fixture_flags(serve)
+    serve.add_argument(
+        "--analyze",
+        action="store_true",
+        help="Also run the analysis job tier (not ported yet)",
+    )
+    serve.add_argument("--port", type=int, default=18718)
+    serve.add_argument(
+        "--grpc-port",
+        type=int,
+        default=None,
+        help="Also serve the gRPC transport on this port (not ported yet)",
+    )
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument(
+        "--token",
+        default=None,
+        help="Require this bearer token on every request",
+    )
+    serve.set_defaults(fn=_cmd_serve_cohort)
     return p
 
 
 def main(argv=None) -> int:
+    from spark_examples_tpu_torch.resilience import faults
+
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    # The fault plane: --fault-plan scopes a plan to this one command.
+    plan = (
+        faults.FaultPlan.from_spec(args.fault_plan)
+        if args.fault_plan
+        else None
+    )
+    with faults.active_plan(plan) if plan else contextlib.nullcontext():
+        outs = {
+            name: getattr(args, name)
+            for name in ("trace_out", "metrics_out", "manifest_out")
+        }
+        if not any(outs.values()):
+            return args.fn(args)
+        # One telemetry session per CLI run: spans and metrics collected
+        # by the ambient helpers everywhere below, artifacts written on
+        # exit — on the failure path too.
+        from spark_examples_tpu_torch.obs import telemetry_session
+
+        config = {
+            k: v for k, v in sorted(vars(args).items()) if k != "fn"
+        }
+        with telemetry_session(
+            command=args.command, config=config, **outs
+        ):
+            return args.fn(args)
 
 
 if __name__ == "__main__":

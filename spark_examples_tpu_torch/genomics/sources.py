@@ -14,8 +14,11 @@ JAX package's local sources:
   loads the other's sidecar without a rebuild) and to the staged record
   path through a byte-offset line index (:class:`_LineIndex`).
 
-The network sources (HTTP/gRPC, the binary wire frames, remote mirrors)
-are a later slice (ROADMAP.md).
+Both also carry the serving methods the HTTP service
+(:mod:`spark_examples_tpu_torch.genomics.service`) fronts: the callset
+ordinal order, one shard's carrying CSR pair in ordinals (the binary wire
+frame's payload), the raw record lines of a shard, the whole-cohort
+interchange export and the cohort identity.
 
 Every source enforces the STRICT boundary rule: a record is yielded by
 exactly the shard containing its start coordinate, so no deduplication pass
@@ -328,6 +331,7 @@ class FixtureSource:
         self.stats = stats if stats is not None else IoStats()
         self._variant_idx: Optional[_SortedIndex] = None
         self._idx_lock = threading.Lock()
+        self._identity: Optional[str] = None
 
     @staticmethod
     def _variant_key(item):
@@ -431,6 +435,91 @@ class FixtureSource:
             items, indexes, variant_set_id, self.stats,
             min_allele_frequency,
         )
+
+    def callset_order(self) -> List[str]:
+        """Callset ids in ORDINAL order — the id space binary wire
+        frames index into (for a fixture, construction order)."""
+        return [c.id for c in self._callsets]
+
+    def stream_carrying_frame(
+        self,
+        variant_set_id: str,
+        shard: Shard,
+        min_allele_frequency: Optional[float] = None,
+    ):
+        """One shard's carrying CSR pair in callset ORDINALS plus the
+        variants_read count — the binary wire tier's payload
+        (:mod:`~spark_examples_tpu_torch.genomics.wire`). Ordinals are
+        positions in :meth:`callset_order`; the CLIENT remaps them to its
+        dense sample indexes. Same stats behavior as
+        :meth:`stream_carrying`; the count rides separately so the serving
+        transport can forward it (client IoStats must match the record
+        tiers)."""
+        items = self._shard_items(shard)
+        ord_of = {c.id: i for i, c in enumerate(self._callsets)}
+        priv = IoStats()
+        if any(isinstance(i, Variant) for i in items):
+            lists = _carrying_variants(
+                self._built(items, variant_set_id),
+                ord_of,
+                priv,
+                min_allele_frequency,
+            )
+        else:
+            lists = _carrying_records(
+                items, ord_of, variant_set_id, priv, min_allele_frequency
+            )
+        pair = csr_pair_from_lists(lists)
+        self.stats.add(variants_read=priv.variants_read)
+        if pair is None:
+            return (
+                np.zeros(0, dtype=np.int64),
+                np.zeros(1, dtype=np.int64),
+                priv.variants_read,
+            )
+        return pair[0], pair[1], priv.variants_read
+
+    def cohort_identity(self) -> str:
+        """Content digest identifying this cohort (the ETag analog): a
+        digest of the interchange export, computed once — a served
+        fixture's records do not change. The JAX package's digest, byte
+        for byte (a fixture without reads exports an empty
+        ``reads.jsonl``)."""
+        if self._identity is None:
+            import hashlib
+
+            h = hashlib.sha256()
+            for name in ("callsets.json", "variants.jsonl", "reads.jsonl"):
+                for line in self.export_lines(name):
+                    h.update(line)
+                    h.update(b"\n")
+                h.update(b"\x00")
+            self._identity = h.hexdigest()[:16]
+        return self._identity
+
+    def export_lines(self, name: str) -> Iterator[bytes]:
+        """Serialized interchange-file lines for the whole-cohort export
+        endpoint (the schema of :meth:`dump`, streamed instead of
+        written). A fixture of the port holds no reads, so its
+        ``reads.jsonl`` is empty."""
+        if name == "callsets.json":
+            yield json.dumps(
+                [
+                    {
+                        "id": c.id,
+                        "name": c.name,
+                        "variant_set_id": c.variant_set_id,
+                    }
+                    for c in self._callsets
+                ]
+            ).encode()
+        elif name == "variants.jsonl":
+            for rec in self._variants:
+                if isinstance(rec, Variant):
+                    rec = _variant_to_record(rec)
+                yield json.dumps(rec).encode()
+        elif name != "reads.jsonl":
+            raise KeyError(name)
 
     def dump(self, root: str) -> None:
         """Write the cohort as a JSONL directory readable by
@@ -1280,6 +1369,10 @@ class JsonlSource:
         self.root = root
         self.stats = stats if stats is not None else IoStats()
         self._csr: Optional[_CsrCohort] = None
+        # Ordinal identity map for the binary wire tier: ONE dict object
+        # reused across shard requests so _CsrCohort's single-slot
+        # lookup cache (identity-keyed) hits on every frame query.
+        self._ordinal_indexes: Optional[dict] = None
         # Shard-parallel ingest streams from worker threads; every
         # lazily-built shared structure (sidecar, record indexes) must be
         # built exactly once, not once per racing worker.
@@ -1314,6 +1407,19 @@ class JsonlSource:
                         self._lineidx = _LineIndex.load_or_build(self.root)
         return self._lineidx or None
 
+    def ensure_serving_index(self) -> int:
+        """Build (or load) every shard-serving index up front; → variant
+        records indexed. ``serve-cohort`` calls this before accepting
+        requests so the first shard of a large cohort does not pay an
+        index build behind a client's socket timeout. The CSR sidecar
+        backs the binary frame tier and the sidecar export; it is
+        persisted, so only the first serve of a cohort pays it."""
+        self._ensure_csr()
+        idx = self._line_index()
+        if idx is not None:
+            return idx.total
+        return self._variants_index().total
+
     def _shard_records(self, shard: Shard) -> Iterator[dict]:
         """Parsed records for one shard window — windowed reads via the
         line index when available (memory bounded by the shard, not the
@@ -1326,6 +1432,82 @@ class JsonlSource:
         with open(os.path.join(self.root, "variants.jsonl"), "rb") as f:
             for line in _LineIndex.read_lines(f, offsets, lengths):
                 yield json.loads(line)
+
+    def stream_variant_lines(
+        self, variant_set_id: str, shard: Shard
+    ) -> Iterator[bytes]:
+        """Raw interchange lines for one shard — the zero-parse serving
+        path (/variants passthrough) over the byte-offset line index.
+        Same STRICT slicing and variant-set wildcard rule as
+        :meth:`stream_variants`; contig-normalization drops are left to the
+        client's builder (manifest shards only address numeric contigs)."""
+        self.stats.add(
+            partitions=1, requests=1, reference_bases=shard.range
+        )
+        idx = self._line_index()
+        if idx is None:
+            # gzipped cohorts: serialize from the parsed index.
+            for rec in self._variants_index().slice(shard):
+                stored = rec.get("variant_set_id")
+                if variant_set_id and stored and stored != variant_set_id:
+                    continue
+                self.stats.add(variants_read=1)
+                yield json.dumps(rec).encode()
+            return
+        offsets, lengths = idx.slice(shard)
+        with open(os.path.join(self.root, "variants.jsonl"), "rb") as f:
+            for line in _LineIndex.read_lines(f, offsets, lengths):
+                if not _line_vsid_matches(line, variant_set_id):
+                    continue
+                self.stats.add(variants_read=1)
+                yield line
+
+    def cohort_identity(self) -> Optional[str]:
+        """Cheap cohort digest for remote caching: (name, size, mtime_ns)
+        of every interchange file — the same invalidation convention the
+        CSR sidecar uses, and the JAX package's digest."""
+        import hashlib
+
+        h = hashlib.sha256()
+        found = False
+        for name in ("callsets.json", "variants.jsonl", "reads.jsonl"):
+            for path in (
+                os.path.join(self.root, name),
+                os.path.join(self.root, name + ".gz"),
+            ):
+                if os.path.exists(path):
+                    st = os.stat(path)
+                    h.update(
+                        f"{os.path.basename(path)}|{st.st_size}"
+                        f"|{st.st_mtime_ns}\n".encode()
+                    )
+                    found = True
+        return h.hexdigest()[:16] if found else None
+
+    def export_lines(self, name: str) -> Iterator[bytes]:
+        """Raw interchange-file lines (no parse — the export endpoint is
+        a passthrough for file-backed cohorts)."""
+        if name not in ("callsets.json", "variants.jsonl", "reads.jsonl"):
+            raise KeyError(name)
+        path = os.path.join(self.root, name)
+        if not (os.path.exists(path) or os.path.exists(path + ".gz")):
+            if name == "reads.jsonl":
+                return  # reads are optional in the interchange layout
+            raise FileNotFoundError(path)
+        with self._open(name) as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if line:
+                    yield line.encode()
+
+    def ensure_sidecar(self) -> Optional[str]:
+        """Build the CSR sidecar if needed; → its on-disk path, or None
+        when it could not be persisted (read-only cohort directory). The
+        serving side of ``/export-sidecar``: the file either package
+        maps."""
+        self._ensure_csr()
+        path = os.path.join(self.root, SIDECAR_BASENAME)
+        return path if os.path.exists(path) else None
 
     def _ensure_csr(self) -> _CsrCohort:
         if self._csr is None:
@@ -1416,6 +1598,61 @@ class JsonlSource:
                 self.stats,
                 min_allele_frequency,
             )
+
+    def callset_order(self) -> List[str]:
+        """Callset ids in ORDINAL order — the id space binary wire
+        frames index into: callsets.json file order plus any sidecar
+        extras (ids seen in records but absent from callsets.json),
+        exactly the sidecar's own ordinal table."""
+        return [
+            str(c)
+            for c in self._ensure_csr()._d["callset_ids"].tolist()
+        ]
+
+    def stream_carrying_frame(
+        self,
+        variant_set_id: str,
+        shard: Shard,
+        min_allele_frequency: Optional[float] = None,
+    ):
+        """One shard's carrying CSR pair in callset ORDINALS plus the
+        variants_read count — the binary wire tier's payload, sliced
+        straight off the sidecar with an identity ordinal map (zero
+        parse, zero remap server-side; the CLIENT remaps to its dense
+        indexes). Row/stats/AF semantics are exactly
+        :meth:`stream_carrying_csr`'s."""
+        csr = self._ensure_csr()
+        if self._ordinal_indexes is None:
+            with self._lazy_lock:
+                if self._ordinal_indexes is None:
+                    self._ordinal_indexes = {
+                        str(cid): i
+                        for i, cid in enumerate(
+                            csr._d["callset_ids"].tolist()
+                        )
+                    }
+        priv = IoStats()
+        with rpc_range("jsonl", "stream_carrying_frame"):
+            pair = csr.carrying_csr(
+                shard,
+                self._ordinal_indexes,
+                variant_set_id,
+                priv,
+                min_allele_frequency,
+            )
+        self.stats.add(
+            partitions=1,
+            requests=1,
+            reference_bases=shard.range,
+            variants_read=priv.variants_read,
+        )
+        if pair is None:
+            return (
+                np.zeros(0, dtype=np.int64),
+                np.zeros(1, dtype=np.int64),
+                priv.variants_read,
+            )
+        return pair[0], pair[1], priv.variants_read
 
     def stream_carrying_keyed(
         self,

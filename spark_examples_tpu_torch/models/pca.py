@@ -54,8 +54,8 @@ from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     blocks_from_calls,
     csr_windows,
@@ -199,10 +199,10 @@ class VariantsPcaDriver:
                 "(drop --mesh-shape)"
             )
         if conf.mesh_shape:
-            raise unported("--mesh-shape", "item 5, the mesh layer")
+            raise unported("--mesh-shape", "item 7, the mesh layer")
         if conf.checkpoint_dir:
             raise unported(
-                "--checkpoint-dir", "item 6, checkpoint/elastic/bridge"
+                "--checkpoint-dir", "item 8, checkpoint/elastic/bridge"
             )
         self.conf = conf
         self.source = source
@@ -403,14 +403,15 @@ class VariantsPcaDriver:
             print(
                 f"Min allele frequency {self.conf.min_allele_frequency}."
             )
+        cold = self._cold_stream_active()
         order = self.conf.ingest_order
         if order == "auto":
             # An EXPLICIT --ingest-order is always honored; only the
             # default resolves by run shape.
-            order = "completion" if self._cold_stream_active() else "manifest"
+            order = "completion" if cold else "manifest"
 
         def extract(shard):
-            with record_function(INGEST_FETCH):
+            with obs.span(INGEST_FETCH, shard=str(shard)):
                 return self.source.stream_carrying_csr(
                     vsid,
                     shard,
@@ -423,7 +424,9 @@ class VariantsPcaDriver:
             if order == "completion"
             else ordered_parallel_map
         )
-        with record_function(INGEST_STREAM):
+        with obs.span(
+            INGEST_STREAM, shards=len(shards), order=order, cold=cold
+        ):
             yield from pmap(extract, shards, self._ingest_workers())
 
     def _fused_multi_possible(self) -> bool:

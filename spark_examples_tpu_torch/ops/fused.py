@@ -57,6 +57,9 @@ __all__ = [
 # The sweep defaults of the JAX package's fused finish.
 _DEF_OVERSAMPLE = 8
 _DEF_ITERS = 40
+# A top-k Ritz vector whose norm is further than this from 1 marks a
+# collapsed panel. An orthonormal float32 panel is within ~1e-6.
+RITZ_NORM_TOL = 1e-2
 
 
 class EigResidualWarning(UserWarning):
@@ -76,7 +79,8 @@ def subspace_eig_cholqr(
     Returns ``(vecs (N, p), vals (p,), resid ())`` tensors on ``c``'s
     device with ``p = min(N, k+oversample)``, |λ|-ordered and
     sign-normalized; ``resid`` is the max top-k relative Ritz residual
-    computed from the final products (no extra O(N²) work). The start
+    computed from the final products (no extra O(N²) work), and NaN when
+    a top-k Ritz vector is not unit norm (a collapsed panel). The start
     panel is ``q0`` when given (an (N, p) array), else standard normal
     draws from a CPU ``torch.Generator`` seeded by ``seed``, so the same
     seed starts from the same panel on either device.
@@ -117,6 +121,16 @@ def subspace_eig_cholqr(
     rk = y @ uk - (q @ uk) * wk
     resid = torch.max(
         torch.linalg.vector_norm(rk, dim=0) / torch.clamp(wk.abs(), min=tiny)
+    )
+    # A rank-deficient panel can factorize here (the jitter keeps the
+    # Cholesky finite) where the JAX package's Cholesky returns NaN; its
+    # dropped directions then come back as top-k Ritz vectors far from
+    # unit norm (a zero column at N = 2), each with a zero residual. That
+    # is the same collapse: mark it non-finite so the caller raises (and
+    # the driver falls back to dense eigh) as the reference does.
+    norm_dev = (torch.linalg.vector_norm(q @ uk, dim=0) - 1.0).abs().max()
+    resid = torch.where(
+        norm_dev > RITZ_NORM_TOL, torch.full_like(resid, float("nan")), resid
     )
     return normalize_eigvec_signs(vecs), vals, resid
 

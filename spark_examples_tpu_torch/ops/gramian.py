@@ -30,8 +30,8 @@ from typing import Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import round_up_multiple
 from spark_examples_tpu_torch.arrays.feed import device_prefetch
 from spark_examples_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -237,7 +237,7 @@ def gramian_blockwise(
         for xb in blocks:
             # The range closes before the yield: it times the pack, not
             # the consumer's turn of the generator.
-            with record_function(INGEST_PACK):
+            with obs.span(INGEST_PACK):
                 xp = pack_indicator_block(xb)
             yield xp
 
@@ -246,7 +246,9 @@ def gramian_blockwise(
         step = gramian_accumulate_packed
     else:
         stream, step = blocks, gramian_accumulate
-    for xb in device_prefetch(stream, depth=prefetch_depth, device=dev):
-        with record_function(GRAMIAN_ACCUMULATE):
+    for i, xb in enumerate(
+        device_prefetch(stream, depth=prefetch_depth, device=dev)
+    ):
+        with obs.span(GRAMIAN_ACCUMULATE, block=i):
             step(g, xb, compute_dtype=compute_dtype)
     return g

@@ -65,8 +65,8 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     DEFAULT_BLOCK_VARIANTS,
     _check_indices,
@@ -122,6 +122,14 @@ SKETCH_TOPK_ATOL = 5e-2
 
 # Windows applied to a panel, by route, on either device.
 SKETCH_WINDOWS = {"scatter": 0, "dense": 0}
+
+
+def _note_sketch_window(route: str, count: int = 1) -> None:
+    """Per-window sketch telemetry, the JAX package's counter."""
+    obs.get_registry().counter(
+        "sketch_windows_total",
+        "CSR windows applied to the randomized sketch panel",
+    ).labels(route=route).inc(count)
 
 
 def sketch_host_bytes(n: int, l: int) -> int:
@@ -281,13 +289,18 @@ def sketch_panel_blockwise(
             _augmented_omega(omega_cur, n_samples, first_pass=first)
         )
         y = torch.zeros((n_samples, l + 1), dtype=torch.float32, device=dev)
-        with record_function(SKETCH_ACCUMULATE):
+        with obs.span(SKETCH_ACCUMULATE, n=n_samples, l=l, sketch_pass=p):
             for window_idx, lens in windows_factory():
                 lens = np.asarray(lens)
                 window_idx = np.asarray(window_idx)
                 _check_indices(window_idx, n_samples)
                 route = window_route(lens, n_samples, density_threshold)
-                with record_function(SKETCH_WINDOW):
+                with obs.span(
+                    SKETCH_WINDOW,
+                    route=route,
+                    nnz=int(lens.sum()),
+                    variants=int(lens.size),
+                ):
                     if route == "scatter":
                         _sketch_scatter_update(y, om_dev, window_idx, lens)
                     else:
@@ -305,6 +318,7 @@ def sketch_panel_blockwise(
                             torch.from_numpy(xp).to(dev),
                         )
                 SKETCH_WINDOWS[route] += 1
+                _note_sketch_window(route)
         y_np = y.cpu().numpy().astype(np.float64)
         if first:
             row_sums = y_np[:, -1].copy()
@@ -370,7 +384,7 @@ def sketch_eig(
     approximate eigenvalues. The spectral-gap check runs on the full
     l-wide Ritz spectrum, as every exact finish's does.
     """
-    with record_function(SKETCH_FINISH):
+    with obs.span(SKETCH_FINISH, n=panel.n, k=k, l=panel.l):
         y, omega = panel.y, panel.omega
         norm = float(np.linalg.norm(y))
         if norm == 0.0:

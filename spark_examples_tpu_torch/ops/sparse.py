@@ -28,6 +28,7 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     DEFAULT_BLOCK_VARIANTS,
     _check_indices,
@@ -179,6 +180,19 @@ def sparse_gramian_accumulate(g: torch.Tensor, window_idx, lens):
     return scatter_pairs(g, idx, idx)
 
 
+def _note_window(route: str, nnz: int, count: int = 1) -> None:
+    """Per-window telemetry, the JAX package's counters."""
+    reg = obs.get_registry()
+    reg.counter(
+        "sparse_gramian_windows_total",
+        "CSR windows accumulated by the sparse-aware Gramian engine",
+    ).labels(route=route).inc(count)
+    reg.counter(
+        "sparse_gramian_nnz_total",
+        "Genotype carriers (nonzeros) accumulated by the sparse engine",
+    ).inc(nnz)
+
+
 def sparse_gramian_blockwise(
     windows: Iterable[Tuple[np.ndarray, np.ndarray]],
     n_samples: int,
@@ -197,20 +211,29 @@ def sparse_gramian_blockwise(
     dev = resolve_device(device)
     width = block_variants or DEFAULT_BLOCK_VARIANTS
     g = torch.zeros((n_samples, n_samples), dtype=torch.float32, device=dev)
-    for window_idx, lens in windows:
-        lens = np.asarray(lens)
-        _check_indices(np.asarray(window_idx), n_samples)
-        route = window_route(lens, n_samples, density_threshold)
-        if route == "scatter":
-            sparse_gramian_accumulate(g, window_idx, lens)
-        else:
-            xp = pack_indicator_block(
-                _densify_window(
-                    window_idx,
-                    lens,
-                    n_samples,
-                    dense_panel_width(int(lens.size), width),
-                )
-            )
-            gramian_accumulate_packed(g, xp)
+    with obs.span("gramian.sparse.accumulate", n=n_samples):
+        for window_idx, lens in windows:
+            lens = np.asarray(lens)
+            _check_indices(np.asarray(window_idx), n_samples)
+            route = window_route(lens, n_samples, density_threshold)
+            nnz = int(lens.sum())
+            with obs.span(
+                "gramian.sparse.window",
+                route=route,
+                nnz=nnz,
+                variants=int(lens.size),
+            ):
+                if route == "scatter":
+                    sparse_gramian_accumulate(g, window_idx, lens)
+                else:
+                    xp = pack_indicator_block(
+                        _densify_window(
+                            window_idx,
+                            lens,
+                            n_samples,
+                            dense_panel_width(int(lens.size), width),
+                        )
+                    )
+                    gramian_accumulate_packed(g, xp)
+            _note_window(route, nnz)
     return g

@@ -1,12 +1,12 @@
-"""Flag system: the ``pca`` subcommand's configuration.
+"""Flag system: the configuration of ``pca`` and the other subcommands.
 
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default. Options
-of routes not ported yet (meshes, checkpoints, the network sources)
-are accepted and then refused with ``NotImplementedError`` naming the
-ROADMAP.md item that ports them, never silently ignored. ``--device`` is
-the port's own: ``cuda`` by default, ``cpu`` only when asked.
+of routes not ported yet (meshes, checkpoints, the gRPC transport, remote
+mirrors) are accepted and then refused with ``NotImplementedError`` naming
+the ROADMAP.md item that ports them, never silently ignored. ``--device``
+is the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
 
 from __future__ import annotations
@@ -31,6 +31,13 @@ from spark_examples_tpu_torch.ops.pcoa import (
 )
 from spark_examples_tpu_torch.ops.sparse import (
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
+)
+from spark_examples_tpu_torch.resilience.breaker import (
+    DEFAULT_COOLDOWN_S,
+    DEFAULT_FAILURE_THRESHOLD,
+)
+from spark_examples_tpu_torch.resilience.policy import (
+    RetryPolicy as _RetryPolicy,
 )
 
 __all__ = [
@@ -143,9 +150,41 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="Partition each reference using a fixed number of bases",
     )
     p.add_argument(
+        "--client-secrets",
+        default=None,
+        help="Credential JSON for network-source auth (interactive "
+        "confirmation required, Client.scala:32-41 semantics): either a "
+        "pre-exchanged {'token': ...} or a stored OAuth user credential "
+        "(client_id + client_secret + refresh_token, exchanged at "
+        "startup via the refresh-token grant); offline sources ignore it",
+    )
+    p.add_argument(
         "--api-url",
         default=None,
-        help="Genomics-compatible HTTP service (not ported yet)",
+        help="Base URL of a Genomics-compatible HTTP service to ingest "
+        "from (see the serve-cohort subcommand); grpc:// is not ported "
+        "yet",
+    )
+    p.add_argument(
+        "--cache-dir",
+        default=None,
+        help="Local directory for mirrored remote cohorts (not ported "
+        "yet)",
+    )
+    p.add_argument(
+        "--mirror-mode",
+        choices=("full", "light"),
+        default="full",
+        help="With --cache-dir: what the mirror holds (not ported yet)",
+    )
+    p.add_argument(
+        "--cold-stream",
+        action=argparse.BooleanOptionalAction,
+        default=True,
+        help="With --cache-dir on a COLD cohort: stream wire frames "
+        "while the mirror downloads in the background. Without a mirror "
+        "(the port has none yet) a run never streams cold; G is "
+        "bit-identical either way",
     )
     p.add_argument(
         "--input-path",
@@ -305,6 +344,66 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "'auto' (default) picks completion on cold-stream runs and "
         "manifest otherwise. G is bit-identical either way "
         "(integer-exact accumulation)",
+    )
+    p.add_argument(
+        "--rpc-retries",
+        type=int,
+        default=_RetryPolicy.max_attempts,
+        help="Total attempts per network request: transport errors and "
+        "infrastructural statuses (429/502/503/504, Retry-After honored) "
+        "retry with jittered exponential backoff; served application "
+        "errors never do. 1 disables retries",
+    )
+    p.add_argument(
+        "--rpc-retry-deadline",
+        type=float,
+        default=None,
+        help="Wall-clock budget (seconds) per network request that its "
+        "attempts draw down; when it runs dry the last error surfaces "
+        "even if attempts remain",
+    )
+    p.add_argument(
+        "--breaker-threshold",
+        type=int,
+        default=DEFAULT_FAILURE_THRESHOLD,
+        help="Per-endpoint circuit breaker: consecutive retryable "
+        "failures before the circuit OPENS and requests shed instantly "
+        "instead of burning their attempt budget against a down tier",
+    )
+    p.add_argument(
+        "--breaker-cooldown",
+        type=float,
+        default=DEFAULT_COOLDOWN_S,
+        help="Seconds an open circuit sheds before admitting a "
+        "half-open probe; the probe's success closes it, failure "
+        "re-opens and re-arms the cooldown",
+    )
+    p.add_argument(
+        "--fault-plan",
+        default=None,
+        help="Activate the deterministic fault-injection plane: a JSON "
+        "fault plan, inline ('{\"seed\":1,\"rules\":[...]}') or a path "
+        "to a file holding one",
+    )
+    p.add_argument(
+        "--trace-out",
+        default=None,
+        help="Write a Chrome-trace-event JSON span timeline here "
+        "(open in Perfetto: ui.perfetto.dev; host-side stages, RPC "
+        "spans, retry instant events)",
+    )
+    p.add_argument(
+        "--metrics-out",
+        default=None,
+        help="Write a Prometheus text-format metrics dump here "
+        "(counters/gauges/latency histograms; a .jsonl machine-readable "
+        "snapshot is written alongside)",
+    )
+    p.add_argument(
+        "--manifest-out",
+        default=None,
+        help="Write the machine-readable run manifest JSON here "
+        "(config, devices, stage timings, counters, histogram summaries)",
     )
     p.add_argument(
         "--device",

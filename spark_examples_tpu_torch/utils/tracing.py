@@ -2,34 +2,38 @@
 
 A stage is timed on the host clock. Device work is asynchronous, so a
 caller that times device work ends its stage with a device synchronize
-(the driver does); otherwise the stage measures the enqueue. Each stage
-is also a ``torch.profiler.record_function`` range of the same name, so
-a profiler window over a run can split each stage's host and device time.
+(the driver does); otherwise the stage measures the enqueue. Each stage is
+an ambient :func:`spark_examples_tpu_torch.obs.span` — one
+``torch.profiler.record_function`` range of the same name, so a profiler
+window over a run can split each stage's host and device time, and a
+trace event when a telemetry session collects — and each note an instant
+event, as in the JAX package.
 
-Inside the dense-blockwise Gramian three more ranges, named after the JAX
-package's spans, split the ingest stage: :data:`INGEST_PACK` (the host
-bit-pack of one block, in the feed's producer thread), :data:`INGEST_PUT`
-(staging one block into pinned memory and enqueueing its copy) and
+The span names of the ingest and Gramian layers, the JAX package's, live
+here so the code that opens them and the measurement scripts that read
+their profiler ranges agree. Inside the dense-blockwise Gramian three
+split the ingest stage: :data:`INGEST_PACK` (the host bit-pack of one
+block, in the feed's producer thread), :data:`INGEST_PUT` (staging one
+block into pinned memory and enqueueing its copy) and
 :data:`GRAMIAN_ACCUMULATE` (enqueueing one block's unpack, product and
 add). The sketch engine has three of its own: :data:`SKETCH_ACCUMULATE`
 (one streamed pass over the windows), :data:`SKETCH_WINDOW` (one window's
 panel update) and :data:`SKETCH_FINISH` (the host float64 eigensolve).
-
-The CSR-direct ingest of an on-disk cohort adds the JAX package's ingest
-spans as ranges: :data:`INGEST_STREAM` (the whole shard stream),
-:data:`INGEST_FETCH` (one shard's sidecar extraction) and
-:data:`INGEST_BUILD` (one CSR window built into a bit-packed block, in a
-builder thread); and a source's per-shard extraction is an
+The CSR-direct ingest has :data:`INGEST_STREAM` (the whole shard stream),
+:data:`INGEST_FETCH` (one shard's extraction, from the sidecar or the
+wire) and :data:`INGEST_BUILD` (one CSR window built into a bit-packed
+block, in a builder thread); and a source's per-shard extraction is an
 :func:`rpc_range` (the JAX package's ``rpc_timer`` latency sample).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, Iterator, List
 
-from torch.profiler import record_function
+from spark_examples_tpu_torch import obs
 
 __all__ = [
     "GRAMIAN_ACCUMULATE",
@@ -56,10 +60,15 @@ SKETCH_WINDOW = "gramian.sketch.window"
 SKETCH_FINISH = "gramian.sketch.finish"
 
 
-def rpc_range(transport: str, method: str) -> record_function:
-    """The range of one source request, named ``<transport>.<method>``
-    (``jsonl.stream_carrying_csr``)."""
-    return record_function(f"{transport}.{method}")
+@contextlib.contextmanager
+def rpc_range(transport: str, method: str) -> Iterator[None]:
+    """One source request: a span named ``<transport>.<method>``
+    (``jsonl.stream_carrying_csr``) and, under a telemetry session, a
+    ``genomics_rpc_latency_seconds`` sample (``obs.rpc_timer``)."""
+    with obs.span(f"{transport}.{method}"), obs.rpc_timer(
+        transport, method
+    ):
+        yield
 
 
 class StageTimer:
@@ -68,39 +77,56 @@ class StageTimer:
     Stages may also attach short diagnostic notes (e.g. the spectral gap
     ratio of the eigensolve) which print alongside the timings. The report
     format is the JAX package's.
+
+    Thread-safe: the active-stage stack is thread-local and the
+    ``seconds``/``notes`` accumulation is lock-guarded, so the same stage
+    name timed on several threads sums correctly.
     """
 
     def __init__(self) -> None:
         self.seconds: Dict[str, float] = {}
         self.notes: Dict[str, List[str]] = {}
-        self._stack: List[str] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     def note(self, text: str) -> None:
         """Attach a note to the currently running stage ("" outside any
-        stage, which still prints)."""
-        key = self._stack[-1] if self._stack else ""
-        self.notes.setdefault(key, []).append(text)
+        stage, which still prints); also an instant event on the trace."""
+        stack = self._stack()
+        key = stack[-1] if stack else ""
+        with self._lock:
+            self.notes.setdefault(key, []).append(text)
+        obs.instant("note", stage=key, text=text)
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
-        self._stack.append(name)
+        self._stack().append(name)
         try:
-            with record_function(name):
+            with obs.span(name):
                 yield
         finally:
-            self._stack.pop()
-            self.seconds[name] = (
-                self.seconds.get(name, 0.0) + time.perf_counter() - t0
-            )
+            self._stack().pop()
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.seconds[name] = self.seconds.get(name, 0.0) + dt
 
     def report(self) -> str:
-        total = sum(self.seconds.values())
+        with self._lock:
+            seconds = dict(self.seconds)
+            notes = {k: list(v) for k, v in self.notes.items()}
+        total = sum(seconds.values())
         lines = ["Stage wall-clock", "----------------"]
-        for name, secs in self.seconds.items():
+        for name, secs in seconds.items():
             pct = 100.0 * secs / total if total else 0.0
             lines.append(f"{name}: {secs:.3f}s ({pct:.1f}%)")
-            lines.extend(f"  {n}" for n in self.notes.get(name, ()))
-        lines.extend(f"{n}" for n in self.notes.get("", ()))
+            lines.extend(f"  {n}" for n in notes.get(name, ()))
+        lines.extend(f"{n}" for n in notes.get("", ()))
         lines.append(f"total: {total:.3f}s")
         return "\n".join(lines)

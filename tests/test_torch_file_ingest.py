@@ -395,8 +395,10 @@ def test_cli_samples_flag_restricts_the_cohort(cohort_dir):
 
 
 def test_cli_api_url_still_raises_naming_the_network_tier(cohort_dir):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        cli.main(["pca", "--api-url", "http://127.0.0.1:1", "--device",
+    # http:// is served since the network tier's HTTP half; its gRPC half
+    # is ROADMAP.md Queue 1, item 2.
+    with pytest.raises(NotImplementedError, match="item 2"):
+        cli.main(["pca", "--api-url", "grpc://127.0.0.1:1", "--device",
                   "cpu"])
 
 

@@ -43,17 +43,34 @@ def test_every_module_imports_without_jax():
     for name in (
         "arrays.blocks",
         "arrays.feed",
+        "cli.main",
+        "genomics.auth",
         "genomics.datasets",
         "genomics.fixtures",
         "genomics.hashing",
+        "genomics.oauth",
+        "genomics.service",
         "genomics.sources",
+        "genomics.wire",
         "models.pca",
+        "models.search_variants",
+        "obs",
+        "obs.manifest",
+        "obs.metrics",
+        "obs.session",
+        "obs.tracer",
         "ops.fused",
         "ops.gramian",
         "ops.scatter_kernel",
         "ops.sketch",
+        "resilience",
+        "resilience.breaker",
+        "resilience.faults",
+        "resilience.policy",
         "tools.ingest_workers",
         "utils.concurrency",
+        "utils.stats",
+        "utils.tracing",
     ):
         assert f"spark_examples_tpu_torch.{name}" in modules
     script = (

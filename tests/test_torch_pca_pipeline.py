@@ -154,8 +154,8 @@ def test_cpu_run_launches_no_kernel(tmp_path, capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"mesh_shape": "data:2"}, "item 5"),
-        ({"checkpoint_dir": "/nonexistent"}, "item 6"),
+        ({"mesh_shape": "data:2"}, "item 7"),
+        ({"checkpoint_dir": "/nonexistent"}, "item 8"),
     ],
     ids=["mesh", "checkpoint"],
 )
@@ -198,10 +198,10 @@ def test_cli_pca_on_the_cpu(tmp_path):
 
 
 def test_cli_refuses_unported_sources():
-    out = _cli("--api-url", "http://localhost:1", "--device", "cpu",
+    out = _cli("--api-url", "grpc://localhost:1", "--device", "cpu",
                "--pca-mode", "sparse")
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "item 8" in out.stderr
+    assert "NotImplementedError" in out.stderr and "item 2" in out.stderr
 
 
 # -- the dense-blockwise modes: auto, fused, stream --------------------------
@@ -426,3 +426,55 @@ def test_cli_default_command_on_the_cpu(tmp_path):
     assert "fused eig residual" in out.stdout  # the auto route's finish
     assert sum(l.count("\t") == 3 for l in out.stdout.splitlines()) == 48
     assert len((tmp_path / "cli-pca.tsv").read_text().splitlines()) == 48
+
+
+# -- rank-deficient panels: p = N -------------------------------------------
+#
+# At N = 2 the double-centered G has rank 1 and the panel has p = N = 2
+# columns. The JAX package's Cholesky returns NaN there, so its finish
+# collapses: `auto` warns and falls back to dense eigh, forced `fused`
+# raises. The port's jittered Cholesky factorizes the same panel, and the
+# dropped direction comes back as a zero Ritz vector; the finish must call
+# that a collapse too. At N = 3 and 5 the two packages may take different
+# routes, but the coordinates must agree.
+
+
+def _tiny_run(driver_cls, conf_cls, cohort_fn, n, v, seed, mode, **kw):
+    conf = conf_cls(
+        variant_set_ids=[DEFAULT_VARIANT_SET_ID], pca_mode=mode, **kw
+    )
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = driver_cls(conf, cohort_fn(n, v, seed=seed)).run()
+    fell_back = any("falling back" in str(w.message) for w in caught)
+    return _coords(result), fell_back
+
+
+@pytest.mark.parametrize(
+    "n,v,seed", [(2, 50, 1), (3, 60, 1), (5, 60, 2)],
+    ids=["n2", "n3", "n5"],
+)
+def test_rank_deficient_auto_matches_the_jax_driver(n, v, seed, capsys):
+    got, port_fell_back = _tiny_run(
+        VariantsPcaDriver, PcaConfig, synthetic_cohort, n, v, seed, "auto",
+        device="cpu",
+    )
+    want, jax_fell_back = _tiny_run(
+        JaxDriver, JaxConfig, jax_synthetic_cohort, n, v, seed, "auto"
+    )
+    capsys.readouterr()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4
+    if n == 2:
+        # The reference collapses here; so must the port.
+        assert jax_fell_back and port_fell_back
+
+
+def test_rank_deficient_forced_fused_raises_as_the_jax_driver(capsys):
+    with pytest.raises(FloatingPointError):
+        _tiny_run(JaxDriver, JaxConfig, jax_synthetic_cohort, 2, 50, 1,
+                  "fused")
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        _tiny_run(VariantsPcaDriver, PcaConfig, synthetic_cohort, 2, 50, 1,
+                  "fused", device="cpu")
+    capsys.readouterr()
