@@ -116,7 +116,24 @@ on failure:
     --manifest-out --fault-plan`` in subprocesses: the trace holds
     ``ingest.fetch`` and ``wire_frame_fetch``, the metrics phase 4's
     scatter windows, RPC latency samples and the one injected fault, the
-    manifest names the card.
+    manifest names the card;
+15. gRPC and the cohort mirror over phase 12's directory: the port's
+    ``GenomicsServiceServer`` and ``GrpcGenomicsServer`` on one
+    ``JsonlSource`` (127.0.0.1, a bearer token). With grpcio: ``sparse``
+    and ``auto`` over the gRPC frame tier (the frame bytes), ``sparse`` over
+    the record tier, one injected ``transport.grpc.request`` fault
+    (retried), and ``serve-cohort --grpc-port`` with ``pca --api-url
+    grpc://`` in subprocesses; without grpcio one line says the gRPC legs
+    did not run. The mirror legs over HTTP, each on a fresh cache: a cold
+    ``sparse`` run with the cold stream over 8 shards on 4 workers
+    (``cold_stream_shards_total`` 8 fetched and 8 accumulated, the
+    write-through joined and ``.complete``), warm ``sparse`` and ``auto``
+    from that mirror with no frame, record or export request (a profiled
+    run: the idle share), ``--mirror-mode light`` and ``--no-cold-stream``
+    (download seconds and bytes), and a gRPC client warm over the HTTP
+    client's cache. Every ``sparse`` run's scatter launches are counted
+    (phase 4's count where the windows are phase 4's); G is phase 4's bit
+    for bit in every leg, coordinates within 1e-4 of the oracle.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -132,9 +149,11 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1494,21 +1513,26 @@ def metric(snapshot, name):
     return float(snapshot["counters"].get(name, 0.0))
 
 
-def serve_cli(root, env):
+def serve_cli(root, env, *extra):
     """``serve-cohort`` in a subprocess on an ephemeral port; returns the
-    process and its URL once it listens."""
+    process and its URLs (``{"http": ..., "grpc": ...}``, the second with
+    ``--grpc-port``) once it listens."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
          "serve-cohort", "--input-path", root, "--port", "0",
-         "--token", NET_TOKEN],
+         "--token", NET_TOKEN, *extra],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     atexit.register(proc.kill)
     deadline = time.monotonic() + 120
+    urls = {}
     for line in proc.stdout:
         print(f"  serve-cohort | {line.rstrip()}", flush=True)
-        if "listening on http://" in line:
-            return proc, line.split("listening on ", 1)[1].split()[0]
+        for scheme in ("grpc", "http"):
+            if f" on {scheme}://" in line:
+                urls[scheme] = line.split(" on ", 1)[1].split()[0]
+        if "http" in urls:
+            return proc, urls
         check(time.monotonic() < deadline, "serve-cohort did not listen")
     fail(f"serve-cohort exited {proc.wait()} before listening")
 
@@ -1682,7 +1706,8 @@ def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
     with open(token_file, "w") as f:
         json.dump({"token": NET_TOKEN}, f)
     env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
-    proc, cli_url = serve_cli(root, env)
+    proc, urls = serve_cli(root, env)
+    cli_url = urls["http"]
     try:
         outs = {k: os.path.join(work, k) for k in ("trace.json",
                                                   "metrics.prom",
@@ -1742,6 +1767,323 @@ def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
     check(torch.cuda.get_device_name(0) in devices,
           "the manifest must name the card")
     return net_launches
+
+
+class CountingSource:
+    """The served ``JsonlSource`` with a count of the requests a warm
+    mirror must not make: frame fetches, record streams, file exports and
+    sidecar exports."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self._lock = threading.Lock()
+        self.counts = {"frames": 0, "records": 0, "exports": 0,
+                       "sidecar": 0}
+
+    def _count(self, key):
+        with self._lock:
+            self.counts[key] += 1
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def stream_carrying_frame(self, *args, **kwargs):
+        self._count("frames")
+        return self._inner.stream_carrying_frame(*args, **kwargs)
+
+    def stream_variant_lines(self, *args, **kwargs):
+        self._count("records")
+        return self._inner.stream_variant_lines(*args, **kwargs)
+
+    def export_lines(self, name):
+        self._count("exports")
+        return self._inner.export_lines(name)
+
+    def ensure_sidecar(self):
+        self._count("sidecar")
+        return self._inner.ensure_sidecar()
+
+
+def tree_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
+    """Phase 15: ``pca --api-url grpc://``, ``serve-cohort --grpc-port``
+    and the cohort mirror (``--cache-dir``, ``--mirror-mode``, the cold
+    stream) over phase 12's directory. Returns the scatter launches of each
+    ``sparse`` run, by leg."""
+    from spark_examples_tpu_torch import obs
+    from spark_examples_tpu_torch.genomics.auth import Credentials
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.grpc_transport import (
+        GrpcGenomicsServer,
+        GrpcVariantSource,
+        grpc_available,
+    )
+    from spark_examples_tpu_torch.genomics.mirror import ColdStreamMirror
+    from spark_examples_tpu_torch.genomics.service import (
+        GenomicsServiceServer,
+        HttpVariantSource,
+    )
+    from spark_examples_tpu_torch.genomics.shards import (
+        shards_for_references,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.resilience import faults
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
+    creds = Credentials(NET_TOKEN, "chip-smoke")
+    have_grpc = grpc_available()
+    served = CountingSource(JsonlSource(root))
+    served.ensure_serving_index()
+    http = GenomicsServiceServer(served, port=0, token=NET_TOKEN).start()
+    url = f"http://127.0.0.1:{http.port}"
+    rpc = None
+    if have_grpc:
+        import grpc
+
+        rpc = GrpcGenomicsServer(served, port=0, token=NET_TOKEN).start()
+        print(f"  {url} and grpc://127.0.0.1:{rpc.port} (token auth) on "
+              f"one JsonlSource; grpcio {grpc.__version__}", flush=True)
+    else:
+        print("  gRPC legs: not run, grpcio is not installed on this host")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mirror_")
+    atexit.register(shutil.rmtree, work, True)
+
+    def http_client(**kw):
+        return HttpVariantSource(url, credentials=creds, timeout=120, **kw)
+
+    def grpc_client(**kw):
+        return GrpcVariantSource(f"grpc://127.0.0.1:{rpc.port}",
+                                 credentials=creds, timeout=120, **kw)
+
+    def coords_err(result):
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), "coordinates must be finite")
+        return float(np.abs(coords - want).max())
+
+    def ingest_s(driver):
+        return driver.timer.seconds["ingest+gramian"]
+
+    def sparse_leg(name, source, expect_launches=True, **kw):
+        driver, result, g, launches, _, prof = drive_file(
+            torch, source, name, pca_mode="sparse", **base, **kw)
+        check(same_g(g, g_ref), f"{name}: G is not phase 4's")
+        err = coords_err(result)
+        check(err <= COORD_TOL, f"{name}: coordinates beyond the bar")
+        if expect_launches:
+            check(launches == phase4_launches,
+                  f"{name}: {launches} scatter launches, phase 4 launched "
+                  f"{phase4_launches}")
+        check(launches > 0, f"{name}: the scatter kernel never launched")
+        launched[name] = launches
+        times[name] = ingest_s(driver)
+        return driver, err, prof
+
+    def counts_since(before):
+        return {k: served.counts[k] - before[k] for k in served.counts}
+
+    launched, times, sizes = {}, {}, {}
+    try:
+        if have_grpc:
+            frames_client = grpc_client()
+            try:
+                with obs.telemetry_session(command="chip_smoke") as session:
+                    driver, err, _ = sparse_leg("grpc sparse, frame tier",
+                                                frames_client)
+                    snap = session.registry.snapshot()
+                shards = len(driver._manifest())
+                frames = metric(snap, 'wire_frames_total{transport="grpc"}')
+                sizes["grpc frame bytes"] = metric(
+                    snap, 'wire_frame_bytes_total{transport="grpc"}')
+                print(f"    G bit-identical to phase 4's; coordinates vs "
+                      f"host f64 oracle {err:.3e}; {frames:.0f} frames for "
+                      f"{shards} shards, {sizes['grpc frame bytes']:.0f} "
+                      "frame bytes over gRPC")
+                check(frames == shards, "one frame stream per shard")
+                sparse_leg("grpc sparse, frame tier, warm", frames_client)
+                driver, _, g, launches, pinned, _ = drive_file(
+                    torch, frames_client, "grpc auto, frame tier, warm",
+                    pca_mode="auto", **base)
+                check(same_g(g, g_ref), "grpc auto: G is not phase 4's")
+                check(launches == 0 and pinned == n_blocks,
+                      f"grpc auto: {launches} launches, {pinned} pinned "
+                      f"copies for {n_blocks} blocks")
+                times["grpc auto, frame tier, warm"] = ingest_s(driver)
+            finally:
+                frames_client.close()
+            records_client = grpc_client(wire_frames=False)
+            try:
+                sparse_leg("grpc sparse, record tier", records_client)
+            finally:
+                records_client.close()
+            plan = faults.FaultPlan.from_spec(json.dumps({"seed": 0,
+                "rules": [{"site": "transport.grpc.request",
+                           "match": "StreamVariantFrames", "times": 1}]}))
+            faulted = grpc_client()
+            try:
+                with faults.active_plan(plan):
+                    sparse_leg("grpc sparse, one injected "
+                               "transport.grpc.request fault", faulted)
+            finally:
+                faulted.close()
+            check(plan.fired_total == 1, "the fault must fire exactly once")
+            check(faulted.stats.unsuccessful_responses == 0
+                  and faulted.stats.io_exceptions == 0,
+                  "a retried fault must leave IoStats clean")
+
+        # Mirror legs over HTTP, each on a fresh --cache-dir. The cold leg
+        # cuts the cohort's reference range into 8 shards.
+        refs = PcaConfig().references
+        _, start, end = refs.split(":")
+        bases = -(-(int(end) - int(start)) // 8)
+        check(len(shards_for_references(refs, bases)) == 8,
+              "the cold leg needs 8 shards")
+        cold_cache = os.path.join(work, "cold")
+        before = dict(served.counts)
+        cold_client = http_client(cache_dir=cold_cache)
+        t0 = time.perf_counter()
+        with obs.telemetry_session(command="chip_smoke") as session:
+            driver, _, g, launches, _, _ = drive_file(
+                torch, cold_client, "sparse, cold stream (8 shards, 4 "
+                "workers)", pca_mode="sparse", bases_per_partition=bases,
+                ingest_workers=4, **base)
+            cold_run_s = time.perf_counter() - t0
+            writer = cold_client._resolve_mirror()
+            check(isinstance(writer, ColdStreamMirror),
+                  "the cold leg must stream while the mirror writes through")
+            check(writer.join(timeout=300), "the mirror writer did not end")
+            cold_total_s = time.perf_counter() - t0
+            snap = session.registry.snapshot()
+        fetched = metric(snap, 'cold_stream_shards_total{stage="fetched"}')
+        accumulated = metric(
+            snap, 'cold_stream_shards_total{stage="accumulated"}')
+        scatter = metric(snap,
+                         'sparse_gramian_windows_total{route="scatter"}')
+        (mirror_dir,) = [d for d in os.listdir(cold_cache)
+                         if d.startswith("cohort-")]
+        complete = os.path.exists(os.path.join(cold_cache, mirror_dir,
+                                               ".complete"))
+        print(f"    cold_stream_shards_total fetched {fetched:.0f}, "
+              f"accumulated {accumulated:.0f}; {launches} scatter launches "
+              f"for {scatter:.0f} scatter windows (completion order); run "
+              f"{cold_run_s:.3f} s, mirror complete {complete} after "
+              f"{cold_total_s:.3f} s; requests {counts_since(before)}")
+        check(same_g(g, g_ref), "cold stream: G is not phase 4's")
+        check(fetched == 8 and accumulated == 8,
+              "every shard must be fetched and accumulated once")
+        check(launches > 0 and launches == scatter,
+              "the cold run must launch the kernel once per scatter window")
+        check(complete, "the write-through mirror must be .complete")
+        launched["sparse, cold stream"] = launches
+        times["sparse, cold stream"] = ingest_s(driver)
+        sizes["full mirror bytes"] = tree_bytes(
+            os.path.join(cold_cache, mirror_dir))
+
+        before = dict(served.counts)
+        warm = http_client(cache_dir=cold_cache)
+        check(not warm.cold_stream_active(), "the second run must be warm")
+        sparse_leg("sparse, warm mirror", warm)
+        driver, _, g, launches, pinned, _ = drive_file(
+            torch, warm, "auto, warm mirror", pca_mode="auto", **base)
+        check(same_g(g, g_ref) and launches == 0 and pinned == n_blocks,
+              "auto over the warm mirror")
+        times["auto, warm mirror"] = ingest_s(driver)
+        print("  the warm mirror-served sparse run under torch.profiler "
+              "(all threads):", flush=True)
+        _, _, prof = sparse_leg("sparse, warm mirror, profiled", warm,
+                                profiled=True)
+        profile_split(prof)
+        asked = counts_since(before)
+        print(f"    server requests over the warm runs: {asked}; client "
+              f"{warm.stats.report().splitlines()[2:]}")
+        check(asked == {"frames": 0, "records": 0, "exports": 0,
+                        "sidecar": 0},
+              "a warm mirror must make no frame, record or export request")
+
+        for mode in ("light", "full"):
+            cache = os.path.join(work, f"phased-{mode}")
+            client = http_client(cache_dir=cache, mirror_mode=mode,
+                                 cold_stream=False)
+            t0 = time.perf_counter()
+            client.list_callsets(DEFAULT_VARIANT_SET_ID)  # the download
+            times[f"{mode} mirror download"] = time.perf_counter() - t0
+            (mdir,) = [d for d in os.listdir(cache)
+                       if d.startswith("cohort-")]
+            files = sorted(os.listdir(os.path.join(cache, mdir)))
+            sizes[f"{mode} mirror bytes"] = tree_bytes(
+                os.path.join(cache, mdir))
+            check(("variants.jsonl" in files) == (mode == "full"),
+                  f"{mode} mirror files: {files}")
+            sparse_leg(f"sparse, {mode} mirror"
+                       + (", --no-cold-stream" if mode == "full" else ""),
+                       client)
+        phased_s = (times["full mirror download"]
+                    + times["sparse, full mirror, --no-cold-stream"])
+        print(f"    cold stream: run {cold_run_s:.3f} s (mirror complete "
+              f"after {cold_total_s:.3f} s); phased: download "
+              f"{times['full mirror download']:.3f} s + ingest+gramian "
+              f"{times['sparse, full mirror, --no-cold-stream']:.3f} s; "
+              f"phased/cold {phased_s / cold_run_s:.2f}")
+
+        if have_grpc:
+            before = dict(served.counts)
+            shared = grpc_client(cache_dir=cold_cache)
+            try:
+                sparse_leg("grpc sparse, warm over the HTTP client's cache",
+                           shared)
+            finally:
+                shared.close()
+            check(counts_since(before) == {"frames": 0, "records": 0,
+                                           "exports": 0, "sidecar": 0},
+                  "the gRPC client must be served by the HTTP mirror")
+    finally:
+        http.stop()
+        if rpc is not None:
+            rpc.stop()
+    print("  ingest+gramian and download seconds: " + json.dumps(
+        {k: round(v, 6) for k, v in times.items()}))
+    print("  bytes: " + json.dumps({k: int(v) for k, v in sizes.items()}))
+
+    if have_grpc:
+        print("  the CLI in subprocesses: serve-cohort --grpc-port and pca "
+              "--api-url grpc://", flush=True)
+        token_file = os.path.join(work, "token.json")
+        with open(token_file, "w") as f:
+            json.dump({"token": NET_TOKEN}, f)
+        env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
+        proc, urls = serve_cli(root, env, "--grpc-port", "0")
+        try:
+            check("grpc" in urls, "serve-cohort must print its gRPC URL")
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+                 "pca", "--api-url", urls["grpc"], "--pca-mode", "sparse"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                capture_output=True, text=True, timeout=300)
+            cli_s = time.perf_counter() - t0
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        lines = cli.stdout.splitlines()
+        print(f"  pca --api-url grpc:// ({cli_s:.2f} s):")
+        for line in lines:
+            if line.count("\t") != 3:
+                print(f"  | {line}")
+        check(cli.returncode == 0, f"pca --api-url grpc:// exited "
+              f"{cli.returncode}: {cli.stderr[-2000:]}")
+        check(sum(line.count("\t") == 3 for line in lines) == N_SAMPLES,
+              "pca --api-url grpc:// must emit one result line per sample")
+    return launched
 
 
 def host_windows(source, conf, indexes):
@@ -1998,12 +2340,24 @@ def main() -> int:
     print(f"  phase 14 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
+    print("== 15. gRPC and the cohort mirror: pca --api-url grpc://, "
+          "serve-cohort --grpc-port, --cache-dir/--mirror-mode and the cold "
+          "stream (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    by_leg = grpc_and_mirror(torch, cohort_dir, g_ref, want, len(windows),
+                             launches)
+    by_leg = {"http sparse, frame tier (phase 14)": launches, **by_leg}
+    print(f"  scatter launches by sparse run: {json.dumps(by_leg)}")
+    print(f"  phase 15 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",
         "route": "cuda",
         "source": "spark_examples_tpu_torch/csrc/scatter_pairs.cu",
         "replaces": "spark_examples_tpu/ops/scatter_kernel.py:205",
-        "launches": launches,
+        "launches": sum(by_leg.values()),
+        "launches_by_path": by_leg,
         "max_abs_err": max_abs_err,
         "equal_to_plain": True,
         **first,

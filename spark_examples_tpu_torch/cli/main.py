@@ -2,13 +2,15 @@
 
 The JAX package's CLI on PyTorch, for the commands the port serves so far:
 
-- ``pca`` against an HTTP genomics service (``--api-url http(s)://``), an
-  on-disk JSONL cohort (``--input-path <dir>``: the same directory and CSR
+- ``pca`` against a genomics service (``--api-url http(s)://`` or
+  ``grpc://``, mirrored locally with ``--cache-dir``), an on-disk JSONL
+  cohort (``--input-path <dir>``: the same directory and CSR
   sidecar the JAX package's CLI reads) or the hermetic synthetic cohort
   (``--fixture-*`` flags). Computes on the card by default; ``--device
   cpu`` runs on the CPU;
-- ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service
-  (either package's client reads it);
+- ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service,
+  and with ``--grpc-port`` as a gRPC service beside it (either package's
+  client reads either);
 - ``generate-fixture``: write a synthetic JSONL cohort (variants only);
 - ``search-variants-klotho`` / ``search-variants-brca1``.
 
@@ -40,8 +42,6 @@ from spark_examples_tpu_torch.utils.config import (
 
 __all__ = ["build_parser", "main"]
 
-_MIRRORS = "item 2, gRPC and mirrors"
-
 
 def _add_fixture_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
@@ -70,32 +70,64 @@ def _add_fixture_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _network_source(args):
-    """HTTP source with credentials — the Client(auth) construction.
+    """HTTP or gRPC source with credentials — the Client(auth)
+    construction.
 
     Resolves the credential once via get_access_token (the
     Authentication.getAccessToken analog, Client.scala:29-46) and ships it
     on every per-shard request, under one retry policy and one breaker
-    configuration.
+    configuration. ``--cache-dir``/``--mirror-mode``/``--cold-stream``
+    drive the shared cohort mirror on either transport.
     """
-    if args.api_url.startswith("grpc://"):
-        raise unported("--api-url grpc://", _MIRRORS)
     from spark_examples_tpu_torch.genomics.auth import get_access_token
     from spark_examples_tpu_torch.genomics.service import HttpVariantSource
     from spark_examples_tpu_torch.resilience import BreakerSet, RetryPolicy
 
+    retry_policy = RetryPolicy(
+        max_attempts=max(1, args.rpc_retries),
+        deadline=args.rpc_retry_deadline,
+    )
+
+    def breakers(prefix: str) -> BreakerSet:
+        return BreakerSet(
+            prefix,
+            failure_threshold=args.breaker_threshold,
+            cooldown_s=args.breaker_cooldown,
+        )
+
+    mirror = dict(
+        cache_dir=args.cache_dir,
+        mirror_mode=args.mirror_mode,
+        cold_stream=args.cold_stream,
+    )
+    if args.api_url.startswith("grpc://"):
+        # The HTTP/2 server-streaming transport (the reference's bulk
+        # channel technology, VariantsRDD.scala:26,210-211).
+        from spark_examples_tpu_torch.genomics.grpc_transport import (
+            GrpcVariantSource,
+            grpc_available,
+        )
+
+        if not grpc_available():
+            raise SystemExit(
+                "grpc:// transport needs grpcio (pip install "
+                "'spark_examples_tpu[grpc]'); the http:// transport "
+                "has no extra dependency"
+            )
+        return GrpcVariantSource(
+            args.api_url,
+            credentials=get_access_token(args.client_secrets),
+            idle_timeout=args.grpc_idle_timeout or None,
+            retry_policy=retry_policy,
+            breakers=breakers(f"grpc:{args.api_url}:"),
+            **mirror,
+        )
     return HttpVariantSource(
         args.api_url,
         credentials=get_access_token(args.client_secrets),
-        retry_policy=RetryPolicy(
-            max_attempts=max(1, args.rpc_retries),
-            deadline=args.rpc_retry_deadline,
-        ),
-        breakers=BreakerSet(
-            f"http:{args.api_url}:",
-            failure_threshold=args.breaker_threshold,
-            cooldown_s=args.breaker_cooldown,
-        ),
-        cold_stream=args.cold_stream,
+        retry_policy=retry_policy,
+        breakers=breakers(f"http:{args.api_url}:"),
+        **mirror,
     )
 
 
@@ -119,13 +151,9 @@ def _offline_source(args, references: str):
 
 
 def _resolve_source(args, references: str):
-    # Offline sources never consume credentials; --client-secrets
-    # applies to the network source only. The mirror options have no
-    # source to serve them yet, whichever source is chosen.
-    if args.cache_dir:
-        raise unported("--cache-dir", _MIRRORS)
-    if args.mirror_mode != "full":
-        raise unported("--mirror-mode", _MIRRORS)
+    # Offline sources (fixture/JSONL) never consume credentials or the
+    # mirror options; --client-secrets, --cache-dir and --mirror-mode
+    # apply to the network source only.
     if args.api_url:
         return _network_source(args)
     source = _offline_source(args, references)
@@ -184,9 +212,8 @@ def _cmd_search_variants(args, fn) -> int:
 
 
 def _cmd_serve_cohort(args) -> int:
-    """Host a cohort as a Genomics-compatible HTTP service."""
-    if args.grpc_port is not None:
-        raise unported("serve-cohort --grpc-port", _MIRRORS)
+    """Host a cohort as a Genomics-compatible HTTP service (and, with
+    ``--grpc-port``, a gRPC service on the same source)."""
     if args.analyze:
         raise unported(
             "serve-cohort --analyze", "item 6, delta and gang serving"
@@ -207,20 +234,46 @@ def _cmd_serve_cohort(args) -> int:
         # shard request of a large cohort outlives client socket timeouts.
         print("Indexing cohort for serving ...", flush=True)
         print(f"Indexed {warm()} variant records.", flush=True)
-    server = GenomicsServiceServer(
-        source, port=args.port, token=args.token, host=args.host
-    )
-    print(
-        f"Genomics service listening on http://{args.host}:{server.port}"
-        + (" (token auth)" if args.token else ""),
-        flush=True,
-    )
+    grpc_server = None
+    if args.grpc_port is not None:
+        from spark_examples_tpu_torch.genomics.grpc_transport import (
+            GrpcGenomicsServer,
+            grpc_available,
+        )
+
+        if not grpc_available():
+            raise SystemExit(
+                "--grpc-port needs grpcio (pip install "
+                "'spark_examples_tpu[grpc]'); omit it to serve HTTP only"
+            )
+        grpc_server = GrpcGenomicsServer(
+            source, port=args.grpc_port, token=args.token, host=args.host
+        ).start()
+        print(
+            f"gRPC stream service on grpc://{args.host}:{grpc_server.port}"
+            + (" (token auth)" if args.token else ""),
+            flush=True,
+        )
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        server = GenomicsServiceServer(
+            source, port=args.port, token=args.token, host=args.host
+        )
+        print(
+            f"Genomics service listening on http://{args.host}:"
+            f"{server.port}" + (" (token auth)" if args.token else ""),
+            flush=True,
+        )
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.stop()
     finally:
-        server.stop()
+        # Covers HTTP bind failures too — a started gRPC server must
+        # never outlive the command that printed its URL.
+        if grpc_server is not None:
+            grpc_server.stop()
     return 0
 
 
@@ -272,7 +325,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--grpc-port",
         type=int,
         default=None,
-        help="Also serve the gRPC transport on this port (not ported yet)",
+        help="Also serve the gRPC/HTTP-2 server-streaming transport on "
+        "this port (0 = auto-pick; clients connect with --api-url "
+        "grpc://host:port). The HTTP service keeps the mirror/cache "
+        "endpoints; both front the same cohort",
     )
     serve.add_argument("--host", default="127.0.0.1")
     serve.add_argument(

@@ -1,0 +1,1063 @@
+"""gRPC server-streaming transport — the reference's bulk channel.
+
+The JAX package's ``genomics/grpc_transport.py``. The reference's ingest
+rides protobuf-over-gRPC server streams: one ``StreamVariants`` request
+per shard, a server-side stream of variant messages back
+(``VariantsRDD.scala:26,210-211`` via the genomics
+``VariantStreamIterator``). This module is that transport: HTTP/2
+framing, per-message flow control, gzip compression, deadline
+propagation and status-code error semantics, method for method and byte
+for byte the JAX package's, so either package's client reads either
+package's server.
+
+- **Generic byte methods, not protoc codegen.** Messages are the
+  interchange records' raw line bytes (requests are one small JSON
+  object); the binary CSR frames of :mod:`.wire` ride the same channel
+  as bounded byte chunks.
+- **One channel per source, streams multiplexed.** Every shard stream
+  shares one HTTP/2 connection — the reference's shared managed channel.
+- **Same auth + stats surface as the HTTP source.** ``authorization:
+  Bearer <token>`` metadata checked by a server interceptor
+  (``Client.scala:49-61``); a served error status counts as an
+  unsuccessful response, transport trouble as an IO exception.
+- **The same mirror.** ``cache_dir`` runs the shared protocol of
+  :mod:`.mirror` over the ``Identity``/``ExportLines``/``ExportSidecar``
+  RPCs, so a gRPC client and an HTTP client share one cache directory.
+
+Not served yet (ROADMAP.md, Queue 1): ``StreamReads`` answers
+``UNIMPLEMENTED`` and :meth:`GrpcVariantSource.stream_reads` raises
+(item 3); the ``ComputePca`` dense-math seam is not registered and
+:meth:`GrpcVariantSource.compute_pca` raises (item 8).
+
+``grpcio`` is optional: it is imported only when a server or client is
+built, and :func:`grpc_available` says whether it can be.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+import time
+from typing import Iterator, List, Optional
+
+from spark_examples_tpu_torch import obs
+from spark_examples_tpu_torch.genomics import mirror as mirror_mod
+from spark_examples_tpu_torch.genomics import wire
+from spark_examples_tpu_torch.genomics.auth import Credentials
+from spark_examples_tpu_torch.genomics.shards import Shard
+from spark_examples_tpu_torch.genomics.sources import (
+    Callset,
+    _carrying_keyed_records,
+    _carrying_records,
+    _variant_to_record,
+    csr_pair_from_lists,
+    variant_from_record,
+)
+from spark_examples_tpu_torch.genomics.types import Variant
+from spark_examples_tpu_torch.resilience import (
+    BreakerSet,
+    Budget,
+    CircuitOpenError,
+    RetryDecision,
+    RetryPolicy,
+    call_with_retry,
+    classify_grpc,
+    faults,
+)
+from spark_examples_tpu_torch.utils.config import unported
+from spark_examples_tpu_torch.utils.stats import IoStats
+
+__all__ = ["GrpcGenomicsServer", "GrpcVariantSource", "grpc_available"]
+
+_SERVICE = "genomics.VariantStream"
+_READS = "item 3, reads and PairHMM"
+
+
+def grpc_available() -> bool:
+    try:
+        import grpc  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def _identity(b: bytes) -> bytes:
+    return b
+
+
+class _StreamIdleTimeout(IOError):
+    """Per-read idle deadline expired on a server stream: the peer is
+    connected (keepalive happy) but delivering nothing."""
+
+
+class _AuthInterceptor:
+    """Bearer-token gate on every RPC (Client.scala:49-61 semantics)."""
+
+    def __init__(self, token: str):
+        import grpc
+
+        self._token = token
+
+        def deny(request, context):
+            context.abort(
+                grpc.StatusCode.UNAUTHENTICATED, "missing or bad token"
+            )
+
+        self._deny = grpc.unary_unary_rpc_method_handler(
+            deny, _identity, _identity
+        )
+
+    def intercept_service(self, continuation, handler_call_details):
+        import hmac
+
+        expected = f"Bearer {self._token}"
+        for key, value in handler_call_details.invocation_metadata:
+            if key == "authorization" and hmac.compare_digest(
+                value, expected
+            ):
+                return continuation(handler_call_details)
+        return self._deny
+
+
+class GrpcGenomicsServer:
+    """gRPC server fronting any VariantSource.
+
+    Methods (all under ``genomics.VariantStream``):
+      - ``StreamVariants`` (server-streaming): request JSON
+        ``{variant_set_id, contig, start, end}`` → one message per
+        interchange record line. Sources with ``stream_variant_lines``
+        serve raw bytes (zero parse — the byte-offset line index path).
+      - ``StreamVariantFrames`` (server-streaming): the shard's binary
+        CSR frames (:mod:`.wire`) as bounded byte chunks.
+      - ``ListCallsets``, ``CallsetOrder``, ``Identity`` (unary).
+      - ``ExportLines``, ``ExportSidecar`` (server-streaming): the mirror
+        downloads.
+      - ``StreamReads`` answers ``UNIMPLEMENTED`` (ROADMAP.md, Queue 1,
+        item 3).
+    """
+
+    def __init__(
+        self,
+        source,
+        port: int = 0,
+        token: Optional[str] = None,
+        host: str = "127.0.0.1",
+    ):
+        import grpc
+        from concurrent import futures
+
+        self._source = source
+        interceptors = (
+            [_AuthInterceptor(token)] if token is not None else []
+        )
+        self._server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=16),
+            interceptors=interceptors,
+            compression=grpc.Compression.Gzip,
+            options=[
+                # Tolerate the client's 30 s keepalive pings during
+                # stalled streams: the default ping-strike policy (2
+                # strikes, min 300 s between data-less pings) GOAWAYs
+                # the whole multiplexed connection in exactly the
+                # slow-shard scenario keepalive exists to survive
+                # ('too_many_pings' after ~3 pings of stall). Strikes
+                # disabled outright — with 0 strikes the min-interval
+                # knob would be inert, so it is not set.
+                ("grpc.http2.max_ping_strikes", 0),
+            ],
+        )
+        handlers = {
+            "StreamVariants": grpc.unary_stream_rpc_method_handler(
+                self._stream_variants, _identity, _identity
+            ),
+            "StreamVariantFrames": grpc.unary_stream_rpc_method_handler(
+                self._stream_variant_frames, _identity, _identity
+            ),
+            "StreamReads": grpc.unary_stream_rpc_method_handler(
+                self._stream_reads, _identity, _identity
+            ),
+            "ListCallsets": grpc.unary_unary_rpc_method_handler(
+                self._list_callsets, _identity, _identity
+            ),
+            "CallsetOrder": grpc.unary_unary_rpc_method_handler(
+                self._callset_order, _identity, _identity
+            ),
+            "Identity": grpc.unary_unary_rpc_method_handler(
+                self._identity_rpc, _identity, _identity
+            ),
+            "ExportLines": grpc.unary_stream_rpc_method_handler(
+                self._export_lines, _identity, _identity
+            ),
+            "ExportSidecar": grpc.unary_stream_rpc_method_handler(
+                self._export_sidecar, _identity, _identity
+            ),
+        }
+        self._server.add_generic_rpc_handlers(
+            (grpc.method_handlers_generic_handler(_SERVICE, handlers),)
+        )
+        # Older grpcio returns 0 on bind failure (port already in use),
+        # newer raises RuntimeError; either way serve-cohort must never
+        # print 'grpc://host:0' and look healthy while no endpoint
+        # exists — normalize both shapes to a loud IOError.
+        try:
+            self.port = self._server.add_insecure_port(f"{host}:{port}")
+        except RuntimeError as e:
+            raise IOError(
+                f"cannot bind gRPC endpoint {host}:{port}: {e}"
+            ) from e
+        if self.port == 0 and port != 0:
+            raise IOError(
+                f"cannot bind gRPC endpoint {host}:{port} "
+                "(port already in use?)"
+            )
+
+    def start(self) -> "GrpcGenomicsServer":
+        self._server.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop serving and wait until the server's threads are gone."""
+        self._server.stop(grace=None).wait(timeout=30)
+
+    # -- handlers ------------------------------------------------------------
+
+    @staticmethod
+    def _shard_of(request: bytes):
+        q = json.loads(request)
+        return (
+            q.get("variant_set_id", ""),
+            Shard(str(q["contig"]), int(q["start"]), int(q["end"])),
+        )
+
+    def _stream_variants(self, request: bytes, context):
+        vsid, shard = self._shard_of(request)
+        raw = getattr(self._source, "stream_variant_lines", None)
+        if raw is not None:
+            # Zero-parse passthrough off the byte-offset line index —
+            # the same storage-side slicing the HTTP raw path uses.
+            yield from raw(vsid, shard)
+            return
+        for v in self._source.stream_variants(vsid, shard):
+            yield json.dumps(
+                _variant_to_record(v) if isinstance(v, Variant) else v
+            ).encode()
+
+    def _stream_variant_frames(self, request: bytes, context):
+        """The binary CSR frame tier as a gRPC byte-chunk stream: the same
+        checksummed frame bytes the HTTP ``/variants-csr`` endpoint
+        serves, chunked into bounded messages so a dense shard never
+        trips the 4 MB message ceiling."""
+        import grpc
+
+        frame_fn = getattr(self._source, "stream_carrying_frame", None)
+        order_fn = getattr(self._source, "callset_order", None)
+        if frame_fn is None or order_fn is None:
+            context.abort(
+                grpc.StatusCode.UNIMPLEMENTED,
+                "source does not serve CSR frames",
+            )
+        q = json.loads(request)
+        shard = Shard(str(q["contig"]), int(q["start"]), int(q["end"]))
+        min_af = q.get("min_af")
+        ident = getattr(self._source, "cohort_identity", None)
+        ident = ident() if ident else None
+        body = wire.encode_shard_frames(
+            shard,
+            frame_fn(
+                q.get("variant_set_id", ""),
+                shard,
+                float(min_af) if min_af is not None else None,
+            ),
+            wire.callsets_digest([str(c) for c in order_fn()]),
+            ident,
+        )
+        yield from wire.iter_frame_chunks(body)
+
+    def _callset_order(self, request: bytes, context) -> bytes:
+        import grpc
+
+        order_fn = getattr(self._source, "callset_order", None)
+        if order_fn is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, "source has no callset order"
+            )
+        ids = [str(c) for c in order_fn()]
+        return json.dumps(
+            {"ids": ids, "digest": wire.callsets_digest(ids)}
+        ).encode()
+
+    def _export_lines(self, request: bytes, context):
+        """Whole-cohort interchange-file export (mirror downloads) —
+        the gRPC twin of HTTP /export/<name>."""
+        import grpc
+
+        q = json.loads(request)
+        export = getattr(self._source, "export_lines", None)
+        if export is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, "source does not export"
+            )
+        name = q.get("name", "")
+        try:
+            yield from export(name)
+        except KeyError:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"no such export: {name}"
+            )
+        except FileNotFoundError:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"export missing: {name}"
+            )
+
+    def _export_sidecar(self, request: bytes, context):
+        """Binary CSR sidecar export (light mirrors) — the gRPC twin of
+        HTTP /export-sidecar, as bounded byte chunks."""
+        import grpc
+
+        ensure = getattr(self._source, "ensure_sidecar", None)
+        path = ensure() if ensure is not None else None
+        if not path:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND,
+                "source has no sidecar to export",
+            )
+        # Open BEFORE stat, like the HTTP endpoint: a concurrent
+        # rebuild os.replace()s the file, and chunks from a different
+        # inode than the length was taken from corrupt the download.
+        with open(path, "rb") as f:
+            remaining = os.fstat(f.fileno()).st_size
+            while remaining > 0:
+                chunk = f.read(min(1 << 20, remaining))
+                if not chunk:
+                    break
+                remaining -= len(chunk)
+                yield chunk
+
+    def _stream_reads(self, request: bytes, context):
+        import grpc
+
+        context.abort(
+            grpc.StatusCode.UNIMPLEMENTED,
+            str(unported("StreamReads", _READS)),
+        )
+
+    def _list_callsets(self, request: bytes, context) -> bytes:
+        q = json.loads(request)
+        rows = [
+            {
+                "id": c.id,
+                "name": c.name,
+                "variant_set_id": c.variant_set_id,
+            }
+            for c in self._source.list_callsets(
+                q.get("variant_set_id", "")
+            )
+        ]
+        return json.dumps(rows).encode()
+
+    def _identity_rpc(self, request: bytes, context) -> bytes:
+        import grpc
+
+        ident = getattr(self._source, "cohort_identity", None)
+        ident = ident() if ident else None
+        if ident is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, "source has no identity"
+            )
+        return json.dumps({"identity": ident}).encode()
+
+
+def _grpc_code(exc: IOError) -> Optional[str]:
+    """gRPC status name behind an IOError raised by the transport
+    (None when the failure was client-local, nothing served)."""
+    cause = getattr(exc, "__cause__", None)
+    code_fn = getattr(cause, "code", None)
+    if code_fn is None:
+        return None
+    try:
+        return code_fn().name
+    except Exception:  # noqa: BLE001 — a broken stub must not crash
+        return None
+
+
+class GrpcVariantSource:
+    """VariantSource over the gRPC transport.
+
+    Same consumer surface as ``HttpVariantSource`` (stream_variants /
+    list_callsets / the fused carrying tiers), fed by HTTP/2 server
+    streams multiplexed over ONE channel. A served error status counts
+    as an unsuccessful response; transport trouble as an IO exception —
+    the reference's accumulator semantics (``VariantsRDD.scala:199-203``).
+
+    Tiers match the HTTP source's: a mirrored sidecar when ``cache_dir``
+    holds a completed mirror; else the binary frame stream
+    (``StreamVariantFrames``) when the server speaks it; else the JSON
+    record stream. ``cold_stream`` (default True) gives cold cohorts the
+    HTTP source's streaming behavior: shard frames ride the wire at once
+    while the mirror downloads write-through in the background.
+    """
+
+    def __init__(
+        self,
+        target: str,
+        credentials: Optional[Credentials] = None,
+        stats: Optional[IoStats] = None,
+        timeout: float = 60.0,
+        idle_timeout: Optional[float] = 120.0,
+        retry_policy=None,
+        breakers=None,
+        cache_dir: Optional[str] = None,
+        mirror_mode: str = "full",
+        wire_frames: bool = True,
+        cold_stream: bool = True,
+    ):
+        import grpc
+
+        if mirror_mode not in ("full", "light"):
+            raise ValueError(
+                f"mirror_mode must be 'full' or 'light', got {mirror_mode!r}"
+            )
+        if target.startswith("grpc://"):
+            target = target[len("grpc://"):]
+        self._cache_dir = cache_dir
+        self._mirror_mode = mirror_mode
+        self._cold_stream = cold_stream
+        self._mirror = None  # resolved lazily: JsonlSource | False | None
+        # Shard-parallel ingest resolves the mirror from worker threads;
+        # the download must happen exactly once, not raced.
+        self._mirror_lock = threading.Lock()
+        self._wire_frames = wire_frames
+        self._frame_order = None  # (ids, digest) | False | None=unprobed
+        self._frame_lock = threading.Lock()
+        self._frame_lookup = wire.OrdinalLookupCache()
+        # ``idle_timeout`` bounds the wait for EACH stream message —
+        # the liveness check keepalive cannot provide: keepalive pings
+        # detect a dead PEER, but a connected peer wedged inside its
+        # handler answers pings forever while delivering nothing. A long
+        # actively-delivering shard never dies (each message resets the
+        # clock). None disables.
+        self._idle_timeout = idle_timeout
+        self._retry_policy = (
+            retry_policy if retry_policy is not None else RetryPolicy()
+        )
+        self._breakers = (
+            breakers if breakers is not None else BreakerSet(f"grpc:{target}")
+        )
+        # Keepalive pings give streams TRANSPORT-level liveness detection
+        # (a dead peer surfaces as UNAVAILABLE) without a whole-RPC
+        # deadline: ``timeout`` bounds UNARY calls only — a gRPC deadline
+        # on a server stream is total wall-clock, which would kill a long
+        # actively-delivering shard.
+        self._channel = grpc.insecure_channel(
+            target,
+            compression=grpc.Compression.Gzip,
+            options=[
+                ("grpc.keepalive_time_ms", 30_000),
+                ("grpc.keepalive_timeout_ms", 20_000),
+                ("grpc.http2.max_pings_without_data", 0),
+            ],
+        )
+        self._token = credentials.token if credentials else ""
+        self.stats = stats if stats is not None else IoStats()
+        self._timeout = timeout
+
+    def close(self) -> None:
+        self._channel.close()
+
+    def _metadata(self):
+        if self._token:
+            return (("authorization", f"Bearer {self._token}"),)
+        return ()
+
+    # -- mirror cache (shared protocol, genomics/mirror.py) ------------------
+
+    def _resolve_mirror(self):
+        """JsonlSource over the local mirror, or False (no cache_dir /
+        server without an identity). Same once-only locking as the HTTP
+        source; the download protocol is the SHARED one, so a gRPC-built
+        mirror is byte-compatible with an HTTP-built one of the same
+        cohort."""
+        if self._mirror is not None:
+            return self._mirror
+        if not self._cache_dir:
+            self._mirror = False
+            return False
+        with self._mirror_lock:
+            if self._mirror is not None:
+                return self._mirror
+            self._mirror = mirror_mod.resolve_mirror(
+                _GrpcMirrorFeed(self),
+                self._cache_dir,
+                self._mirror_mode,
+                self.stats,
+                cold_stream=self._cold_stream,
+            )
+            return self._mirror
+
+    def cold_stream_active(self) -> bool:
+        """Is this run streaming a COLD cohort from the wire while the
+        mirror downloads write-through in the background? (The HTTP
+        source's contract; the shared run-boundary body is
+        :func:`.mirror.refresh_cold_stream`.)"""
+        return mirror_mod.refresh_cold_stream(self)
+
+    def _note_cold_shard_fetched(self) -> None:
+        mirror_mod.note_cold_shard_fetched(self._mirror)
+
+    # -- calls ---------------------------------------------------------------
+
+    def _unary_attempt(self, method: str, request: dict):
+        """One unary call (the ``transport.grpc.request`` seam first),
+        timed into the shared RPC latency histogram."""
+        fn = self._channel.unary_unary(
+            f"/{_SERVICE}/{method}",
+            request_serializer=_identity,
+            response_deserializer=_identity,
+        )
+
+        def attempt() -> bytes:
+            faults.inject("transport.grpc.request", key=method)
+            with obs.rpc_timer("grpc", method):
+                return fn(
+                    json.dumps(request).encode(),
+                    metadata=self._metadata(),
+                    timeout=self._timeout,
+                )
+
+        return attempt
+
+    def _retrying(self, method: str, attempt):
+        return call_with_retry(
+            attempt,
+            self._retry_policy,
+            classify_grpc,
+            transport="grpc",
+            method=method,
+            breaker=self._breakers.get(method),
+        )
+
+    def _probe_unary(self, method: str, request: dict) -> bytes:
+        """A capability probe: the same channel/retry/breaker path as
+        ``_unary`` but INVISIBLE to IoStats — probes are infrastructure,
+        not data-plane requests, and the six accumulators are pinned
+        reference parity."""
+        import grpc
+
+        try:
+            return self._retrying(
+                method, self._unary_attempt(method, request)
+            )
+        except grpc.RpcError as e:
+            raise IOError(
+                f"{method}: {e.code().name}: {e.details()}"
+            ) from e
+
+    def _unary(self, method: str, request: dict) -> bytes:
+        import grpc
+
+        self.stats.add(requests=1)
+        try:
+            return self._retrying(
+                method, self._unary_attempt(method, request)
+            )
+        except grpc.RpcError as e:
+            # Stats count ONCE at the final failure (retried attempts
+            # show on the obs surfaces).
+            self._count_rpc_error(e)
+            raise IOError(
+                f"{method}: {e.code().name}: {e.details()}"
+            ) from e
+        except (CircuitOpenError, faults.InjectedFault):
+            self.stats.add(io_exceptions=1)
+            raise
+
+    def _count_rpc_error(self, e) -> None:
+        import grpc
+
+        # Transport/client-local failures (nothing was SERVED: dead or
+        # wedged peer, deadline, local cancellation) are ioExceptions;
+        # everything else is a served error status — the HTTP source's
+        # served-vs-transport split (Client.scala:57-61).
+        if e.code() in (
+            grpc.StatusCode.UNAVAILABLE,
+            grpc.StatusCode.DEADLINE_EXCEEDED,
+            grpc.StatusCode.CANCELLED,
+        ):
+            self.stats.add(io_exceptions=1)
+        else:
+            self.stats.add(unsuccessful_responses=1)
+
+    def _iter_with_idle_timeout(
+        self, call, method: str
+    ) -> Iterator[bytes]:
+        """Pull stream messages with a per-READ idle deadline.
+
+        The gRPC iterator blocks in native code, so the wait cannot be
+        interrupted in-thread; a pump thread feeds a queue and the
+        consumer bounds each get. On idle expiry the RPC is cancelled
+        (the pump unblocks with CANCELLED and exits) and an IOError
+        surfaces — the wedged-but-connected-peer case keepalive alone
+        cannot catch.
+        """
+        if not self._idle_timeout:
+            yield from call
+            return
+        q: "queue.SimpleQueue" = queue.SimpleQueue()
+        done = object()
+
+        def pump() -> None:
+            try:
+                for msg in call:
+                    q.put(msg)
+                q.put(done)
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                q.put(e)
+
+        threading.Thread(
+            target=pump, name=f"grpc-pump-{method}", daemon=True
+        ).start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=self._idle_timeout)
+                except queue.Empty:
+                    raise _StreamIdleTimeout(
+                        f"{method}: no stream message for "
+                        f"{self._idle_timeout}s (peer connected but "
+                        "wedged); cancelled the RPC"
+                    )
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # Unblocks the pump thread on every exit path — idle expiry,
+            # a consumer abandoning the stream (GeneratorExit), or normal
+            # exhaustion (where cancel is a no-op).
+            call.cancel()
+
+    def _stream(self, method: str, request: dict) -> Iterator[bytes]:
+        import grpc
+
+        fn = self._channel.unary_stream(
+            f"/{_SERVICE}/{method}",
+            request_serializer=_identity,
+            response_deserializer=_identity,
+        )
+        self.stats.add(requests=1)
+        payload = json.dumps(request).encode()
+        breaker = self._breakers.get(method)
+        # The policy's wall-clock budget bounds the stream-START retry
+        # loop exactly as it bounds unary calls; the stream BODY stays
+        # unbounded on purpose (see __init__).
+        budget = Budget(self._retry_policy.deadline)
+        failures = 0
+        while True:
+            # Stream-start retry: until the FIRST message is out, the
+            # request is safely re-issuable (nothing was consumed). After
+            # that, a failure must surface.
+            yielded = False
+            # A half-open probe admitted here must be closed by exactly
+            # one verdict; a consumer abandoning the stream mid-probe
+            # (GeneratorExit) gives none, so the slot is released in the
+            # finally below instead of leaking.
+            verdict_given = False
+            try:
+                breaker.before_call()
+            except IOError:  # CircuitOpenError: the endpoint is shedding
+                self.stats.add(io_exceptions=1)
+                raise
+            try:
+                # The latency histogram times the WHOLE stream (call →
+                # exhaustion).
+                with obs.rpc_timer("grpc", method):
+                    faults.inject("transport.grpc.request", key=method)
+                    call = fn(payload, metadata=self._metadata())
+                    for msg in faults.wrap_lines(
+                        "transport.grpc.stream",
+                        self._iter_with_idle_timeout(call, method),
+                        key=method,
+                        # No end sentinel on this wire: a silent early
+                        # end would DROP records undetectably, which no
+                        # real gRPC failure can do (truncation is a
+                        # status here) — inject it as an error instead.
+                        truncate_silently=False,
+                    ):
+                        yielded = True
+                        yield msg
+                breaker.record_success()
+                verdict_given = True
+                return
+            except grpc.RpcError as e:
+                # Includes mid-stream aborts: gRPC's framing makes a
+                # broken stream a STATUS, never a silent truncation.
+                decision = classify_grpc(e)
+                if decision.retryable:
+                    breaker.record_failure()
+                else:
+                    breaker.record_success()  # the endpoint ANSWERED
+                verdict_given = True
+                failures += 1
+                if (
+                    not yielded
+                    and decision.retryable
+                    and failures < max(1, self._retry_policy.max_attempts)
+                    and not budget.exhausted()
+                ):
+                    self._note_stream_retry(method, failures, decision)
+                    time.sleep(
+                        min(
+                            self._retry_policy.backoff_delay(failures),
+                            max(0.0, budget.remaining()),
+                        )
+                    )
+                    continue
+                self._count_rpc_error(e)
+                raise IOError(
+                    f"{method}: {e.code().name}: {e.details()}"
+                ) from e
+            except (_StreamIdleTimeout, faults.InjectedFault) as e:
+                breaker.record_failure()
+                verdict_given = True
+                failures += 1
+                # A fault injected at the REQUEST seam is transport
+                # weather and re-issuable exactly like an UNAVAILABLE;
+                # mid-stream conditions (idle timeout, stream-body
+                # faults) surface to the caller.
+                if (
+                    isinstance(e, faults.InjectedFault)
+                    and e.site == "transport.grpc.request"
+                    and not yielded
+                    and failures < max(1, self._retry_policy.max_attempts)
+                    and not budget.exhausted()
+                ):
+                    self._note_stream_retry(
+                        method, failures, RetryDecision(True, "injected")
+                    )
+                    time.sleep(
+                        min(
+                            self._retry_policy.backoff_delay(failures),
+                            max(0.0, budget.remaining()),
+                        )
+                    )
+                    continue
+                self.stats.add(io_exceptions=1)
+                obs.instant(
+                    "grpc_stream_idle_timeout"
+                    if isinstance(e, _StreamIdleTimeout)
+                    else "grpc_stream_fault",
+                    scope="p",
+                    method=method,
+                    error=repr(e),
+                )
+                raise IOError(f"{method}: {e}") from e
+            finally:
+                if not verdict_given:
+                    breaker.release_probe()
+
+    def _note_stream_retry(self, method: str, attempt: int, decision):
+        obs.count_retry("grpc", method)
+        obs.instant(
+            "retry_backoff",
+            scope="p",
+            transport="grpc",
+            method=method,
+            attempt=attempt,
+            reason=decision.reason,
+        )
+
+    # -- binary frame tier ---------------------------------------------------
+
+    def _frame_order_ids(self):
+        """(ids, digest) via the CallsetOrder RPC, or False when the
+        server has no frame tier (UNIMPLEMENTED from an older server /
+        NOT_FOUND from a source without an order — the client degrades
+        to the record tier)."""
+        if not self._wire_frames:
+            return False
+        if self._frame_order is None:
+            with self._frame_lock:
+                if self._frame_order is None:
+                    try:
+                        doc = json.loads(
+                            self._probe_unary("CallsetOrder", {})
+                        )
+                        self._frame_order = (
+                            [str(i) for i in doc["ids"]],
+                            str(doc["digest"]),
+                        )
+                    except IOError as e:
+                        if _grpc_code(e) in (
+                            "UNIMPLEMENTED",
+                            "NOT_FOUND",
+                        ):
+                            self._frame_order = False
+                        else:
+                            raise
+        return self._frame_order
+
+    def _ordinal_lookup(self, indexes: dict):
+        """(lookup array, ids, digest) for the run's shared indexes
+        dict (wire.OrdinalLookupCache)."""
+        ids, digest = self._frame_order_ids()
+        return self._frame_lookup.get(ids, indexes), ids, digest
+
+    def _frame_carrying_csr(
+        self, variant_set_id, shard, indexes, min_allele_frequency
+    ):
+        """CSR ingest over the binary frame stream: the whole fetch +
+        decode is ONE retryable operation — a corrupted or truncated
+        frame fails the CRC/end-frame check loudly and the shard
+        re-fetches per policy, never a silent record drop."""
+        import grpc
+
+        method = "StreamVariantFrames"
+        lookup, ids, digest = self._ordinal_lookup(indexes)
+        request = {
+            "variant_set_id": variant_set_id,
+            "contig": shard.contig,
+            "start": shard.start,
+            "end": shard.end,
+        }
+        if min_allele_frequency is not None:
+            request["min_af"] = float(min_allele_frequency)
+        payload = json.dumps(request).encode()
+        fn = self._channel.unary_stream(
+            f"/{_SERVICE}/{method}",
+            request_serializer=_identity,
+            response_deserializer=_identity,
+        )
+        self.stats.add(
+            requests=1, partitions=1, reference_bases=shard.range
+        )
+
+        def attempt():
+            t0 = time.perf_counter()
+            with obs.span("wire_frame_fetch", shard=str(shard)):
+                faults.inject("transport.grpc.request", key=method)
+                call = fn(payload, metadata=self._metadata())
+                decoder = wire.FrameDecoder(expect_digest=digest)
+                frames = []
+                # truncate_silently=True ON PURPOSE, unlike the record
+                # stream: frames carry their own end sentinel, so a
+                # silent early end is exactly what the decoder's
+                # missing-end-frame check must catch.
+                for msg in faults.wrap_lines(
+                    "transport.grpc.stream",
+                    self._iter_with_idle_timeout(call, method),
+                    key=method,
+                    truncate_silently=True,
+                ):
+                    frames.extend(decoder.feed(msg))
+                decoder.finish()
+            wire.note_frame_metrics(
+                "grpc",
+                decoder.frames,
+                decoder.bytes,
+                time.perf_counter() - t0,
+            )
+            return frames
+
+        try:
+            frames = self._retrying(method, attempt)
+        except grpc.RpcError as e:
+            self._count_rpc_error(e)
+            raise IOError(
+                f"{method}: {e.code().name}: {e.details()}"
+            ) from e
+        except IOError:
+            # WireFormatError / idle timeout / injected faults / an open
+            # circuit: nothing trustworthy was served — IO weather, like
+            # the HTTP tier.
+            self.stats.add(io_exceptions=1)
+            raise
+        self.stats.add(
+            variants_read=sum(
+                int(h.get("variants_read", 0)) for h, _, _ in frames
+            )
+        )
+        return wire.remap_frames(frames, lookup, ids, shard)
+
+    # -- seams of later items ------------------------------------------------
+
+    def compute_pca(self, calls, n_samples: int, num_pc: int,
+                    batch_size: int = 4096):
+        """The ``ComputePca`` dense-math seam (the JAX package's bridge
+        backend over gRPC): not ported yet."""
+        raise unported("GrpcVariantSource.compute_pca",
+                       "item 8, checkpoint, elastic and bridge")
+
+    def stream_reads(self, read_group_set_id: str, shard: Shard):
+        """Read streams (``StreamReads``): not ported yet."""
+        raise unported("GrpcVariantSource.stream_reads", _READS)
+
+    # -- metadata ------------------------------------------------------------
+
+    def list_callsets(self, variant_set_id: str) -> List[Callset]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            return mirror.list_callsets(variant_set_id)
+        rows = json.loads(
+            self._unary(
+                "ListCallsets", {"variant_set_id": variant_set_id}
+            )
+        )
+        return [
+            Callset(r["id"], r["name"], r.get("variant_set_id", ""))
+            for r in rows
+        ]
+
+    def cohort_identity(self) -> Optional[str]:
+        try:
+            return json.loads(self._unary("Identity", {}))["identity"]
+        except IOError:
+            return None
+
+    # -- record streams ------------------------------------------------------
+
+    def _wire_variant_records(self, variant_set_id: str, shard: Shard):
+        self.stats.add(partitions=1, reference_bases=shard.range)
+        return (
+            json.loads(line)
+            for line in self._stream(
+                "StreamVariants",
+                {
+                    "variant_set_id": variant_set_id,
+                    "contig": shard.contig,
+                    "start": shard.start,
+                    "end": shard.end,
+                },
+            )
+        )
+
+    def stream_variants(
+        self, variant_set_id: str, shard: Shard
+    ) -> Iterator[Variant]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_variants(variant_set_id, shard)
+            return
+        for rec in self._wire_variant_records(variant_set_id, shard):
+            v = variant_from_record(rec)
+            if v is None:
+                continue
+            self.stats.add(variants_read=1)
+            yield v
+
+    # -- fused ingest tiers --------------------------------------------------
+
+    def stream_carrying(
+        self,
+        variant_set_id: str,
+        shard: Shard,
+        indexes: dict,
+        min_allele_frequency=None,
+    ):
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_carrying(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            return
+        yield from _carrying_records(
+            self._wire_variant_records(variant_set_id, shard),
+            indexes,
+            variant_set_id,
+            self.stats,
+            min_allele_frequency,
+        )
+
+    def stream_carrying_keyed(
+        self,
+        variant_set_id: str,
+        shard: Shard,
+        indexes: dict,
+        min_allele_frequency=None,
+    ):
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_carrying_keyed(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            return
+        yield from _carrying_keyed_records(
+            self._wire_variant_records(variant_set_id, shard),
+            indexes,
+            variant_set_id,
+            self.stats,
+            min_allele_frequency,
+        )
+
+    def stream_carrying_csr(
+        self,
+        variant_set_id: str,
+        shard: Shard,
+        indexes: dict,
+        min_allele_frequency=None,
+    ):
+        """CSR-direct fused ingest, tiered fastest first like the HTTP
+        source: mirrored sidecar → binary frame stream → JSON record
+        fallback (older servers)."""
+        mirror = self._resolve_mirror()
+        if mirror:
+            return mirror.stream_carrying_csr(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+        if self._frame_order_ids():
+            pair = self._frame_carrying_csr(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            self._note_cold_shard_fetched()
+            return pair
+        pair = csr_pair_from_lists(
+            _carrying_records(
+                self._wire_variant_records(variant_set_id, shard),
+                indexes,
+                variant_set_id,
+                self.stats,
+                min_allele_frequency,
+            )
+        )
+        self._note_cold_shard_fetched()
+        return pair
+
+
+class _GrpcMirrorFeed:
+    """The gRPC transport behind the shared mirror protocol
+    (:mod:`.mirror`): Identity, ExportLines, ExportSidecar. NOT_FOUND /
+    UNIMPLEMENTED (older server) map to the protocol's absent-export
+    signals; transport trouble surfaces — it must never silently disable
+    the cache for a multi-thousand-shard run."""
+
+    def __init__(self, source: GrpcVariantSource):
+        self._src = source
+
+    def identity(self) -> Optional[str]:
+        try:
+            return json.loads(self._src._unary("Identity", {}))[
+                "identity"
+            ]
+        except IOError as e:
+            if _grpc_code(e) in ("NOT_FOUND", "UNIMPLEMENTED"):
+                return None  # server cannot identify: degrade
+            raise
+
+    def _mapped_stream(self, method: str, request: dict, label: str):
+        try:
+            yield from self._src._stream(method, request)
+        except IOError as e:
+            if _grpc_code(e) in ("NOT_FOUND", "UNIMPLEMENTED"):
+                raise mirror_mod.ExportUnavailable(f"{label}: {e}") from e
+            raise
+
+    def export_lines(self, name: str):
+        return self._mapped_stream(
+            "ExportLines", {"name": name}, f"export {name}"
+        )
+
+    def export_sidecar(self):
+        return self._mapped_stream("ExportSidecar", {}, "sidecar export")

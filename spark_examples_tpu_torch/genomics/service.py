@@ -27,9 +27,13 @@ Two wire tiers:
   callset ordinals as checksummed binary frames (:mod:`.wire`), for the
   CSR-direct ingest.
 
-Not served yet (ROADMAP.md, Queue 1): ``/reads`` (item 3, answered 501),
-the analysis job tier (``POST /analyze``, ``/jobs``; item 6), the gRPC
-transport and the client's cohort mirror (``cache_dir``; item 2).
+The client's ``cache_dir`` mirrors the served cohort once, keyed by the
+server's ``/identity`` (:mod:`.mirror`, shared with the gRPC transport of
+:mod:`.grpc_transport`), and serves every later run from the mirror's CSR
+sidecar.
+
+Not served yet (ROADMAP.md, Queue 1): ``/reads`` (item 3, answered 501)
+and the analysis job tier (``POST /analyze``, ``/jobs``; item 6).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import Iterator, List, Optional
 from urllib.parse import parse_qs, urlencode, urlparse
 
 from spark_examples_tpu_torch import obs
+from spark_examples_tpu_torch.genomics import mirror as mirror_mod
 from spark_examples_tpu_torch.genomics import wire
 from spark_examples_tpu_torch.genomics.auth import Credentials
 from spark_examples_tpu_torch.genomics.shards import Shard
@@ -586,10 +591,15 @@ class HttpVariantSource:
       ``/variants-csr`` degrades to the record tier; ``wire_frames=False``
       is the client-side switch.
 
-    The cohort mirror (``cache_dir``) is ROADMAP.md Queue 1, item 2: a
-    ``cache_dir`` or a light ``mirror_mode`` raises ``NotImplementedError``.
-    ``cold_stream`` (the JAX package's default, True) acts only on a
-    mirror, so :meth:`cold_stream_active` answers False.
+    ``cache_dir`` enables the cohort mirror (:mod:`.mirror`): the first
+    call downloads the served cohort once, keyed by ``/identity``, and
+    every later call is served from a local ``JsonlSource`` over it — the
+    CSR sidecar, zero network. ``mirror_mode="light"`` downloads only
+    callsets + the sidecar. With ``cold_stream`` (the default) a COLD
+    cohort is not a download barrier: shard frames ride the wire at once
+    while the mirror downloads write-through on a background thread; the
+    next run finds it complete. ``cold_stream=False`` is the phased path:
+    the first call downloads the whole mirror, then serves from it.
     """
 
     def __init__(
@@ -609,15 +619,14 @@ class HttpVariantSource:
             raise ValueError(
                 f"mirror_mode must be 'full' or 'light', got {mirror_mode!r}"
             )
-        if cache_dir:
-            raise unported("--cache-dir", "item 2, gRPC and mirrors")
-        if mirror_mode != "full":
-            raise unported("--mirror-mode", "item 2, gRPC and mirrors")
         self.base_url = base_url.rstrip("/")
         self._url = urlparse(self.base_url)
         self._token = credentials.token if credentials else ""
         self.stats = stats if stats is not None else IoStats()
         self._timeout = timeout
+        self._cache_dir = cache_dir
+        self._mirror_mode = mirror_mode
+        self._cold_stream = cold_stream
         # Declarative failure handling (resilience/policy.py): every
         # request runs under the policy — transport errors and
         # infrastructural statuses (429/502/503/504...) retry with
@@ -631,6 +640,10 @@ class HttpVariantSource:
             if breakers is not None
             else BreakerSet(f"http:{self._url.netloc}")
         )
+        self._mirror = None  # resolved lazily: JsonlSource | False | None
+        # Shard-parallel ingest resolves the mirror from worker threads;
+        # the download must happen exactly once, not raced.
+        self._mirror_lock = threading.Lock()
         # Binary frame tier state: the server's callset-ordinal order
         # ((ids, digest) | False = server has no frame tier | None =
         # unprobed) and the single-slot ordinal→dense-index lookup
@@ -759,11 +772,46 @@ class HttpVariantSource:
             self._count_final_failure(e)
             raise
 
+    # -- cohort mirror cache ------------------------------------------------
+
+    def _resolve_mirror(self):
+        """JsonlSource over the local mirror, downloading it first if this
+        identity has never been mirrored; False = caching unavailable
+        (no cache_dir, or server without /identity). The protocol itself
+        lives in :mod:`.mirror` (transport-agnostic; the gRPC source
+        shares it) — this method supplies the HTTP feed and the once-only
+        locking."""
+        if self._mirror is not None:
+            return self._mirror
+        if not self._cache_dir:
+            self._mirror = False
+            return False
+        with self._mirror_lock:
+            if self._mirror is not None:
+                return self._mirror
+            self._mirror = mirror_mod.resolve_mirror(
+                _HttpMirrorFeed(self),
+                self._cache_dir,
+                self._mirror_mode,
+                self.stats,
+                cold_stream=self._cold_stream,
+            )
+            return self._mirror
+
     def cold_stream_active(self) -> bool:
-        """Is this run streaming a COLD cohort from the wire while a
-        mirror downloads? Never without a mirror (``cache_dir``, ROADMAP.md
-        Queue 1, item 2), so the driver keeps manifest order."""
-        return False
+        """Is this run streaming a COLD cohort from the wire while the
+        mirror downloads write-through in the background? (With
+        cold-stream enabled, resolves the mirror — one /identity
+        round-trip — if not yet resolved; with ``cold_stream=False`` this
+        is a flag probe only, so the phased download still happens lazily
+        at the first data call. The driver consults this before choosing
+        its ingest order; the run-boundary tier upgrade is
+        :func:`.mirror.refresh_cold_stream`, shared with the gRPC
+        source.)"""
+        return mirror_mod.refresh_cold_stream(self)
+
+    def _note_cold_shard_fetched(self) -> None:
+        mirror_mod.note_cold_shard_fetched(self._mirror)
 
     # -- binary frame tier --------------------------------------------------
 
@@ -882,6 +930,9 @@ class HttpVariantSource:
     # -- source protocol ----------------------------------------------------
 
     def list_callsets(self, variant_set_id: str) -> List[Callset]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            return mirror.list_callsets(variant_set_id)
         with self._request(
             "/callsets", {"variant_set_id": variant_set_id}
         ) as resp:
@@ -914,6 +965,10 @@ class HttpVariantSource:
     def stream_variants(
         self, variant_set_id: str, shard: Shard
     ) -> Iterator[Variant]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_variants(variant_set_id, shard)
+            return
         for rec in self._wire_variant_records(variant_set_id, shard):
             v = variant_from_record(rec)
             if v is None:
@@ -977,6 +1032,12 @@ class HttpVariantSource:
     ):
         """Fused fast path over the wire records; the server already
         applied STRICT slicing and the variant-set filter."""
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_carrying(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            return
         yield from _carrying_records(
             self._wire_variant_records(variant_set_id, shard),
             indexes,
@@ -992,16 +1053,24 @@ class HttpVariantSource:
         indexes: dict,
         min_allele_frequency=None,
     ):
-        """CSR-direct fused ingest for remote cohorts: the BINARY FRAME
-        tier when the server speaks it, else assembled from the wire's
-        JSON record stream (same semantics, one (indices, offsets) pair
-        per shard). None for an empty shard window, like the local
-        tier."""
-        if self._frame_order_ids():
-            return self._frame_carrying_csr(
+        """CSR-direct fused ingest for remote cohorts, tiered fastest
+        first: a mirrored sidecar when the cache holds one (zero network,
+        zero parse); else the BINARY FRAME tier when the server speaks it;
+        else assembled from the wire's JSON record stream (same
+        semantics, one (indices, offsets) pair per shard). None for an
+        empty shard window, like the local tier."""
+        mirror = self._resolve_mirror()
+        if mirror:
+            return mirror.stream_carrying_csr(
                 variant_set_id, shard, indexes, min_allele_frequency
             )
-        return csr_pair_from_lists(
+        if self._frame_order_ids():
+            pair = self._frame_carrying_csr(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            self._note_cold_shard_fetched()
+            return pair
+        pair = csr_pair_from_lists(
             _carrying_records(
                 self._wire_variant_records(variant_set_id, shard),
                 indexes,
@@ -1010,6 +1079,8 @@ class HttpVariantSource:
                 min_allele_frequency,
             )
         )
+        self._note_cold_shard_fetched()
+        return pair
 
     def stream_carrying_keyed(
         self,
@@ -1019,6 +1090,12 @@ class HttpVariantSource:
         min_allele_frequency=None,
     ):
         """Fused multi-dataset fast path over the wire records."""
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_carrying_keyed(
+                variant_set_id, shard, indexes, min_allele_frequency
+            )
+            return
         yield from _carrying_keyed_records(
             self._wire_variant_records(variant_set_id, shard),
             indexes,
@@ -1026,3 +1103,54 @@ class HttpVariantSource:
             self.stats,
             min_allele_frequency,
         )
+
+
+class _HttpMirrorFeed:
+    """The HTTP transport behind the shared mirror protocol
+    (:mod:`.mirror`): /identity, framed /export/<name> line streams, and
+    the Content-Length-enforced /export-sidecar download. Served 404s map
+    to the protocol's absent-export signals; transport trouble and auth
+    failures surface — they must never silently disable the cache for a
+    multi-thousand-shard run."""
+
+    def __init__(self, source: HttpVariantSource):
+        self._src = source
+
+    def identity(self) -> Optional[str]:
+        try:
+            with self._src._request("/identity", {}) as resp:
+                return json.load(resp)["identity"]
+        except IOError as e:
+            if _http_code(e) == 404:
+                return None  # older server / unidentifiable source
+            raise
+
+    def export_lines(self, name: str):
+        try:
+            resp = self._src._request(f"/export/{name}", {}, stream=True)
+        except IOError as e:
+            if _http_code(e) == 404:
+                raise mirror_mod.ExportUnavailable(str(e)) from e
+            raise
+        return self._src._stream_lines(resp, f"/export/{name}")
+
+    def export_sidecar(self):
+        try:
+            resp = self._src._request("/export-sidecar", {})
+        except IOError as e:
+            if _http_code(e) == 404:
+                raise mirror_mod.ExportUnavailable(str(e)) from e
+            raise
+
+        def chunks():
+            # Content-Length is enforced by http.client: a premature
+            # EOF raises (IncompleteRead) instead of yielding a
+            # silently truncated npz.
+            with resp:
+                while True:
+                    block = resp.read(1 << 20)
+                    if not block:
+                        return
+                    yield block
+
+        return chunks()

@@ -546,8 +546,8 @@ class FixtureSource:
 
 
 # Interchange-layout names, the JAX package's: the CSR sidecar, the line
-# index, and the remote-mirror markers the network tier (a later slice)
-# writes beside them.
+# index, and the remote-mirror markers the cohort mirror
+# (genomics/mirror.py) writes beside them.
 SIDECAR_BASENAME = ".variants.csr.npz"
 LINEIDX_BASENAME = ".variants.lineidx.npz"
 MIRROR_COMPLETE_MARKER = ".complete"
@@ -962,18 +962,53 @@ class _CsrCohort:
             parts.append(f"{os.path.basename(p)}:{st.st_size}:{st.st_mtime_ns}")
         return "|".join(parts)
 
+    @staticmethod
+    def _mirror_sidecar_trusted(root: str) -> bool:
+        """Should a digest-mismatched sidecar be trusted anyway?
+
+        A sidecar DOWNLOADED into a remote-cohort mirror can never match
+        the local stat digest (the mirror's files have fresh mtimes, and
+        a server storing .gz originals keyed different sizes). It is
+        trusted exactly when the mirror protocol vouches for it: the dir
+        is a completed mirror, and the ``.sidecar-ok`` marker the client
+        wrote alongside the download matches the mirror's own identity.
+        Mirrors are immutable by construction (populated in a staging
+        dir, renamed complete), so the stat-based invalidation the digest
+        provides for editable cohorts has nothing to catch here.
+        """
+        try:
+            complete = os.path.exists(
+                os.path.join(root, MIRROR_COMPLETE_MARKER)
+            )
+            with open(os.path.join(root, MIRROR_IDENTITY_FILE)) as f:
+                ident = f.read().strip()
+            with open(os.path.join(root, MIRROR_SIDECAR_OK)) as f:
+                ok = f.read().strip()
+        except OSError:
+            return False
+        return complete and bool(ident) and ident == ok
+
     @classmethod
     def load_or_build(cls, root: str, open_fn) -> "_CsrCohort":
         """The sidecar of ``root``: mapped when its digest matches the
-        interchange files, else rebuilt by one parse and written next to
-        them (tmp file, then an atomic ``os.replace``; a read-only cohort
-        directory serves the rebuilt arrays from memory)."""
+        interchange files (or, in a completed cohort mirror, when the
+        mirror protocol vouches for it), else rebuilt by one parse and
+        written next to them (tmp file, then an atomic ``os.replace``; a
+        read-only cohort directory serves the rebuilt arrays from
+        memory)."""
         sidecar = os.path.join(root, SIDECAR_BASENAME)
         src_paths = []
         for name in ("variants.jsonl", "callsets.json"):
             p = os.path.join(root, name)
             src_paths.append(p + ".gz" if os.path.exists(p + ".gz") else p)
-        digest = cls._digest(src_paths)
+        try:
+            digest = cls._digest(src_paths)
+        except FileNotFoundError:
+            # LIGHT mirror: the interchange files are absent BY DESIGN
+            # (the client downloaded only callsets + this sidecar).
+            # Acceptance then rests entirely on the mirror trust
+            # protocol below; there is nothing to rebuild from.
+            digest = None
         if os.path.exists(sidecar):
             try:
                 # mmap-with-readahead view first (zero-copy re-reads);
@@ -981,7 +1016,14 @@ class _CsrCohort:
                 data = _load_sidecar_mmap(sidecar)
                 if data is None:
                     data = dict(np.load(sidecar, allow_pickle=False))
-                if str(data["digest"]) == digest:
+                stored = str(data["digest"])
+                if (digest is not None and stored == digest) or (
+                    # Same FORMAT version required either way — a
+                    # trusted mirror sidecar from a server running an
+                    # incompatible layout must still rebuild.
+                    stored.startswith(f"v{cls.VERSION}|")
+                    and cls._mirror_sidecar_trusted(root)
+                ):
                     return cls(data)
             except (
                 OSError,
@@ -991,6 +1033,12 @@ class _CsrCohort:
                 zipfile.BadZipFile,
             ):
                 pass  # unreadable/corrupt/stale → rebuild
+        if digest is None:
+            raise FileNotFoundError(
+                f"{root}: no variants.jsonl and no trusted mirror "
+                "sidecar — a light mirror must carry its "
+                f"{MIRROR_SIDECAR_OK} marker (re-mirror the cohort)"
+            )
 
         # One full parse to FILE-ORDERED columnar arrays, then one
         # vectorized assembly into the per-contig sorted layout.
@@ -1389,6 +1437,21 @@ class JsonlSource:
         path = os.path.join(self.root, name)
         if os.path.exists(path + ".gz"):
             return gzip.open(path + ".gz", "rt")
+        if name == "variants.jsonl" and not os.path.exists(path):
+            if os.path.exists(
+                os.path.join(self.root, MIRROR_SIDECAR_OK)
+            ):
+                # A LIGHT mirror holds callsets + sidecar only; raw
+                # FileNotFoundError pointing into cache internals is not
+                # an actionable message for the consumer that needs
+                # records.
+                raise FileNotFoundError(
+                    f"{path}: this is a LIGHT cohort mirror (callsets + "
+                    "CSR sidecar; serves the fused pca ingest tiers "
+                    "only). Record-streaming consumers need "
+                    "--mirror-mode full, which upgrades the mirror in "
+                    "place on the next run"
+                )
         return open(path, "rt")
 
     def _line_index(self) -> Optional[_LineIndex]:

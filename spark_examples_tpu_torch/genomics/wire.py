@@ -54,7 +54,7 @@ import hashlib
 import json
 import struct
 import zlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -69,6 +69,7 @@ __all__ = [
     "encode_data_frame",
     "encode_end_frame",
     "encode_shard_frames",
+    "iter_frame_chunks",
     "note_frame_metrics",
 ]
 
@@ -436,6 +437,13 @@ def remap_frames(
         bad = int(ords[mapped < 0][0])
         raise KeyError(str(ids[bad]))
     return mapped, offsets
+
+
+def iter_frame_chunks(body: bytes, chunk: int = 1 << 20) -> Iterator[bytes]:
+    """Slice an encoded frame stream into bounded wire chunks (the gRPC
+    message framing; HTTP just writes the body whole)."""
+    for i in range(0, len(body), chunk):
+        yield body[i : i + chunk]
 
 
 def note_frame_metrics(

@@ -49,6 +49,7 @@ ingest (:func:`spark_examples_tpu_torch.utils.config.unported`).
 from __future__ import annotations
 
 import os
+import sys
 import warnings
 from typing import Iterable, Iterator, List, Sequence, Tuple
 
@@ -69,6 +70,7 @@ from spark_examples_tpu_torch.genomics.datasets import (
     calls_stream,
     calls_stream_keyed,
 )
+from spark_examples_tpu_torch.genomics.mirror import tick_cold_stream_shard
 from spark_examples_tpu_torch.genomics.shards import SexChromosomeFilter
 from spark_examples_tpu_torch.genomics.types import Variant
 from spark_examples_tpu_torch.ops.fused import fused_finish
@@ -376,8 +378,7 @@ class VariantsPcaDriver:
     def _cold_stream_active(self) -> bool:
         """Is the source streaming a COLD remote cohort from the wire
         while its mirror downloads? (Sources without the concept — local
-        sidecars, fixtures: every source of the port so far — answer
-        False.)"""
+        sidecars, fixtures — answer False.)"""
         probe = getattr(self.source, "cold_stream_active", None)
         return bool(probe()) if probe is not None else False
 
@@ -396,6 +397,13 @@ class VariantsPcaDriver:
         to manifest otherwise. Each shard's extraction is an
         ``ingest.fetch`` range and the whole stream an ``ingest.stream``
         range.
+
+        COLD-STREAM runs (``--cold-stream`` on a cold remote cohort)
+        default to completion order: fetch → decode → build → put runs as
+        one completion-ordered pipeline per shard with no inter-phase
+        barrier, so the device accumulator starts before the last shard
+        is off the wire; each shard that reaches the window slicer ticks
+        ``cold_stream_shards_total{stage="accumulated"}``.
         """
         vsid = self.conf.variant_set_ids[0]
         shards = self._manifest()
@@ -409,6 +417,13 @@ class VariantsPcaDriver:
             # An EXPLICIT --ingest-order is always honored; only the
             # default resolves by run shape.
             order = "completion" if cold else "manifest"
+            if cold:
+                print(
+                    "Cold-stream ingest: completion-ordered "
+                    "fetch-decode-build-put pipeline (mirror writes "
+                    "through in the background).",
+                    file=sys.stderr,
+                )
 
         def extract(shard):
             with obs.span(INGEST_FETCH, shard=str(shard)):
@@ -427,7 +442,10 @@ class VariantsPcaDriver:
         with obs.span(
             INGEST_STREAM, shards=len(shards), order=order, cold=cold
         ):
-            yield from pmap(extract, shards, self._ingest_workers())
+            for pair in pmap(extract, shards, self._ingest_workers()):
+                if cold:
+                    tick_cold_stream_shard("accumulated")
+                yield pair
 
     def _fused_multi_possible(self) -> bool:
         """Keyed fused ingest for multi-dataset join/merge: identity

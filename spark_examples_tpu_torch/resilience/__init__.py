@@ -1,8 +1,8 @@
 """Unified resilience layer: retry policies, circuit breakers, faults.
 
 The JAX package's ``resilience`` package. Three pillars, adopted by every
-failure-bearing tier the port has (the HTTP transport, the oauth token
-exchange):
+failure-bearing tier the port has (the HTTP and gRPC transports, the
+oauth token exchange, the cohort mirror's file commits):
 
 1. **Retry-policy engine** (:mod:`.policy`): declarative
    :class:`RetryPolicy` (jittered exponential backoff, attempt cap,
@@ -27,6 +27,7 @@ from spark_examples_tpu_torch.resilience.policy import (
     RetryDecision,
     RetryPolicy,
     call_with_retry,
+    classify_grpc,
     classify_http,
     classify_ingest,
     classify_oauth,
@@ -45,6 +46,7 @@ from spark_examples_tpu_torch.resilience.faults import (
     clear_plan,
     current_plan,
     inject,
+    inject_write,
     install_plan,
     take,
     wrap_lines,
@@ -57,6 +59,7 @@ __all__ = [
     "RetryDecision",
     "RetryPolicy",
     "call_with_retry",
+    "classify_grpc",
     "classify_http",
     "classify_ingest",
     "classify_oauth",
@@ -71,6 +74,7 @@ __all__ = [
     "clear_plan",
     "current_plan",
     "inject",
+    "inject_write",
     "install_plan",
     "take",
     "wrap_lines",

@@ -8,8 +8,9 @@ port has so far:
   ``--fault-plan`` or per scope (:func:`active_plan`). The port reads no
   environment variable for it: a plan set in the environment for a JAX
   package run never injects faults into a port run;
-- production code carries *injection points* — :func:`inject` calls and
-  :func:`wrap_lines` stream wrappers — that are a single ``None``-check
+- production code carries *injection points* — :func:`inject` calls,
+  :func:`inject_write` at tmp-then-rename commits and :func:`wrap_lines`
+  stream wrappers — that are a single ``None``-check
   when no plan is installed;
 - every injected fault is recorded on the plan (test introspection),
   the obs timeline (``fault_injected`` instants), and the metrics
@@ -28,7 +29,13 @@ Sites wired in the port (glob-matched, so ``transport.*`` works):
                              corrupt — detected by the framing layer)
 ``transport.http.frames``    HTTP binary-frame body (the same four kinds —
                              detected by the frame CRC and end frame)
+``transport.grpc.request``   before each gRPC unary/stream attempt
+``transport.grpc.stream``    gRPC stream body (error/stall/truncate/corrupt;
+                             truncate raises: gRPC has no end sentinel)
 ``transport.oauth.request``  before each token-exchange attempt
+``mirror.write``             cohort-mirror file commit (torn = kill -9
+                             mid-write: the tmp truncates to half and
+                             never renames; error/stall as usual)
 ===========================  ===============================================
 """
 
@@ -37,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import fnmatch
 import json
+import os
 import random
 import threading
 import time
@@ -51,6 +59,7 @@ __all__ = [
     "clear_plan",
     "current_plan",
     "inject",
+    "inject_write",
     "install_plan",
     "take",
     "wrap_lines",
@@ -284,6 +293,34 @@ def inject(site: str, key: str = "", plan: Optional[FaultPlan] = None) -> None:
         time.sleep(rule.stall_s)
         return
     raise InjectedFault(site, rule.kind, key, rule.message)
+
+
+def inject_write(
+    site: str, path: str, plan: Optional[FaultPlan] = None
+) -> None:
+    """Write-seam injection point for tmp-then-atomic-rename protocols
+    (the mirror's ``mirror.write``): ``torn`` truncates the half-written
+    tmp file to half its bytes AND raises — the kill -9-mid-write shape,
+    where the commit rename must never run and the partial can only
+    ever exist under a ``*.tmp-*`` name; ``stall`` sleeps; anything
+    else raises. No-op without a plan."""
+    rule = take(site, key=os.path.basename(path), plan=plan)
+    if rule is None:
+        return
+    if rule.kind == "torn":
+        try:
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(max(1, size // 2))
+        except OSError:
+            pass
+        raise InjectedFault(
+            site, "torn", os.path.basename(path), rule.message
+        )
+    if rule.kind == "stall":
+        time.sleep(rule.stall_s)
+        return
+    raise InjectedFault(site, rule.kind, os.path.basename(path), rule.message)
 
 
 def wrap_lines(

@@ -1,7 +1,6 @@
 """Declarative retry policies with per-transport error classification.
 
-The JAX package's ``resilience/policy.py`` (the gRPC classifier comes with
-the gRPC transport, ROADMAP.md Queue 1, item 2). ONE engine every tier
+The JAX package's ``resilience/policy.py``. ONE engine every tier
 shares:
 
 - a :class:`RetryPolicy` value object — attempt cap, jittered
@@ -35,6 +34,7 @@ __all__ = [
     "RetryDecision",
     "RetryPolicy",
     "call_with_retry",
+    "classify_grpc",
     "classify_http",
     "classify_ingest",
     "classify_oauth",
@@ -156,6 +156,38 @@ def classify_http(exc: BaseException) -> RetryDecision:
             delay_hint=getattr(exc.__cause__, "retry_after", None),
         )
     return RetryDecision(False, f"http_{code}")
+
+
+# gRPC status names that indicate the tier (not the request) failed.
+_RETRYABLE_GRPC = frozenset(
+    {"UNAVAILABLE", "DEADLINE_EXCEEDED", "RESOURCE_EXHAUSTED", "ABORTED"}
+)
+
+
+def classify_grpc(exc: BaseException) -> RetryDecision:
+    """gRPC tier: transient transport statuses retry; served
+    application statuses (UNAUTHENTICATED, NOT_FOUND, INVALID_ARGUMENT,
+    plain INTERNAL from a handler exception) do not. Works on a raw
+    ``grpc.RpcError`` or an IOError wrapping one."""
+    from spark_examples_tpu_torch.resilience.breaker import CircuitOpenError
+
+    if isinstance(exc, CircuitOpenError):
+        return RetryDecision(False, "circuit_open")
+    err = exc
+    code_fn = getattr(err, "code", None)
+    if code_fn is None:
+        err = getattr(exc, "__cause__", None)
+        code_fn = getattr(err, "code", None)
+    if code_fn is None:
+        # Not a status-bearing failure (e.g. a local OSError): weather.
+        return RetryDecision(True, "transport")
+    try:
+        name = code_fn().name
+    except Exception:  # noqa: BLE001 — a broken stub must not crash
+        return RetryDecision(True, "transport")
+    if name in _RETRYABLE_GRPC:
+        return RetryDecision(True, f"grpc_{name.lower()}")
+    return RetryDecision(False, f"grpc_{name.lower()}")
 
 
 def parse_retry_after(value: Optional[str]) -> Optional[float]:

@@ -3,8 +3,8 @@
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default. Options
-of routes not ported yet (meshes, checkpoints, the gRPC transport, remote
-mirrors) are accepted and then refused with ``NotImplementedError`` naming
+of routes not ported yet (meshes, checkpoints, the analysis job tier) are
+accepted and then refused with ``NotImplementedError`` naming
 the ROADMAP.md item that ports them, never silently ignored. ``--device``
 is the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
@@ -53,6 +53,10 @@ __all__ = [
 PCA_MODES = ("auto", "fused", "stream", "sparse", "sketch")
 # The JAX package's --ingest-order choices.
 INGEST_ORDERS = ("auto", "manifest", "completion")
+
+# Per-read idle deadline (seconds) on gRPC shard streams (the JAX
+# package's GenomicsConfig.grpc_idle_timeout).
+DEFAULT_GRPC_IDLE_TIMEOUT = 120.0
 
 # Reference well-known variantset id (SearchVariantsExample.scala:27-31).
 PLATINUM_GENOMES = "3049512673186936334"
@@ -119,8 +123,8 @@ class PcaConfig:
     # tier: "manifest" keeps exact manifest order; "completion" feeds
     # shards as their extraction completes. G is bit-identical either way
     # (integer-exact accumulation); only block composition and wall-clock
-    # change. "auto" resolves to completion on a cold-stream run (the
-    # network tier's; none here) and to manifest everywhere else.
+    # change. "auto" resolves to completion on a cold-stream run (a cold
+    # remote cohort behind --cache-dir) and to manifest everywhere else.
     ingest_order: str = "auto"
     # Blocks the host→device feed stages ahead of the product.
     prefetch_depth: int = 2
@@ -162,28 +166,38 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "--api-url",
         default=None,
         help="Base URL of a Genomics-compatible HTTP service to ingest "
-        "from (see the serve-cohort subcommand); grpc:// is not ported "
-        "yet",
+        "from (see the serve-cohort subcommand)",
     )
     p.add_argument(
         "--cache-dir",
         default=None,
-        help="Local directory for mirrored remote cohorts (not ported "
-        "yet)",
+        help="Local directory for mirrored remote cohorts (keyed by the "
+        "server's /identity digest): repeat runs against the same served "
+        "cohort skip the network and hit the warm sidecar tier",
     )
     p.add_argument(
         "--mirror-mode",
         choices=("full", "light"),
         default="full",
-        help="With --cache-dir: what the mirror holds (not ported yet)",
+        help="With --cache-dir: 'full' mirrors the whole interchange "
+        "cohort (every consumer works offline); 'light' downloads only "
+        "callsets + the binary CSR sidecar — at all-autosomes scale a "
+        "~2.7 GB npz instead of a ~58 GB JSONL, serving the default "
+        "fused pca ingest tiers (record-streaming consumers like "
+        "--debug-datasets need 'full')",
     )
     p.add_argument(
         "--cold-stream",
         action=argparse.BooleanOptionalAction,
         default=True,
-        help="With --cache-dir on a COLD cohort: stream wire frames "
-        "while the mirror downloads in the background. Without a mirror "
-        "(the port has none yet) a run never streams cold; G is "
+        help="With --cache-dir on a COLD cohort (no completed mirror): "
+        "stream wire frames straight into the fetch->decode->build->put "
+        "ingest pipeline — the first Gramian step dispatches while later "
+        "shards are still on the wire — and write the mirror through in "
+        "the background (atomic per-file; a killed run's partial mirror "
+        "is reused by the next cold run). --no-cold-stream restores the "
+        "phased cold path (download the whole mirror, then ingest). "
+        "Warm runs and checkpointed/mesh contracts are unaffected; G is "
         "bit-identical either way",
     )
     p.add_argument(
@@ -377,6 +391,15 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="Seconds an open circuit sheds before admitting a "
         "half-open probe; the probe's success closes it, failure "
         "re-opens and re-arms the cooldown",
+    )
+    p.add_argument(
+        "--grpc-idle-timeout",
+        type=float,
+        default=DEFAULT_GRPC_IDLE_TIMEOUT,
+        help="Per-read idle deadline (seconds) on gRPC shard streams: "
+        "cancels a stream whose peer is connected but delivering "
+        "nothing (the wedged-peer case keepalive cannot catch); an "
+        "actively-delivering stream never trips it. 0 disables",
     )
     p.add_argument(
         "--fault-plan",

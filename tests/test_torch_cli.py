@@ -3,14 +3,18 @@
 ``generate-fixture`` must write the JAX package's cohort directory byte for
 byte and print the same line; ``search-variants-klotho`` and
 ``-brca1`` must print the same report from the same records (the fixture
-of ``tests/test_search_variants.py`` and a served cohort). Options this
-slice does not serve raise ``NotImplementedError`` naming their ROADMAP.md
-item, before any request.
+of ``tests/test_search_variants.py`` and a served cohort). Options of later
+ROADMAP.md items raise ``NotImplementedError`` naming their item, before any
+request; the gRPC and mirror options run as the JAX CLI's do.
 """
 
 import filecmp
 import json
 import os
+import signal
+import subprocess
+import sys
+import time
 
 import pytest
 import torch
@@ -21,12 +25,15 @@ from spark_examples_tpu.genomics.sources import (
 )
 from spark_examples_tpu.models import search_variants as jax_sv
 from spark_examples_tpu_torch.cli import main as cli
+from spark_examples_tpu_torch.genomics.fixtures import synthetic_cohort
 from spark_examples_tpu_torch.genomics.service import GenomicsServiceServer
 from spark_examples_tpu_torch.genomics.sources import (
     FixtureSource,
     JsonlSource,
 )
 from spark_examples_tpu_torch.models import search_variants as sv
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KLOTHO_RECORDS = [
     {"reference_name": "chr13", "start": 33628137, "end": 33628138,
@@ -121,27 +128,155 @@ def test_search_variants_over_the_network(tmp_path, capsys, monkeypatch):
     assert "We have 2 records that overlap Klotho." in port_out
 
 
+def _served_cohort(tmp_path, request):
+    """A small cohort on disk behind the port's HTTP server (no token)."""
+    root = str(tmp_path / "cohort")
+    synthetic_cohort(24, 120, seed=5, population_structure=3).dump(root)
+    served = JsonlSource(root)
+    served.ensure_serving_index()
+    server = GenomicsServiceServer(served, port=0).start()
+    request.addfinalizer(server.stop)
+    return root, f"http://127.0.0.1:{server.port}"
+
+
+def _pca_lines(argv, capsys):
+    """The result lines of one port ``pca`` run (the I/O report, which
+    counts requests, differs by source)."""
+    assert cli.main([*argv, "--device", "cpu"]) == 0
+    return [line for line in capsys.readouterr().out.splitlines()
+            if line.count("\t") == 3 or line.startswith("Non zero rows")]
+
+
+def _served_grpc(tmp_path, capsys, monkeypatch, request):
+    # A dead gRPC endpoint fails as it fails in the JAX CLI: the first
+    # call (the callset table) surfaces UNAVAILABLE as an IOError.
+    monkeypatch.delenv("GENOMICS_APPLICATION_CREDENTIALS", raising=False)
+    argv = ["pca", "--api-url", "grpc://127.0.0.1:1", "--rpc-retries", "1"]
+    with pytest.raises(IOError) as port:
+        cli.main([*argv, "--device", "cpu"])
+    with pytest.raises(IOError) as ref:
+        jax_cli.main(argv)
+    assert str(port.value).split(":")[:2] == str(ref.value).split(":")[:2]
+    assert str(port.value).startswith("ListCallsets: UNAVAILABLE")
+
+
+def _served_mirror(mode, tmp_path, capsys, monkeypatch, request):
+    monkeypatch.delenv("GENOMICS_APPLICATION_CREDENTIALS", raising=False)
+    root, url = _served_cohort(tmp_path, request)
+    base = ["pca", "--bases-per-partition", "20000",
+            "--references", "17:41196311:41277499"]
+    want = _pca_lines([*base, "--input-path", root], capsys)
+    cache = tmp_path / "cache"
+    argv = [*base, "--api-url", url, "--cache-dir", str(cache),
+            "--mirror-mode", mode]
+    assert _pca_lines(argv, capsys) == want  # cold: streamed
+    # The write-through mirror lands in the background; wait for it.
+    deadline = time.monotonic() + 60
+    while not list(cache.glob("cohort-*/.complete")):
+        assert time.monotonic() < deadline, "the mirror never completed"
+        time.sleep(0.05)
+    assert _pca_lines(argv, capsys) == want  # warm: from the mirror
+    (mirror,) = [d for d in os.listdir(cache) if d.startswith("cohort-")]
+    names = set(os.listdir(cache / mirror))
+    assert {".complete", ".identity", ".sidecar-ok", "callsets.json",
+            ".variants.csr.npz"} <= names
+    assert ("variants.jsonl" in names) == (mode == "full")
+
+
+def _served_cache_dir_offline(tmp_path, capsys, monkeypatch, request):
+    # Offline sources ignore --cache-dir, as the JAX CLI's do.
+    base = ["pca", "--fixture-samples", "12", "--fixture-variants", "40"]
+    cache = tmp_path / "c"
+    assert _pca_lines([*base, "--cache-dir", str(cache)],
+                      capsys) == _pca_lines(base, capsys)
+    assert not cache.exists()
+    args = [*base, "--cache-dir", str(cache)]
+    refs = "17:41196311:41277499"
+    port = cli._resolve_source(cli.build_parser().parse_args(args), refs)
+    ref = jax_cli._resolve_source(jax_cli.build_parser().parse_args(args),
+                                  refs)
+    assert type(port).__name__ == type(ref).__name__ == "FixtureSource"
+    assert not cache.exists()
+
+
+def _served_grpc_port(tmp_path, capsys, monkeypatch, request):
+    from spark_examples_tpu.genomics.grpc_transport import (
+        GrpcVariantSource as JaxGrpcVariantSource,
+    )
+    from spark_examples_tpu_torch.genomics.grpc_transport import (
+        GrpcVariantSource,
+    )
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+         "serve-cohort", "--fixture-samples", "12", "--fixture-variants",
+         "40", "--port", "0", "--grpc-port", "0"],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        urls = {}
+        for line in proc.stdout:
+            for scheme in ("grpc", "http"):
+                if f" on {scheme}://" in line:
+                    urls[scheme] = line.split(" on ", 1)[1].split()[0]
+            if len(urls) == 2:
+                break
+        assert set(urls) == {"grpc", "http"}, "serve-cohort did not listen"
+        want = [c.id for c in synthetic_cohort(12, 40).list_callsets("")]
+        for client_cls in (GrpcVariantSource, JaxGrpcVariantSource):
+            client = client_cls(urls["grpc"], timeout=30)
+            try:
+                assert [c.id for c in client.list_callsets("")] == want
+            finally:
+                client.close()
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0  # both servers stopped
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+
+
+_SERVED = {
+    "grpc": _served_grpc,
+    "cache-dir-network": lambda *a: _served_mirror("full", *a),
+    "mirror-mode": lambda *a: _served_mirror("light", *a),
+    "cache-dir-offline": _served_cache_dir_offline,
+    "grpc-port": _served_grpc_port,
+}
+
+
 @pytest.mark.parametrize(
-    "argv,item",
+    "case,argv,item",
     [
-        (["pca", "--api-url", "grpc://127.0.0.1:1"], "item 2"),
-        (["pca", "--api-url", "http://127.0.0.1:1", "--cache-dir", "c"],
-         "item 2"),
-        (["pca", "--fixture-samples", "4", "--mirror-mode", "light"],
-         "item 2"),
-        (["pca", "--fixture-samples", "4", "--cache-dir", "c"], "item 2"),
-        (["serve-cohort", "--fixture-samples", "4", "--grpc-port", "0"],
-         "item 2"),
-        (["serve-cohort", "--fixture-samples", "4", "--analyze"], "item 6"),
-        (["pca", "--fixture-samples", "4", "--mesh-shape", "data:2"],
-         "item 7"),
-        (["pca", "--fixture-samples", "4", "--checkpoint-dir", "c"],
-         "item 8"),
+        pytest.param(case, argv, item, id=case)
+        for case, argv, item in [
+            ("grpc", None, None),
+            ("cache-dir-network", None, None),
+            ("mirror-mode", None, None),
+            ("cache-dir-offline", None, None),
+            ("grpc-port", None, None),
+            ("analyze",
+             ["serve-cohort", "--fixture-samples", "4", "--analyze"],
+             "item 6"),
+            ("mesh",
+             ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2"],
+             "item 7"),
+            ("checkpoint",
+             ["pca", "--fixture-samples", "4", "--checkpoint-dir", "c"],
+             "item 8"),
+        ]
     ],
-    ids=["grpc", "cache-dir-network", "mirror-mode", "cache-dir-offline",
-         "grpc-port", "analyze", "mesh", "checkpoint"],
 )
-def test_unserved_options_name_their_roadmap_item(argv, item):
+def test_unserved_options_name_their_roadmap_item(
+        case, argv, item, request, tmp_path, capsys, monkeypatch):
+    """Options of later items raise naming their item. The item-2 options
+    (gRPC and the cohort mirror) are served now: each case runs them and
+    holds them to the JAX CLI."""
+    if item is None:
+        _SERVED[case](tmp_path, capsys, monkeypatch, request)
+        return
     with pytest.raises(NotImplementedError, match=item):
         cli.main([*argv, "--device", "cpu"])
 
@@ -151,6 +286,7 @@ def test_flags_keep_the_jax_packages_names_and_defaults():
     ref = vars(jax_cli.build_parser().parse_args(["pca"]))
     for name in ("api_url", "client_secrets", "cache_dir", "mirror_mode",
                  "cold_stream", "rpc_retries", "rpc_retry_deadline",
+                 "grpc_idle_timeout",
                  "breaker_threshold", "breaker_cooldown", "fault_plan",
                  "trace_out", "metrics_out", "manifest_out"):
         assert port[name] == ref[name], name

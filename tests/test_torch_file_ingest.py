@@ -394,12 +394,30 @@ def test_cli_samples_flag_restricts_the_cohort(cohort_dir):
     assert "Non zero rows in matrix:" in out and "/ 19." in out
 
 
-def test_cli_api_url_still_raises_naming_the_network_tier(cohort_dir):
-    # http:// is served since the network tier's HTTP half; its gRPC half
-    # is ROADMAP.md Queue 1, item 2.
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cli.main(["pca", "--api-url", "grpc://127.0.0.1:1", "--device",
-                  "cpu"])
+def test_cli_api_url_still_raises_naming_the_network_tier(cohort_dir,
+                                                         monkeypatch):
+    # Both network tiers are served now: the directory behind the port's
+    # gRPC server gives the --input-path run's lines byte for byte.
+    from spark_examples_tpu_torch.genomics.grpc_transport import (
+        GrpcGenomicsServer,
+    )
+
+    monkeypatch.delenv("GENOMICS_APPLICATION_CREDENTIALS", raising=False)
+    argv = ["pca", "--device", "cpu", "--bases-per-partition", "10000"]
+    rc, want = _cli([*argv, "--input-path", cohort_dir])
+    assert rc == 0
+    server = GrpcGenomicsServer(JsonlSource(cohort_dir)).start()
+    try:
+        rc, got = _cli(
+            [*argv, "--api-url", f"grpc://127.0.0.1:{server.port}"])
+    finally:
+        server.stop()
+    assert rc == 0
+
+    def results(out):
+        return [line for line in out.splitlines() if line.count("\t") == 3]
+
+    assert results(got) == results(want) and len(results(got)) == N
 
 
 def test_cli_without_a_source_names_input_path():

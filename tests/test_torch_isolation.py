@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax():
         "genomics.auth",
         "genomics.datasets",
         "genomics.fixtures",
+        "genomics.grpc_transport",
         "genomics.hashing",
+        "genomics.mirror",
         "genomics.oauth",
         "genomics.service",
         "genomics.sources",
@@ -73,6 +75,8 @@ def test_every_module_imports_without_jax():
         "utils.tracing",
     ):
         assert f"spark_examples_tpu_torch.{name}" in modules
+    for path in ("genomics/grpc_transport.py", "genomics/mirror.py"):
+        assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
     script = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
