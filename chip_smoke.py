@@ -134,6 +134,23 @@ on failure:
     client's cache. Every ``sparse`` run's scatter launches are counted
     (phase 4's count where the windows are phase 4's); G is phase 4's bit
     for bit in every leg, coordinates within 1e-4 of the oracle.
+16. reads and PairHMM: ``PairHmmDriver`` at ``bench.py``'s PairHMM shape
+    (2048 reads of 100 bases, seed 7, 10,000 bases a shard, batch 128;
+    not cut): pipeline pairs/s (best of 2 after a warm-up), 64 sampled
+    pairs within ``PAIRHMM_FORWARD_RTOL/ATOL`` of the float64
+    ``pairhmm_forward_ref``, every pair within the bars of a ``--device
+    cpu`` run, rows bit-identical at ``--pairhmm-batch`` 128 and 2048;
+    bench.py's resident r128xh128 tile at B = 128 and 2048 (ms, pairs/s),
+    a shuffled tile bit-identical, one tile under ``torch.profiler``
+    (CUDA kernels per tile and per diagonal, device idle share); the
+    coverage set, 60,000 reads over 200 kb (30x), scored with
+    ``--pairhmm-batch 2048`` (wall-clock, host prep and forward), then
+    ``reads-example 3`` over it in 20 shards and ``reads-example 4`` over
+    a 30x tumor/normal pair: their files byte-identical to ``--device
+    cpu``'s, example 4 recovering every somatic position; the bench
+    directory behind the port's HTTP and gRPC servers and a warm mirror:
+    rows bit-identical to the local run, the warm run asking for no reads;
+    no scatter launch in the phase.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -2086,6 +2103,396 @@ def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
     return launched
 
 
+# -- phase 16: reads and PairHMM ---------------------------------------------
+
+# bench.py's PairHMM leg (its pairhmm_bench): 2048 reads of 100 bases over
+# 40 kb, seed 7, 10,000 bases a shard, --pairhmm-batch 128.
+PHMM_REFS = "11:6880000:6920000"
+PHMM_READS = 2048
+PHMM_SEED = 7
+READS_BASES = 10_000
+# 30x whole-genome-sequencing depth over a 200 kb window, and a tumor/normal
+# pair at 30x in each readset over 100 kb.
+COVERAGE_REFS = "11:6800000:7000000"
+COVERAGE_READS = 60_000
+TN_REFS = "1:100000000:100100000"
+TN_READS = 30_000
+
+
+class CountingReads(CountingSource):
+    """:class:`CountingSource` that also counts read streams."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.counts["reads"] = 0
+
+    def stream_reads(self, *args, **kwargs):
+        self._count("reads")
+        return self._inner.stream_reads(*args, **kwargs)
+
+
+def timed_pairhmm_driver():
+    """``PairHmmDriver`` with its host prep (summed over the prep
+    threads) and its forward tiles (the driver's thread) timed."""
+    from spark_examples_tpu_torch.models.pairhmm import PairHmmDriver
+
+    class TimedPairHmmDriver(PairHmmDriver):
+        def __init__(self, conf, source):
+            super().__init__(conf, source)
+            self.prep_s = 0.0
+            self.forward_s = 0.0
+            self.tiles = 0
+            self._lock = threading.Lock()
+
+        def _shard_pairs(self, shard):
+            t0 = time.perf_counter()
+            pairs = super()._shard_pairs(shard)
+            with self._lock:
+                self.prep_s += time.perf_counter() - t0
+            return pairs
+
+        def _score_tile(self, r_bucket, h_bucket, tile):
+            t0 = time.perf_counter()
+            rows = super()._score_tile(r_bucket, h_bucket, tile)
+            self.forward_s += time.perf_counter() - t0
+            self.tiles += 1
+            return rows
+
+    return TimedPairHmmDriver
+
+
+def bench_tile(b, r_b, h_b, read_len, hap_len, seed=11):
+    """bench.py's resident tile: random reads and haplotypes of the
+    pipeline's dominant bucket."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, (b, r_b)).astype(np.int8),
+            rng.integers(10, 50, (b, r_b)).astype(np.int32),
+            np.full(b, read_len, np.int32),
+            rng.integers(0, 4, (b, h_b)).astype(np.int8),
+            np.full(b, hap_len, np.int32))
+
+
+def profile_tile(torch, forward, tile):
+    """One tile under ``torch.profiler``: (kernels launched, wall ms,
+    device idle share, the kernel events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.tile"):
+            forward(tile)
+            torch.cuda.synchronize()
+    events = prof.events()
+    (window,) = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "chip_smoke.tile"
+                 and e.device_type == DeviceType.CPU]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "chip_smoke.tile"]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    lo, hi = window
+    busy = merged_busy_us([(e.time_range.start, e.time_range.end)
+                           for e in device], lo, hi)
+    idle = 1 - busy / (hi - lo) if device else float("nan")
+    return len(kernels), (hi - lo) / 1e3, idle, kernels
+
+
+def pairhmm_and_reads(torch, dev):
+    """Phase 16: ``pairhmm``, ``reads-example 3/4`` and the reads
+    transports on the card. Returns the scatter launches of the phase
+    (there must be none) and its numbers."""
+    from spark_examples_tpu_torch.genomics.auth import Credentials
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        FIXTURE_READSET_ID,
+        synthetic_reads,
+        synthetic_tumor_normal,
+    )
+    from spark_examples_tpu_torch.genomics.grpc_transport import (
+        GrpcGenomicsServer,
+        GrpcVariantSource,
+        grpc_available,
+    )
+    from spark_examples_tpu_torch.genomics.service import (
+        GenomicsServiceServer,
+        HttpVariantSource,
+    )
+    from spark_examples_tpu_torch.genomics.shards import (
+        shards_for_references,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.models.pairhmm import PairHmmDriver
+    from spark_examples_tpu_torch.models.search_reads import (
+        per_base_depth_example,
+        tumor_normal_diff,
+    )
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.pairhmm import (
+        PAIRHMM_FORWARD_ATOL,
+        PAIRHMM_FORWARD_RTOL,
+        PAIRHMM_NEG_INF,
+        pairhmm_bucket,
+        pairhmm_forward_batch,
+        pairhmm_forward_ref,
+    )
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_reads_")
+    atexit.register(shutil.rmtree, work, True)
+    Timed = timed_pairhmm_driver()
+    numbers = {}
+
+    def within_bars(got, want):
+        return abs(got - want) <= PAIRHMM_FORWARD_ATOL + (
+            PAIRHMM_FORWARD_RTOL * abs(want))
+
+    def conf(references=PHMM_REFS, device="cuda", **kw):
+        return PcaConfig(references=references,
+                         bases_per_partition=READS_BASES,
+                         read_group_set_id=FIXTURE_READSET_ID,
+                         device=device, **kw)
+
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+
+    # -- the bench shape ------------------------------------------------------
+    t0 = time.perf_counter()
+    bench = synthetic_reads(PHMM_READS, references=PHMM_REFS, read_len=100,
+                            seed=PHMM_SEED)
+    print(f"  bench shape: {PHMM_READS} reads of 100 bases over "
+          f"{PHMM_REFS}, generated in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    rows = Timed(conf(), bench).run_rows()
+    print(f"  first run (warm-up): {time.perf_counter() - t0:.3f} s")
+    values = np.array([v for _, v, _ in rows])
+    check(len(rows) == PHMM_READS
+          and np.isfinite(values).all()
+          and (values > PAIRHMM_NEG_INF / 2).all() and (values < 0).all(),
+          "the bench shape must score every read with a finite "
+          "log-likelihood below 0")
+    buckets = sorted({b for _, _, b in rows})
+    runs = []
+    for _ in range(2):
+        driver = Timed(conf(), bench)
+        t0 = time.perf_counter()
+        again = driver.run_rows()
+        runs.append((time.perf_counter() - t0, driver))
+        check(again == rows, "a repeat's rows differ from the first run's")
+    best_s, best = min(runs, key=lambda r: r[0])
+    numbers["pipeline_pairs_per_s"] = len(rows) / best_s
+    numbers["pipeline_s"] = best_s
+    print(f"  pipeline: best of 2 {best_s:.4f} s, "
+          f"{numbers['pipeline_pairs_per_s']:.1f} pairs/s; {best.tiles} "
+          f"tiles, forward {best.forward_s:.4f} s, host prep "
+          f"{best.prep_s:.4f} s (summed over threads); buckets {buckets}")
+    wide = Timed(conf(pairhmm_batch=2048), bench)
+    check(wide.run_rows() == rows,
+          "rows at --pairhmm-batch 2048 differ from 128's")
+    print(f"  --pairhmm-batch 2048: rows bit-identical to 128's "
+          f"({wide.tiles} tile(s), forward {wide.forward_s:.4f} s)")
+
+    pairs = {}
+    for shard in shards_for_references(PHMM_REFS, READS_BASES):
+        for name, codes, quals, seg in best._shard_pairs(shard):
+            pairs[name] = (codes, quals, seg)
+    by_name = {name: v for name, v, _ in rows}
+    pick = np.random.default_rng(16).choice(sorted(pairs), 64,
+                                            replace=False)
+    t0 = time.perf_counter()
+    gold = {n: pairhmm_forward_ref(*pairs[n]) for n in pick}
+    ref_err = max(abs(by_name[n] - gold[n]) for n in pick)
+    check(all(within_bars(by_name[n], gold[n]) for n in pick),
+          "a sampled pair is beyond the bars of the float64 golden")
+    print(f"  64 sampled pairs vs pairhmm_forward_ref (f64): max abs err "
+          f"{ref_err:.3e} (bars rtol {PAIRHMM_FORWARD_RTOL}, atol "
+          f"{PAIRHMM_FORWARD_ATOL}; {time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    cpu_rows = PairHmmDriver(conf(device="cpu"), bench).run_rows()
+    cpu_s = time.perf_counter() - t0
+    check([(n, b) for n, _, b in cpu_rows] == [(n, b) for n, _, b in rows],
+          "--device cpu scored other pairs or buckets")
+    check(all(within_bars(v, c) for (_, v, _), (_, c, _) in
+              zip(rows, cpu_rows)), "card and CPU rows beyond the bars")
+    cpu_err = max(abs(v - c) for (_, v, _), (_, c, _) in
+                  zip(rows, cpu_rows))
+    same = sum(v == c for (_, v, _), (_, c, _) in zip(rows, cpu_rows))
+    print(f"  every pair vs --device cpu ({cpu_s:.2f} s): max abs err "
+          f"{cpu_err:.3e}, {same} of {len(rows)} bit-identical")
+    numbers["max_err_f64"], numbers["max_err_cpu"] = ref_err, cpu_err
+
+    r_b, h_b = pairhmm_bucket(100), pairhmm_bucket(116)
+    go, ge = np.float32(45.0), np.float32(10.0)
+
+    def forward(tile):
+        return pairhmm_forward_batch(*tile, go, ge, device=dev)
+
+    def on_card(b, h_bucket=h_b):
+        return [torch.from_numpy(a).to(dev)
+                for a in bench_tile(b, r_b, h_bucket, 100, 116)]
+
+    for b in (128, 2048):
+        tile = on_card(b)
+        forward(tile).cpu()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            forward(tile).cpu()  # the copy back is the barrier
+            walls.append(time.perf_counter() - t0)
+        numbers[f"tile_ms_b{b}"] = min(walls) * 1e3
+        numbers[f"tile_pairs_per_s_b{b}"] = b / min(walls)
+        print(f"  resident tile r{r_b}xh{h_b}, B = {b}: best of 3 "
+              f"{min(walls) * 1e3:.3f} ms, {b / min(walls):.1f} pairs/s")
+    tile = on_card(128)
+    base = forward(tile)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(128)).to(dev)
+    shuffled = forward([t[perm] for t in tile])
+    check(torch.equal(base[perm], shuffled),
+          "a shuffled tile is not bit-identical on the card")
+    print("  a shuffled B = 128 tile: bit-identical on the card")
+    k_128, ms, idle, kernels = profile_tile(torch, forward, tile)
+    k_256 = profile_tile(torch, forward, on_card(128, 2 * h_b))[0]
+    per_diag = (k_256 - k_128) / h_b
+    numbers.update(kernels_per_tile=k_128, kernels_per_diagonal=per_diag,
+                   profiled_tile_ms=ms, tile_idle_share=idle)
+    print(f"  one profiled B = 128 tile ({r_b + h_b} diagonals): {k_128} "
+          f"CUDA kernels, {ms:.3f} ms wall-clock, device idle share "
+          f"{idle:.4f}; kernels per diagonal {per_diag:.2f} (h{2 * h_b} "
+          f"tile: {k_256})")
+    print_device_time(kernels, top=8)
+
+    # -- coverage: 30x over 200 kb -------------------------------------------
+    t0 = time.perf_counter()
+    coverage = synthetic_reads(COVERAGE_READS, references=COVERAGE_REFS,
+                               read_len=100)
+    cov_dir = os.path.join(work, "coverage")
+    coverage.dump(cov_dir)
+    del coverage
+    print(f"  coverage: {COVERAGE_READS} reads over {COVERAGE_REFS} "
+          f"generated and dumped in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    driver = Timed(conf(COVERAGE_REFS, pairhmm_batch=2048),
+                   JsonlSource(cov_dir))
+    t0 = time.perf_counter()
+    cov_rows = driver.run_rows()
+    cov_s = time.perf_counter() - t0
+    cov_values = np.array([v for _, v, _ in cov_rows])
+    check(len(cov_rows) == COVERAGE_READS
+          and np.isfinite(cov_values).all() and (cov_values < 0).all(),
+          "the coverage run must score every read")
+    numbers.update(coverage_s=cov_s, coverage_forward_s=driver.forward_s,
+                   coverage_prep_s=driver.prep_s)
+    print(f"  pairhmm --pairhmm-batch 2048 over it: {cov_s:.3f} s "
+          f"({COVERAGE_READS / cov_s:.1f} pairs/s); {driver.tiles} tiles, "
+          f"forward {driver.forward_s:.3f} s on the driver's thread, host "
+          f"prep {driver.prep_s:.3f} s summed over "
+          f"{driver._prep_workers()} threads", flush=True)
+    depth = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        path = per_base_depth_example(
+            JsonlSource(cov_dir), FIXTURE_READSET_ID,
+            references=COVERAGE_REFS,
+            out_path=os.path.join(work, f"example3-{device}"),
+            bases_per_shard=READS_BASES, device=device)
+        numbers[f"example3_{device}_s"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            depth[device] = f.read()
+    check(depth["cuda"] == depth["cpu"],
+          "example 3's depth file on the card differs from --device cpu's")
+    lines = depth["cuda"].decode().splitlines()
+    mean_depth = np.mean([int(line[1:-1].split(",")[1]) for line in lines])
+    check(25 < mean_depth < 35, f"mean depth {mean_depth:.2f}, not ~30x")
+    print(f"  reads-example 3 (20 shards): {len(lines)} covered bases, mean "
+          f"depth {mean_depth:.2f}; the file byte-identical to --device "
+          f"cpu's; {numbers['example3_cuda_s']:.3f} s on the card, "
+          f"{numbers['example3_cpu_s']:.3f} s on the CPU")
+
+    # -- tumor/normal: 30x in each readset over 100 kb ------------------------
+    t0 = time.perf_counter()
+    pair = synthetic_tumor_normal(TN_READS, references=TN_REFS)
+    print(f"  tumor/normal: {TN_READS} reads a readset over {TN_REFS}, "
+          f"generated in {time.perf_counter() - t0:.2f} s", flush=True)
+    diff = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        path = tumor_normal_diff(
+            pair, references=TN_REFS,
+            normal_id="fixture-normal", tumor_id="fixture-tumor",
+            out_path=os.path.join(work, f"example4-{device}"),
+            device=device)
+        numbers[f"example4_{device}_s"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            diff[device] = f.read()
+    check(diff["cuda"] == diff["cpu"],
+          "example 4's diff file on the card differs from --device cpu's")
+    found = {int(line[1:].split(",")[0])
+             for line in diff["cuda"].decode().splitlines()}
+    check(set(pair.somatic_positions) <= found,
+          f"example 4 missed somatic positions "
+          f"{sorted(set(pair.somatic_positions) - found)}")
+    print(f"  reads-example 4: {len(found)} differing positions, every "
+          f"somatic position {pair.somatic_positions} among them; the file "
+          f"byte-identical to --device cpu's; "
+          f"{numbers['example4_cuda_s']:.3f} s on the card, "
+          f"{numbers['example4_cpu_s']:.3f} s on the CPU")
+
+    # -- the transports and the mirror ---------------------------------------
+    bench_dir = os.path.join(work, "bench")
+    bench.dump(bench_dir)
+    served = CountingReads(JsonlSource(bench_dir))
+    creds = Credentials(NET_TOKEN, "chip-smoke")
+    http = GenomicsServiceServer(served, port=0, token=NET_TOKEN).start()
+    url = f"http://127.0.0.1:{http.port}"
+    rpc = (GrpcGenomicsServer(served, port=0, token=NET_TOKEN).start()
+           if grpc_available() else None)
+    clients = []
+
+    def net_leg(name, source):
+        before = dict(served.counts)
+        t0 = time.perf_counter()
+        got = PairHmmDriver(conf(), source).run_rows()
+        numbers[f"{name}_s"] = time.perf_counter() - t0
+        check(got == rows, f"{name}: rows differ from the local run's")
+        asked = {k: served.counts[k] - before[k] for k in served.counts}
+        print(f"  pairhmm over {name}: rows bit-identical to the local "
+              f"run, {numbers[f'{name}_s']:.3f} s; server requests {asked}")
+        return asked
+
+    try:
+        net_leg("http", HttpVariantSource(url, credentials=creds,
+                                          timeout=120))
+        if rpc is not None:
+            clients.append(GrpcVariantSource(
+                f"grpc://127.0.0.1:{rpc.port}", credentials=creds,
+                timeout=120))
+            net_leg("grpc", clients[-1])
+        else:
+            print("  pairhmm over grpc: not run, grpcio is not installed "
+                  "on this host")
+        cache = os.path.join(work, "cache")
+        net_leg("http, mirror download", HttpVariantSource(
+            url, credentials=creds, timeout=120, cache_dir=cache,
+            cold_stream=False))
+        asked = net_leg("http, warm mirror", HttpVariantSource(
+            url, credentials=creds, timeout=120, cache_dir=cache))
+        check(asked["reads"] == 0 and asked["exports"] == 0,
+              "the warm mirror run asked the server for reads")
+    finally:
+        for client in clients:
+            client.close()
+        http.stop()
+        if rpc is not None:
+            rpc.stop()
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    check(launches == 0, f"phase 16 launched the scatter kernel "
+          f"{launches} times")
+    print(f"  scatter kernel launches in phase 16: {launches}")
+    print("  phase 16 numbers: " + json.dumps(
+        {k: round(float(v), 6) for k, v in numbers.items()}))
+    return launches
+
+
 def host_windows(source, conf, indexes):
     """The driver's CSR windows, rebuilt on the host from the same source."""
     from spark_examples_tpu_torch.arrays.blocks import windows_from_calls
@@ -2349,6 +2756,15 @@ def main() -> int:
     by_leg = {"http sparse, frame tier (phase 14)": launches, **by_leg}
     print(f"  scatter launches by sparse run: {json.dumps(by_leg)}")
     print(f"  phase 15 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 16. reads and PairHMM: pairhmm, reads-example 3 and 4, and "
+          "/reads and StreamReads over HTTP, gRPC and the mirror",
+          flush=True)
+    t0 = time.perf_counter()
+    by_leg["pairhmm and reads examples (phase 16)"] = pairhmm_and_reads(
+        torch, dev)
+    print(f"  phase 16 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{

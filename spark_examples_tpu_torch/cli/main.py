@@ -11,8 +11,16 @@ The JAX package's CLI on PyTorch, for the commands the port serves so far:
 - ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service,
   and with ``--grpc-port`` as a gRPC service beside it (either package's
   client reads either);
-- ``generate-fixture``: write a synthetic JSONL cohort (variants only);
-- ``search-variants-klotho`` / ``search-variants-brca1``.
+- ``generate-fixture``: write a synthetic JSONL cohort, with reads
+  (``--fixture-reads``) or a tumor/normal pair of readsets
+  (``--fixture-tumor-normal``) beside the variants;
+- ``search-variants-klotho`` / ``search-variants-brca1``;
+- ``reads-example --example 1..4``: the reference's SearchReadsExample
+  drivers (pileup, coverage, per-base depth, tumor/normal diff), and
+  ``pairhmm``: every read scored against its consensus haplotype. Reads
+  come from the fixture (``--fixture-reads``), ``--input-path`` or
+  ``--api-url``; examples 3 and 4 and ``pairhmm`` compute on the card
+  unless ``--device cpu`` is given.
 
 ``--trace-out/--metrics-out/--manifest-out`` open one telemetry session
 around the command, and ``--fault-plan`` installs a fault plan for it.
@@ -26,7 +34,12 @@ import sys
 
 from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
+    FIXTURE_READSET_ID,
+    NORMAL_READSET_ID,
+    TUMOR_READSET_ID,
     synthetic_cohort,
+    synthetic_reads,
+    synthetic_tumor_normal,
 )
 from spark_examples_tpu_torch.genomics.shards import (
     BRCA1_REFERENCES,
@@ -182,7 +195,7 @@ def _cmd_pca(args) -> int:
 
 
 def _cmd_generate_fixture(args) -> int:
-    """Write a JSONL cohort directory for offline runs (variants only)."""
+    """Write a JSONL cohort directory for offline runs."""
     src = synthetic_cohort(
         args.fixture_samples or 100,
         args.fixture_variants,
@@ -192,9 +205,50 @@ def _cmd_generate_fixture(args) -> int:
         rare_variant_af=args.fixture_rare_af,
         variant_set_id=(args.variant_set_ids or [DEFAULT_VARIANT_SET_ID])[0],
     )
+    if args.fixture_tumor_normal:
+        # Tumor/normal pair for reads-example 4.
+        pair = synthetic_tumor_normal(
+            args.fixture_tumor_normal,
+            references=args.reads_references or "1:100000000:100002000",
+            seed=args.fixture_seed,
+        )
+        src.add_reads(pair.reads_records())
+    elif args.fixture_reads:
+        # Same directory serves reads examples 1-3 via --input-path; the
+        # region must cover the example's query window
+        # (--reads-references defaults to --references).
+        reads_src = synthetic_reads(
+            args.fixture_reads,
+            references=args.reads_references or args.references,
+            seed=args.fixture_seed,
+        )
+        src.add_reads(reads_src.reads_records())
     src.dump(args.out)
     print(f"Wrote cohort to {args.out}")
     return 0
+
+
+def _resolve_reads_source(args, references: str):
+    """Returns (source, read_group_set_id)."""
+    if args.api_url:
+        return _network_source(args), (args.read_group_set_id or "")
+    if args.input_path:
+        # Local cohorts default to no readset filter (serve whatever the
+        # directory holds); --read-group-set-id narrows it.
+        return JsonlSource(args.input_path), (args.read_group_set_id or "")
+    if args.fixture_reads:
+        return (
+            synthetic_reads(
+                args.fixture_reads,
+                references=references,
+                seed=args.fixture_seed,
+            ),
+            FIXTURE_READSET_ID,
+        )
+    raise SystemExit(
+        "No reads source: pass --input-path <jsonl cohort dir> or "
+        "--fixture-reads N"
+    )
 
 
 def _cmd_search_variants(args, fn) -> int:
@@ -208,6 +262,102 @@ def _cmd_search_variants(args, fn) -> int:
         references=args.references,
         bases_per_shard=conf.bases_per_partition,
     )
+    return 0
+
+
+def _cmd_reads_example(args) -> int:
+    from spark_examples_tpu_torch.models import search_reads as sr
+
+    n = args.example
+    if n == 1:
+        refs = args.references or (
+            f"11:{sr.Examples.CILANTRO - 1000}:{sr.Examples.CILANTRO + 1000}"
+        )
+        source, rgsid = _resolve_reads_source(args, refs)
+        for line in sr.pileup(
+            source,
+            rgsid,
+            references=refs,
+            bases_per_shard=args.bases_per_partition,
+        ):
+            print(line)
+    elif n == 2:
+        refs = args.references  # None → whole chr21, reference behavior
+        source, rgsid = _resolve_reads_source(args, refs or "21:1:48129895")
+        sr.average_coverage(
+            source,
+            rgsid,
+            references=refs,
+            bases_per_shard=args.bases_per_partition,
+        )
+    elif n == 3:
+        refs = args.references
+        source, rgsid = _resolve_reads_source(args, refs or "21:1:48129895")
+        out = sr.per_base_depth_example(
+            source,
+            rgsid,
+            references=refs,
+            out_path=args.output_path or ".",
+            bases_per_shard=args.bases_per_partition,
+            device=args.device,
+        )
+        print(f"Wrote {out}")
+    else:  # argparse limits --example to 1..4
+        refs = args.references or "1:100000000:101000000"
+        if args.api_url:
+            source = _network_source(args)
+            normal_id = args.normal_id or NORMAL_READSET_ID
+            tumor_id = args.tumor_id or TUMOR_READSET_ID
+        elif args.input_path:
+            source = JsonlSource(args.input_path)
+            # Local cohorts default to the fixture pair ids (the DREAM API
+            # ids remain available via the flags).
+            normal_id = args.normal_id or NORMAL_READSET_ID
+            tumor_id = args.tumor_id or TUMOR_READSET_ID
+        elif args.fixture_reads:
+            source = synthetic_tumor_normal(
+                args.fixture_reads, references=refs, seed=args.fixture_seed
+            )
+            normal_id, tumor_id = NORMAL_READSET_ID, TUMOR_READSET_ID
+        else:
+            raise SystemExit(
+                "No reads source: pass --api-url, --input-path, or "
+                "--fixture-reads N"
+            )
+        out = sr.tumor_normal_diff(
+            source,
+            normal_id=normal_id,
+            tumor_id=tumor_id,
+            references=refs,
+            out_path=args.output_path or ".",
+            bases_per_shard=args.bases_per_partition,
+            device=args.device,
+        )
+        print(f"Wrote {out}")
+    stats = getattr(source, "stats", None)
+    if stats is not None and stats.reads_read == 0:
+        print(
+            "WARNING: no reads matched the queried region/readset — check "
+            "that the cohort covers the example's region (--references) "
+            "and readset id (--read-group-set-id / --normal-id/--tumor-id)",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def _cmd_pairhmm(args) -> int:
+    """The reads-side pipeline: batched PairHMM scoring."""
+    from spark_examples_tpu_torch.models.pairhmm import PairHmmDriver
+
+    conf = pca_config_from_args(args)
+    # Default region = synthetic_reads' default window, so a bare
+    # `pairhmm --fixture-reads N` scores out of the box (the same
+    # default-region discipline as the reads examples).
+    conf.references = args.references or "11:6888648:6890648"
+    source, rgsid = _resolve_reads_source(args, conf.references)
+    if not conf.read_group_set_id:
+        conf.read_group_set_id = rgsid
+    PairHmmDriver(conf, source).run(out_path=args.output_path)
     return 0
 
 
@@ -292,6 +442,24 @@ def build_parser() -> argparse.ArgumentParser:
     add_pca_flags(gen)
     _add_fixture_flags(gen)
     gen.add_argument("--out", required=True)
+    gen.add_argument(
+        "--fixture-reads",
+        type=int,
+        default=None,
+        help="Also write reads.jsonl with this many synthetic reads",
+    )
+    gen.add_argument(
+        "--reads-references",
+        default=None,
+        help="Region for generated reads (defaults to --references)",
+    )
+    gen.add_argument(
+        "--fixture-tumor-normal",
+        type=int,
+        default=None,
+        help="Write a tumor/normal reads pair (for reads-example 4) "
+        "instead of a single readset",
+    )
     gen.set_defaults(fn=_cmd_generate_fixture)
 
     from spark_examples_tpu_torch.models.search_variants import (
@@ -308,6 +476,39 @@ def build_parser() -> argparse.ArgumentParser:
         _add_fixture_flags(sv)
         sv.set_defaults(references=refs)
         sv.set_defaults(fn=lambda a, _f=fn: _cmd_search_variants(a, _f))
+
+    reads = sub.add_parser(
+        "reads-example", help="SearchReadsExample 1-4 drivers"
+    )
+    add_pca_flags(reads)
+    _add_fixture_flags(reads)
+    reads.add_argument(
+        "--example", type=int, required=True, choices=[1, 2, 3, 4]
+    )
+    reads.add_argument(
+        "--fixture-reads",
+        type=int,
+        default=None,
+        help="Run against synthetic reads",
+    )
+    reads.add_argument("--normal-id", default=None)
+    reads.add_argument("--tumor-id", default=None)
+    reads.set_defaults(references=None, fn=_cmd_reads_example)
+
+    phmm = sub.add_parser(
+        "pairhmm",
+        help="Score every read against its consensus haplotype with "
+        "the batched PairHMM forward pass",
+    )
+    add_pca_flags(phmm)
+    _add_fixture_flags(phmm)
+    phmm.add_argument(
+        "--fixture-reads",
+        type=int,
+        default=None,
+        help="Run against synthetic reads",
+    )
+    phmm.set_defaults(references=None, fn=_cmd_pairhmm)
 
     serve = sub.add_parser(
         "serve-cohort",

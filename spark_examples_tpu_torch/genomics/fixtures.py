@@ -32,10 +32,17 @@ __all__ = [
     "cohort_record_stream",
     "cohort_callsets",
     "dump_cohort_stream",
+    "synthetic_reads",
+    "synthetic_read_pairs",
+    "synthetic_tumor_normal",
     "DEFAULT_VARIANT_SET_ID",
+    "FIXTURE_READSET_ID",
+    "NORMAL_READSET_ID",
+    "TUMOR_READSET_ID",
 ]
 
 DEFAULT_VARIANT_SET_ID = "fixture-platinum"
+FIXTURE_READSET_ID = "fixture-readset"
 
 _BASES = ("A", "C", "G", "T")
 
@@ -269,3 +276,179 @@ def dump_cohort_stream(
             n_samples, n_variants, variant_set_id=variant_set_id, **kw
         ):
             f.write(json.dumps(rec) + "\n")
+
+
+def synthetic_reads(
+    n_reads: int,
+    references: str = "11:6888648:6890648",
+    read_len: int = 100,
+    read_group_set_id: str = FIXTURE_READSET_ID,
+    seed: int = 0,
+    variant_positions: Optional[dict] = None,
+    mean_quality: int = 35,
+    stats=None,
+) -> FixtureSource:
+    """Generate aligned reads over a region from a latent haplotype.
+
+    A deterministic reference haplotype is drawn for the region; reads copy
+    it with ~1% base error, so per-position base-frequency tables have
+    realistic consensus structure. ``variant_positions`` maps absolute
+    position → (alt_base, fraction): that fraction of covering reads carry
+    the alt — the tumor/normal injection hook for the Example-4 pipeline
+    (reference DREAM synthetic set analog, SearchReadsExample.scala:171+).
+    """
+    rng = np.random.default_rng(seed)
+    regions = parse_references(references)
+    contig, start, end = regions[0]
+    region_len = end - start
+    haplotype = rng.integers(0, 4, size=region_len)
+    variant_positions = variant_positions or {}
+
+    records: List[dict] = []
+    for ri in range(n_reads):
+        pos = start + int(rng.integers(0, max(1, region_len - read_len)))
+        codes = haplotype[pos - start : pos - start + read_len].copy()
+        errs = rng.random(read_len) < 0.01
+        codes[errs] = rng.integers(0, 4, size=int(errs.sum()))
+        for vpos, (alt, frac) in variant_positions.items():
+            off = vpos - pos
+            if 0 <= off < read_len and rng.random() < frac:
+                codes[off] = _BASES.index(alt)
+        seq = "".join(_BASES[c] for c in codes)
+        quals = np.clip(
+            rng.normal(mean_quality, 5, size=read_len).astype(int), 2, 60
+        )
+        records.append(
+            {
+                "reference_name": contig,
+                "position": pos,
+                "aligned_sequence": seq,
+                "aligned_quality": quals.tolist(),
+                "cigar_ops": [("ALIGNMENT_MATCH", read_len)],
+                "mapping_quality": int(
+                    np.clip(rng.normal(50, 15), 0, 60)
+                ),
+                "fragment_name": f"read-{ri}",
+                "read_group_set_id": read_group_set_id,
+            }
+        )
+    return FixtureSource(reads=records, stats=stats)
+
+
+def synthetic_read_pairs(
+    n_pairs: int,
+    read_len: int = 6,
+    hap_len: int = 10,
+    quality: int = 20,
+    seed: int = 0,
+):
+    """Read×haplotype pairs with HAND-COMPUTABLE PairHMM likelihoods.
+
+    The PairHMM golden tests need pairs whose likelihood can be derived
+    on paper — without re-deriving ``synthetic_reads``' latent
+    haplotype (an internal its tests must stay decoupled from). Every
+    pair here has UNIFORM base quality and one of four known edit
+    structures against its haplotype:
+
+    - ``match``: the read is an exact substring — each matching
+      alignment offset contributes
+      ``(1/h) · (1-ε_ge) · (1-2ε_go)^{r-1} · (1-ε)^r`` through its
+      all-match path (free-start deletion row → gap-close into M, then
+      r matches), so that closed-form sum over offsets is a tight
+      lower bound on the likelihood — hand-checkable to ~1%;
+    - ``mismatch``: one substituted base mid-read (the dominant path
+      trades one ``1-ε`` for ``ε/3``);
+    - ``insert``: one extra base mid-read (the dominant path opens and
+      closes one insertion);
+    - ``delete``: one haplotype base skipped mid-read (one deletion).
+
+    Returns a list of dicts: ``name``, ``kind``, ``offset`` (the true
+    alignment offset), ``read``/``quals``/``hap`` numpy arrays in the
+    kernel's code space. Deterministic per seed.
+    """
+    if hap_len < read_len + 2:
+        raise ValueError(
+            f"hap_len {hap_len} must exceed read_len {read_len} by >= 2 "
+            "(the insert/delete structures need slack)"
+        )
+    rng = np.random.default_rng(seed)
+    kinds = ("match", "mismatch", "insert", "delete")
+    pairs = []
+    for i in range(n_pairs):
+        kind = kinds[i % len(kinds)]
+        hap = rng.integers(0, 4, size=hap_len).astype(np.int8)
+        off = int(rng.integers(0, hap_len - read_len - 1))
+        read = hap[off : off + read_len].copy()
+        mid = read_len // 2
+        if kind == "mismatch":
+            read[mid] = (read[mid] + 1 + int(rng.integers(0, 3))) % 4
+        elif kind == "insert":
+            read = np.insert(read, mid, (hap[off + mid] + 2) % 4)[
+                :read_len
+            ].astype(np.int8)
+        elif kind == "delete":
+            read = np.delete(
+                np.append(read, hap[off + read_len]), mid
+            ).astype(np.int8)
+        pairs.append(
+            {
+                "name": f"pair-{i}-{kind}",
+                "kind": kind,
+                "offset": off,
+                "read": read,
+                "quals": np.full(read.size, quality, dtype=np.int32),
+                "hap": hap,
+            }
+        )
+    return pairs
+
+
+NORMAL_READSET_ID = "fixture-normal"
+TUMOR_READSET_ID = "fixture-tumor"
+
+
+def synthetic_tumor_normal(
+    n_reads: int,
+    references: str = "1:100000000:100002000",
+    seed: int = 0,
+    n_somatic: int = 3,
+    somatic_fraction: float = 0.6,
+    stats=None,
+) -> FixtureSource:
+    """Two readsets over the same haplotype, tumor carrying somatic variants.
+
+    The hermetic stand-in for the DREAM synthetic tumor/normal pair
+    (SearchReadsExample.scala:35-37): identical seed → identical latent
+    haplotype, with ``n_somatic`` positions where ``somatic_fraction`` of
+    tumor reads carry an alternate base — the signal Example 4's diff
+    pipeline must recover.
+    """
+    rng = np.random.default_rng(seed + 1)
+    contig, start, end = parse_references(references)[0]
+    # Replay synthetic_reads' haplotype draw (same seed, first draw) so the
+    # somatic alt is guaranteed to differ from the reference base.
+    haplotype = np.random.default_rng(seed).integers(0, 4, size=end - start)
+    margin = min(200, (end - start) // 4)
+    somatic = {}
+    while len(somatic) < n_somatic:
+        pos = int(rng.integers(start + margin, end - margin))
+        alt = (int(haplotype[pos - start]) + int(rng.integers(1, 4))) % 4
+        somatic[pos] = (_BASES[alt], somatic_fraction)
+    normal = synthetic_reads(
+        n_reads,
+        references=references,
+        read_group_set_id=NORMAL_READSET_ID,
+        seed=seed,
+    )
+    tumor = synthetic_reads(
+        n_reads,
+        references=references,
+        read_group_set_id=TUMOR_READSET_ID,
+        seed=seed,
+        variant_positions=somatic,
+    )
+    merged = FixtureSource(
+        reads=normal._reads + tumor._reads, stats=stats
+    )
+    merged.somatic_positions = sorted(somatic)  # for tests
+    return merged

@@ -24,10 +24,9 @@ package's server.
   :mod:`.mirror` over the ``Identity``/``ExportLines``/``ExportSidecar``
   RPCs, so a gRPC client and an HTTP client share one cache directory.
 
-Not served yet (ROADMAP.md, Queue 1): ``StreamReads`` answers
-``UNIMPLEMENTED`` and :meth:`GrpcVariantSource.stream_reads` raises
-(item 3); the ``ComputePca`` dense-math seam is not registered and
-:meth:`GrpcVariantSource.compute_pca` raises (item 8).
+Not served yet (ROADMAP.md, Queue 1): the ``ComputePca`` dense-math seam
+is not registered and :meth:`GrpcVariantSource.compute_pca` raises
+(item 8).
 
 ``grpcio`` is optional: it is imported only when a server or client is
 built, and :func:`grpc_available` says whether it can be.
@@ -51,11 +50,13 @@ from spark_examples_tpu_torch.genomics.sources import (
     Callset,
     _carrying_keyed_records,
     _carrying_records,
+    _read_to_record,
     _variant_to_record,
     csr_pair_from_lists,
+    read_from_record,
     variant_from_record,
 )
-from spark_examples_tpu_torch.genomics.types import Variant
+from spark_examples_tpu_torch.genomics.types import Read, Variant
 from spark_examples_tpu_torch.resilience import (
     BreakerSet,
     Budget,
@@ -72,7 +73,6 @@ from spark_examples_tpu_torch.utils.stats import IoStats
 __all__ = ["GrpcGenomicsServer", "GrpcVariantSource", "grpc_available"]
 
 _SERVICE = "genomics.VariantStream"
-_READS = "item 3, reads and PairHMM"
 
 
 def grpc_available() -> bool:
@@ -135,8 +135,8 @@ class GrpcGenomicsServer:
       - ``ListCallsets``, ``CallsetOrder``, ``Identity`` (unary).
       - ``ExportLines``, ``ExportSidecar`` (server-streaming): the mirror
         downloads.
-      - ``StreamReads`` answers ``UNIMPLEMENTED`` (ROADMAP.md, Queue 1,
-        item 3).
+      - ``StreamReads`` (server-streaming): ``{read_group_set_id,
+        contig, start, end}`` → one message per read record.
     """
 
     def __init__(
@@ -337,12 +337,14 @@ class GrpcGenomicsServer:
                 yield chunk
 
     def _stream_reads(self, request: bytes, context):
-        import grpc
-
-        context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            str(unported("StreamReads", _READS)),
-        )
+        q = json.loads(request)
+        shard = Shard(str(q["contig"]), int(q["start"]), int(q["end"]))
+        for r in self._source.stream_reads(
+            q.get("read_group_set_id", ""), shard
+        ):
+            yield json.dumps(
+                _read_to_record(r) if isinstance(r, Read) else r
+            ).encode()
 
     def _list_callsets(self, request: bytes, context) -> bytes:
         q = json.loads(request)
@@ -891,10 +893,6 @@ class GrpcVariantSource:
         raise unported("GrpcVariantSource.compute_pca",
                        "item 8, checkpoint, elastic and bridge")
 
-    def stream_reads(self, read_group_set_id: str, shard: Shard):
-        """Read streams (``StreamReads``): not ported yet."""
-        raise unported("GrpcVariantSource.stream_reads", _READS)
-
     # -- metadata ------------------------------------------------------------
 
     def list_callsets(self, variant_set_id: str) -> List[Callset]:
@@ -947,6 +945,26 @@ class GrpcVariantSource:
                 continue
             self.stats.add(variants_read=1)
             yield v
+
+    def stream_reads(
+        self, read_group_set_id: str, shard: Shard
+    ) -> Iterator[Read]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_reads(read_group_set_id, shard)
+            return
+        self.stats.add(partitions=1, reference_bases=shard.range)
+        for line in self._stream(
+            "StreamReads",
+            {
+                "read_group_set_id": read_group_set_id,
+                "contig": shard.contig,
+                "start": shard.start,
+                "end": shard.end,
+            },
+        ):
+            self.stats.add(reads_read=1)
+            yield read_from_record(json.loads(line))
 
     # -- fused ingest tiers --------------------------------------------------
 

@@ -27,13 +27,16 @@ Two wire tiers:
   callset ordinals as checksummed binary frames (:mod:`.wire`), for the
   CSR-direct ingest.
 
+``/reads`` streams one shard's reads as interchange records in the
+``/variants`` framing.
+
 The client's ``cache_dir`` mirrors the served cohort once, keyed by the
 server's ``/identity`` (:mod:`.mirror`, shared with the gRPC transport of
 :mod:`.grpc_transport`), and serves every later run from the mirror's CSR
-sidecar.
+sidecar (and its ``reads.jsonl``).
 
-Not served yet (ROADMAP.md, Queue 1): ``/reads`` (item 3, answered 501)
-and the analysis job tier (``POST /analyze``, ``/jobs``; item 6).
+Not served yet (ROADMAP.md, Queue 1): the analysis job tier
+(``POST /analyze``, ``/jobs``; item 6).
 """
 
 from __future__ import annotations
@@ -61,11 +64,13 @@ from spark_examples_tpu_torch.genomics.sources import (
     Callset,
     _carrying_keyed_records,
     _carrying_records,
+    _read_to_record,
     _variant_to_record,
     csr_pair_from_lists,
+    read_from_record,
     variant_from_record,
 )
-from spark_examples_tpu_torch.genomics.types import Variant
+from spark_examples_tpu_torch.genomics.types import Read, Variant
 from spark_examples_tpu_torch.resilience import (
     BreakerSet,
     CircuitOpenError,
@@ -75,7 +80,6 @@ from spark_examples_tpu_torch.resilience import (
     faults,
     parse_retry_after,
 )
-from spark_examples_tpu_torch.utils.config import unported
 from spark_examples_tpu_torch.utils.stats import IoStats
 
 __all__ = ["GenomicsServiceServer", "HttpVariantSource"]
@@ -457,16 +461,16 @@ def _make_handler(source, token: Optional[str]):
                     doc = {"ids": ids, "digest": wire.callsets_digest(ids)}
                     self._send_body((json.dumps(doc) + "\n").encode())
                 elif url.path == "/reads":
-                    self._send_json(
-                        501,
-                        {
-                            "error": str(
-                                unported(
-                                    "/reads",
-                                    "item 3, reads and PairHMM",
-                                )
-                            )
-                        },
+                    shard = Shard(
+                        q["contig"], int(q["start"]), int(q["end"])
+                    )
+                    self._send_lines(
+                        json.dumps(
+                            _read_to_record(r) if isinstance(r, Read) else r
+                        ).encode()
+                        for r in source.stream_reads(
+                            q.get("read_group_set_id", ""), shard
+                        )
                     )
                 elif url.path == "/identity":
                     # Cohort content digest (the ETag analog). 404 when
@@ -1103,6 +1107,28 @@ class HttpVariantSource:
             self.stats,
             min_allele_frequency,
         )
+
+    def stream_reads(
+        self, read_group_set_id: str, shard: Shard
+    ) -> Iterator[Read]:
+        mirror = self._resolve_mirror()
+        if mirror:
+            yield from mirror.stream_reads(read_group_set_id, shard)
+            return
+        self.stats.add(partitions=1, reference_bases=shard.range)
+        resp = self._request(
+            "/reads",
+            {
+                "read_group_set_id": read_group_set_id,
+                "contig": shard.contig,
+                "start": shard.start,
+                "end": shard.end,
+            },
+            stream=True,
+        )
+        for line in self._stream_lines(resp, "/reads"):
+            self.stats.add(reads_read=1)
+            yield read_from_record(json.loads(line))
 
 
 class _HttpMirrorFeed:

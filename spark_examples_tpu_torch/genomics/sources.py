@@ -57,6 +57,7 @@ from spark_examples_tpu_torch.genomics.hashing import (
 from spark_examples_tpu_torch.genomics.shards import Shard
 from spark_examples_tpu_torch.genomics.types import (
     Call,
+    Read,
     Variant,
     normalize_contig,
 )
@@ -66,11 +67,13 @@ from spark_examples_tpu_torch.utils.tracing import rpc_range
 __all__ = [
     "Callset",
     "VariantSource",
+    "ReadSource",
     "FixtureSource",
     "JsonlSource",
     "LINEIDX_BASENAME",
     "SIDECAR_BASENAME",
     "csr_pair_from_lists",
+    "read_from_record",
     "variant_from_record",
 ]
 
@@ -90,6 +93,12 @@ class VariantSource(Protocol):
     def stream_variants(
         self, variant_set_id: str, shard: Shard
     ) -> Iterator[Variant]: ...
+
+
+class ReadSource(Protocol):
+    def stream_reads(
+        self, read_group_set_id: str, shard: Shard
+    ) -> Iterator[Read]: ...
 
 
 def variant_from_record(rec: dict) -> Optional[Variant]:
@@ -151,6 +160,63 @@ def _variant_to_record(v: Variant) -> dict:
             }
             for c in (v.calls or ())
         ],
+    }
+
+
+def read_from_record(rec: dict) -> Read:
+    if "cigar" in rec and "cigar_ops" not in rec:
+        # Already-assembled SAM cigar (a re-serialized Read, e.g. over the
+        # HTTP service): reconstruct directly — Read.build only converts
+        # enum op tuples.
+        return Read(
+            aligned_quality=tuple(rec.get("aligned_quality", ())),
+            cigar=rec["cigar"],
+            id=rec.get("id", ""),
+            mapping_quality=rec.get("mapping_quality", 0),
+            mate_position=rec.get("mate_position", -1),
+            mate_reference_name=rec.get("mate_reference_name", ""),
+            fragment_name=rec.get("fragment_name", ""),
+            aligned_sequence=rec.get("aligned_sequence", ""),
+            position=rec["position"],
+            read_group_set_id=rec.get("read_group_set_id", ""),
+            reference_name=rec["reference_name"],
+            # Same info-value shape as Read.build (plain parsed lists), so
+            # HTTP-fetched and locally-read records stay field-identical.
+            info=dict(rec.get("info", {})),
+            fragment_length=rec.get("fragment_length", 0),
+        )
+    return Read.build(
+        rec["reference_name"],
+        rec["position"],
+        rec.get("aligned_sequence", ""),
+        cigar_ops=rec.get("cigar_ops", ()),
+        aligned_quality=rec.get("aligned_quality", ()),
+        id=rec.get("id", ""),
+        mapping_quality=rec.get("mapping_quality", 0),
+        mate_position=rec.get("mate_position", -1),
+        mate_reference_name=rec.get("mate_reference_name", ""),
+        fragment_name=rec.get("fragment_name", ""),
+        read_group_set_id=rec.get("read_group_set_id", ""),
+        info=rec.get("info"),
+        fragment_length=rec.get("fragment_length", 0),
+    )
+
+
+def _read_to_record(r: Read) -> dict:
+    return {
+        "reference_name": r.reference_name,
+        "position": r.position,
+        "aligned_sequence": r.aligned_sequence,
+        "cigar": r.cigar,
+        "aligned_quality": list(r.aligned_quality),
+        "id": r.id,
+        "mapping_quality": r.mapping_quality,
+        "mate_position": r.mate_position,
+        "mate_reference_name": r.mate_reference_name,
+        "fragment_name": r.fragment_name,
+        "read_group_set_id": r.read_group_set_id,
+        "info": {k: list(v) for k, v in r.info.items()},
+        "fragment_length": r.fragment_length,
     }
 
 
@@ -324,12 +390,17 @@ class FixtureSource:
         self,
         variants: Sequence = (),
         callsets: Sequence[Callset] = (),
+        reads: Sequence = (),
         stats: Optional[IoStats] = None,
     ):
         self._variants = list(variants)
         self._callsets = list(callsets)
+        self._reads = list(reads)
         self.stats = stats if stats is not None else IoStats()
         self._variant_idx: Optional[_SortedIndex] = None
+        self._read_idx: Optional[_SortedIndex] = None
+        # Served fixtures take concurrent shard requests (threaded HTTP
+        # handlers, shard-parallel clients): build each index once.
         self._idx_lock = threading.Lock()
         self._identity: Optional[str] = None
 
@@ -338,6 +409,12 @@ class FixtureSource:
         if isinstance(item, Variant):
             return item.contig, item.start
         return item["reference_name"], item["start"]
+
+    @staticmethod
+    def _read_key(item):
+        if isinstance(item, Read):
+            return item.reference_name, item.position
+        return item["reference_name"], item["position"]
 
     def list_callsets(self, variant_set_id: str) -> List[Callset]:
         self.stats.add(requests=1)
@@ -479,12 +556,42 @@ class FixtureSource:
             )
         return pair[0], pair[1], priv.variants_read
 
+    def stream_reads(
+        self, read_group_set_id: str, shard: Shard
+    ) -> Iterator[Read]:
+        self.stats.add(partitions=1, requests=1, reference_bases=shard.range)
+        if self._read_idx is None:
+            with self._idx_lock:
+                if self._read_idx is None:
+                    self._read_idx = _SortedIndex.build(
+                        self._reads, self._read_key
+                    )
+        for item in self._read_idx.slice(shard):
+            r = item if isinstance(item, Read) else read_from_record(item)
+            if (
+                read_group_set_id
+                and r.read_group_set_id
+                and r.read_group_set_id != read_group_set_id
+            ):
+                continue
+            self.stats.add(reads_read=1)
+            yield r
+
+    def add_reads(self, reads: Sequence) -> None:
+        """Attach read records so one cohort serves both pipelines."""
+        self._reads = list(reads)
+        self._read_idx = None
+        self._identity = None
+
+    def reads_records(self) -> list:
+        return list(self._reads)
+
     def cohort_identity(self) -> str:
         """Content digest identifying this cohort (the ETag analog): a
         digest of the interchange export, computed once — a served
-        fixture's records do not change. The JAX package's digest, byte
-        for byte (a fixture without reads exports an empty
-        ``reads.jsonl``)."""
+        fixture's records do not change (the only in-place mutator,
+        :meth:`add_reads`, invalidates it). The JAX package's digest,
+        byte for byte."""
         if self._identity is None:
             import hashlib
 
@@ -500,8 +607,7 @@ class FixtureSource:
     def export_lines(self, name: str) -> Iterator[bytes]:
         """Serialized interchange-file lines for the whole-cohort export
         endpoint (the schema of :meth:`dump`, streamed instead of
-        written). A fixture of the port holds no reads, so its
-        ``reads.jsonl`` is empty."""
+        written)."""
         if name == "callsets.json":
             yield json.dumps(
                 [
@@ -518,7 +624,12 @@ class FixtureSource:
                 if isinstance(rec, Variant):
                     rec = _variant_to_record(rec)
                 yield json.dumps(rec).encode()
-        elif name != "reads.jsonl":
+        elif name == "reads.jsonl":
+            for rec in self._reads:
+                if isinstance(rec, Read):
+                    rec = _read_to_record(rec)
+                yield json.dumps(rec).encode()
+        else:
             raise KeyError(name)
 
     def dump(self, root: str) -> None:
@@ -543,6 +654,14 @@ class FixtureSource:
                 if isinstance(rec, Variant):
                     rec = _variant_to_record(rec)
                 f.write(json.dumps(rec) + "\n")
+        if self._reads:
+            with open(os.path.join(root, "reads.jsonl"), "w") as f:
+                for rec in self._reads:
+                    if isinstance(rec, Read):
+                        raise TypeError(
+                            "dump() requires raw read records (dicts)"
+                        )
+                    f.write(json.dumps(rec) + "\n")
 
 
 # Interchange-layout names, the JAX package's: the CSR sidecar, the line
@@ -1403,7 +1522,7 @@ class _CsrCohort:
 
 class JsonlSource:
     """Newline-JSON cohort on disk: ``<dir>/callsets.json`` +
-    ``<dir>/variants.jsonl[.gz]``.
+    ``<dir>/variants.jsonl[.gz]`` (+ optional ``reads.jsonl[.gz]``).
 
     The offline-ingest path (``pca --input-path <dir>``): a portable
     interchange format for cohorts, the JAX package's. The fused ingest
@@ -1429,6 +1548,7 @@ class JsonlSource:
         # per-contig lists sorted by start; each shard reads its
         # [start, end) slice by binary search.
         self._variant_index: Optional[_SortedIndex] = None
+        self._read_index: Optional[_SortedIndex] = None
         # Byte-offset line index (uncompressed variants.jsonl only):
         # None = unresolved, False = unavailable (.gz / missing file).
         self._lineidx = None
@@ -1474,9 +1594,14 @@ class JsonlSource:
         """Build (or load) every shard-serving index up front; → variant
         records indexed. ``serve-cohort`` calls this before accepting
         requests so the first shard of a large cohort does not pay an
-        index build behind a client's socket timeout. The CSR sidecar
-        backs the binary frame tier and the sidecar export; it is
-        persisted, so only the first serve of a cohort pays it."""
+        index build behind a client's socket timeout. Reads get the same
+        treatment when the cohort ships them. The CSR sidecar backs the
+        binary frame tier and the sidecar export; it is persisted, so
+        only the first serve of a cohort pays it."""
+        if os.path.exists(
+            os.path.join(self.root, "reads.jsonl")
+        ) or os.path.exists(os.path.join(self.root, "reads.jsonl.gz")):
+            self._reads_index()
         self._ensure_csr()
         idx = self._line_index()
         if idx is not None:
@@ -1591,6 +1716,17 @@ class JsonlSource:
                             lambda r: (r["reference_name"], r["start"]),
                         )
         return self._variant_index
+
+    def _reads_index(self) -> _SortedIndex:
+        if self._read_index is None:
+            with self._lazy_lock:
+                if self._read_index is None:
+                    with self._open("reads.jsonl") as f:
+                        self._read_index = _SortedIndex.build(
+                            (json.loads(line) for line in f),
+                            lambda r: (r["reference_name"], r["position"]),
+                        )
+        return self._read_index
 
     def list_callsets(self, variant_set_id: str) -> List[Callset]:
         self.stats.add(requests=1)
@@ -1745,3 +1881,14 @@ class JsonlSource:
             self.stats,
             min_allele_frequency,
         )
+
+    def stream_reads(
+        self, read_group_set_id: str, shard: Shard
+    ) -> Iterator[Read]:
+        self.stats.add(partitions=1, requests=1, reference_bases=shard.range)
+        for rec in self._reads_index().slice(shard):
+            rgs = rec.get("read_group_set_id", "")
+            if rgs and read_group_set_id and rgs != read_group_set_id:
+                continue
+            self.stats.add(reads_read=1)
+            yield read_from_record(rec)

@@ -128,6 +128,19 @@ class PcaConfig:
     ingest_order: str = "auto"
     # Blocks the host→device feed stages ahead of the product.
     prefetch_depth: int = 2
+    # Reads-pipeline surface (models/pairhmm.py + the reads examples):
+    # readset filter for streamed reads (None/"" = every readset the
+    # cohort holds) and the PairHMM scoring knobs. Pairs per batched
+    # forward dispatch (partial flush tiles pad to a pow2 bucket);
+    # consensus-haplotype context bases scored on each side of a read's
+    # alignment; phred-scaled gap-open/gap-extend penalties (GATK
+    # defaults Q45/Q10). Per-pair results are independent of batching,
+    # so pairhmm_batch changes wall-clock only.
+    read_group_set_id: Optional[str] = None
+    pairhmm_batch: int = 128
+    pairhmm_context: int = 8
+    pairhmm_gap_open_phred: float = 45.0
+    pairhmm_gap_ext_phred: float = 10.0
     device: str = DEFAULT_DEVICE
 
     def shards(
@@ -322,6 +335,49 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="Windows with carrier density strictly below this scatter, "
         "at or above it they densify onto the int8 product; results are "
         "bit-identical either way",
+    )
+    p.add_argument(
+        "--read-group-set-id",
+        default=None,
+        help="Readset id filter for reads pipelines (pairhmm, "
+        "reads-example): only reads of this read group set stream from "
+        "the source; default = every readset in the cohort",
+    )
+    p.add_argument(
+        "--pairhmm-batch",
+        type=int,
+        default=PcaConfig.pairhmm_batch,
+        help="Read x haplotype pairs per batched PairHMM forward "
+        "dispatch (pow2-bucketed partial tiles; must be >= 1). Per-pair "
+        "log-likelihoods are bit-identical at any setting — batching "
+        "changes wall-clock only",
+    )
+    p.add_argument(
+        "--pairhmm-context",
+        type=int,
+        default=PcaConfig.pairhmm_context,
+        help="Consensus-haplotype context bases included on each side "
+        "of a read's alignment when scoring it (>= 0); the haplotype "
+        "window a read is evaluated against is its span plus this "
+        "margin",
+    )
+    p.add_argument(
+        "--pairhmm-gap-open-phred",
+        type=float,
+        default=PcaConfig.pairhmm_gap_open_phred,
+        help="Phred-scaled gap-open penalty of the PairHMM transition "
+        "model (GATK default 45, i.e. P(open) ~ 3.2e-5); must be > "
+        "10*log10(2) ~= 3.01 — at or below it the match "
+        "self-transition 1 - 2*10^(-go/10) is non-positive and every "
+        "likelihood would be NaN",
+    )
+    p.add_argument(
+        "--pairhmm-gap-ext-phred",
+        type=float,
+        default=PcaConfig.pairhmm_gap_ext_phred,
+        help="Phred-scaled gap-extension penalty of the PairHMM "
+        "transition model (GATK default 10, i.e. P(extend) = 0.1); "
+        "must be > 0",
     )
     p.add_argument(
         "--eig-tol",

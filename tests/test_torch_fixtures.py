@@ -102,3 +102,72 @@ def test_slice_cohort_head_matches():
     want = list(itertools.islice(jax_stream(2504, 65536, **kw), 64))
     assert got == want
     assert np.mean([len(r["calls"]) for r in got]) > 1
+
+
+# -- reads --------------------------------------------------------------------
+
+READS_OPTIONS = [
+    dict(n_reads=200, seed=0),
+    dict(n_reads=120, seed=3, read_len=700,
+         references="1:100000000:100003000"),
+    dict(n_reads=150, seed=7, read_group_set_id="other", mean_quality=20,
+         variant_positions={6889000: ("T", 0.5), 6889500: ("G", 1.0)}),
+    dict(n_reads=0, seed=1),
+]
+
+
+@pytest.mark.parametrize("opts", READS_OPTIONS,
+                         ids=lambda o: f"{o['n_reads']}-{o['seed']}")
+def test_same_read_records(opts):
+    from spark_examples_tpu.genomics.fixtures import (
+        synthetic_reads as jax_synthetic_reads,
+    )
+    from spark_examples_tpu_torch.genomics.fixtures import synthetic_reads
+
+    opts = dict(opts)
+    n = opts.pop("n_reads")
+    got = synthetic_reads(n, **opts).reads_records()
+    want = jax_synthetic_reads(n, **opts).reads_records()
+    assert got == want and len(got) == n
+
+
+@pytest.mark.parametrize("seed,n_somatic", [(0, 3), (4, 5)])
+def test_same_tumor_normal_pair(seed, n_somatic):
+    from spark_examples_tpu.genomics import fixtures as jax_fixtures
+    from spark_examples_tpu_torch.genomics import fixtures
+
+    got = fixtures.synthetic_tumor_normal(200, seed=seed,
+                                          n_somatic=n_somatic)
+    want = jax_fixtures.synthetic_tumor_normal(200, seed=seed,
+                                               n_somatic=n_somatic)
+    assert got.reads_records() == want.reads_records()
+    assert got.somatic_positions == want.somatic_positions
+    assert len(got.somatic_positions) == n_somatic
+    for name in ("FIXTURE_READSET_ID", "NORMAL_READSET_ID",
+                 "TUMOR_READSET_ID"):
+        assert getattr(fixtures, name) == getattr(jax_fixtures, name)
+
+
+@pytest.mark.parametrize("reads", ["none", "records", "tumor-normal"])
+def test_cohort_identity_with_reads_is_the_jax_packages(reads):
+    from spark_examples_tpu.genomics import fixtures as jax_fixtures
+    from spark_examples_tpu_torch.genomics import fixtures
+
+    port = synthetic_cohort(10, 30, seed=2)
+    ref = jax_synthetic_cohort(10, 30, seed=2)
+    before = port.cohort_identity()
+    assert before == ref.cohort_identity()
+    if reads == "records":
+        port.add_reads(fixtures.synthetic_reads(
+            40, seed=1).reads_records())
+        ref.add_reads(jax_fixtures.synthetic_reads(
+            40, seed=1).reads_records())
+    elif reads == "tumor-normal":
+        port.add_reads(fixtures.synthetic_tumor_normal(
+            30, seed=2).reads_records())
+        ref.add_reads(jax_fixtures.synthetic_tumor_normal(
+            30, seed=2).reads_records())
+    assert port.cohort_identity() == ref.cohort_identity()
+    assert (port.cohort_identity() == before) == (reads == "none")
+    assert list(port.export_lines("reads.jsonl")) == list(
+        ref.export_lines("reads.jsonl"))

@@ -24,6 +24,9 @@ import torch
 from spark_examples_tpu import obs as jax_obs
 from spark_examples_tpu.genomics import auth as jax_auth
 from spark_examples_tpu.genomics import grpc_transport as jax_grpc
+from spark_examples_tpu.genomics.fixtures import (
+    synthetic_reads as jax_synthetic_reads,
+)
 from spark_examples_tpu.genomics.sources import (
     JsonlSource as JaxJsonlSource,
 )
@@ -38,6 +41,7 @@ from spark_examples_tpu_torch.genomics.auth import Credentials
 from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
     synthetic_cohort,
+    synthetic_reads,
 )
 from spark_examples_tpu_torch.genomics.shards import shards_for_references
 from spark_examples_tpu_torch.genomics.sources import JsonlSource
@@ -458,13 +462,17 @@ def test_a_wedged_stream_hits_the_idle_timeout_and_ends_its_pump(
 # -- what is refused ----------------------------------------------------------
 
 
-def test_stream_reads_names_item_3(servers):
-    with _open("jax", servers["port"]) as src:
-        with pytest.raises(IOError, match="UNIMPLEMENTED.*item 3"):
-            list(src.stream_reads("", _shards()[0]))
-    with _open("port", servers["port"]) as src:
-        with pytest.raises(NotImplementedError, match="item 3"):
-            src.stream_reads("", _shards()[0])
+def test_stream_reads_over_a_cohort_without_reads(servers):
+    # StreamReads is served; over a directory without reads.jsonl both
+    # packages' servers fail the stream the same way, and each client
+    # counts one unsuccessful response.
+    for server_pkg in ("port", "jax"):
+        for client_pkg in ("port", "jax"):
+            with _open(client_pkg, servers[server_pkg]) as src:
+                with pytest.raises(IOError) as err:
+                    list(src.stream_reads("", _shards()[0]))
+                assert "UNIMPLEMENTED" not in str(err.value)
+                assert src.stats.reads_read == 0
 
 
 def test_compute_pca_names_item_8(servers):
@@ -547,3 +555,56 @@ def test_without_grpcio_both_clis_exit_with_the_same_message(argv,
         jax_cli.main(argv)
     assert str(port.value) == str(ref.value) and "grpcio" in str(
         port.value)
+
+
+# -- reads --------------------------------------------------------------------
+
+READ_REFS = "11:6888648:6890648"
+READ_BASES = 500
+
+
+@pytest.fixture(scope="module")
+def reads_servers(tmp_path_factory, request):
+    """Each package's gRPC server over one reads directory and over its
+    own fixture of the same records: ({(package, kind): url}, dir)."""
+    root = str(tmp_path_factory.mktemp("grpc_reads"))
+    src = synthetic_cohort(8, 40, seed=5)
+    src.add_reads(
+        synthetic_reads(150, references=READ_REFS, seed=6).reads_records())
+    src.dump(root)
+    return {
+        ("port", "jsonl"): _serve(grpc_transport.GrpcGenomicsServer,
+                                  JsonlSource(root), request),
+        ("jax", "jsonl"): _serve(jax_grpc.GrpcGenomicsServer,
+                                 JaxJsonlSource(root), request),
+        ("port", "fixture"): _serve(
+            grpc_transport.GrpcGenomicsServer,
+            synthetic_reads(150, references=READ_REFS, seed=6), request),
+        ("jax", "fixture"): _serve(
+            jax_grpc.GrpcGenomicsServer,
+            jax_synthetic_reads(150, references=READ_REFS, seed=6), request),
+    }, root
+
+
+def _reads(source, rgsid):
+    return [[vars(r) for r in source.stream_reads(rgsid, shard)]
+            for shard in shards_for_references(READ_REFS, READ_BASES)]
+
+
+@pytest.mark.parametrize("kind", ["jsonl", "fixture"])
+@pytest.mark.parametrize("client_pkg", ["port", "jax"])
+@pytest.mark.parametrize("server_pkg", ["port", "jax"])
+def test_every_client_streams_reads_from_every_server(
+        reads_servers, server_pkg, client_pkg, kind):
+    urls, root = reads_servers
+    local = JsonlSource(root)
+    with _open(client_pkg, urls[server_pkg, kind]) as src, \
+            _open("port", urls["port", "jsonl"]) as ref:
+        for rgsid in ("", "fixture-readset", "another-readset"):
+            got = _reads(src, rgsid)
+            assert got == _reads(local, rgsid)
+            assert sum(map(len, got)) == (
+                0 if rgsid == "another-readset" else 150)
+            _reads(ref, rgsid)
+        assert _stats(src) == _stats(ref)
+        assert src.stats.reads_read == 300

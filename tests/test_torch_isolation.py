@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax():
         "genomics.service",
         "genomics.sources",
         "genomics.wire",
+        "models.pairhmm",
         "models.pca",
+        "models.search_reads",
         "models.search_variants",
         "obs",
         "obs.manifest",
@@ -63,6 +65,8 @@ def test_every_module_imports_without_jax():
         "obs.tracer",
         "ops.fused",
         "ops.gramian",
+        "ops.pairhmm",
+        "ops.reads_ops",
         "ops.scatter_kernel",
         "ops.sketch",
         "resilience",

@@ -54,6 +54,7 @@ from spark_examples_tpu_torch.genomics import grpc_transport, mirror
 from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
     synthetic_cohort,
+    synthetic_reads,
 )
 from spark_examples_tpu_torch.genomics.mirror import (
     ColdStreamMirror,
@@ -224,6 +225,7 @@ class _CountingExports:
         self.exports = {}
         self.sidecars = 0
         self.frames = 0
+        self.reads = 0
 
     def export_lines(self, name):
         self.exports[name] = self.exports.get(name, 0) + 1
@@ -236,6 +238,10 @@ class _CountingExports:
     def stream_carrying_frame(self, *args, **kwargs):
         self.frames += 1
         return self._inner.stream_carrying_frame(*args, **kwargs)
+
+    def stream_reads(self, *args, **kwargs):
+        self.reads += 1
+        return self._inner.stream_reads(*args, **kwargs)
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -815,3 +821,89 @@ def test_a_trusted_mirror_sidecar_needs_the_jax_packages_version(
         f.write("another-identity")
     assert not _CsrCohort._mirror_sidecar_trusted(root)
     assert not _JaxCsrCohort._mirror_sidecar_trusted(root)
+
+
+# -- reads from the mirror ----------------------------------------------------
+
+READ_REFS = "11:6888648:6890648"
+
+
+@pytest.fixture(scope="module")
+def reads_dir(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("mirrored_reads") / "cohort")
+    src = synthetic_cohort(12, 60, references=REFS, seed=4)
+    src.add_reads(
+        synthetic_reads(120, references=READ_REFS, seed=2).reads_records())
+    src.dump(root)
+    JsonlSource(root).ensure_serving_index()
+    return root
+
+
+def _reads(source):
+    return [[vars(r) for r in source.stream_reads("", shard)]
+            for shard in shards_for_references(READ_REFS, 400)]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("transport", ["http", "grpc"])
+def test_reads_from_a_warm_mirror_written_by_either_package(
+        reads_dir, tmp_path, request, transport, writer):
+    counting = _CountingExports(JsonlSource(reads_dir))
+    if transport == "http":
+        url = _serve_http(counting, request)
+        clients = {
+            "port": lambda cache: _http(url, cache_dir=cache,
+                                        cold_stream=False),
+            "jax": lambda cache: jax_service.HttpVariantSource(
+                url, cache_dir=cache, cold_stream=False),
+        }
+    else:
+        url = _serve_grpc(counting, request)
+        clients = {
+            "port": lambda cache: grpc_transport.GrpcVariantSource(
+                url, cache_dir=cache, cold_stream=False, idle_timeout=30.0),
+            "jax": lambda cache: jax_grpc.GrpcVariantSource(
+                url, cache_dir=cache, cold_stream=False, idle_timeout=30.0),
+        }
+    cache = str(tmp_path / "shared")
+    first = clients[writer](cache)
+    first.list_callsets(VSID)
+    assert counting.exports.get("reads.jsonl") == 1
+    exports = dict(counting.exports)
+    want = _reads(JsonlSource(reads_dir))
+    assert sum(map(len, want)) == 120
+    for reader in ("port", "jax"):
+        second = clients[reader](cache)
+        assert _reads(second) == want
+        assert second.stats.reads_read == 120
+        if transport == "grpc":
+            second.close()
+    # Served from the mirror: no /reads request and no download.
+    assert counting.reads == 0 and counting.exports == exports
+    if transport == "grpc":
+        first.close()
+
+
+def test_light_mirror_reads_fail_as_the_jax_packages(reads_dir, tmp_path,
+                                                     request):
+    url = _serve_http(JsonlSource(reads_dir), request)
+    cache = str(tmp_path / "light")
+    _http(url, cache_dir=cache, mirror_mode="light",
+          cold_stream=False).list_callsets(VSID)
+    root = _mirror_root(cache)
+    assert "reads.jsonl" not in os.listdir(root)
+    shard = shards_for_references(READ_REFS, 400)[0]
+    with pytest.raises(FileNotFoundError) as port:
+        list(JsonlSource(root).stream_reads("", shard))
+    with pytest.raises(FileNotFoundError) as ref:
+        list(JaxJsonlSource(root).stream_reads("", shard))
+    assert _message(port, root) == _message(ref, root)
+    # Through either package's client over the light mirror, too.
+    for client in (_http(url, cache_dir=cache, mirror_mode="light",
+                         cold_stream=False),
+                   jax_service.HttpVariantSource(
+                       url, cache_dir=cache, mirror_mode="light",
+                       cold_stream=False)):
+        with pytest.raises(FileNotFoundError) as err:
+            list(client.stream_reads("", shard))
+        assert _message(err, root) == _message(port, root)

@@ -28,6 +28,9 @@ from spark_examples_tpu.genomics import service as jax_service
 from spark_examples_tpu.genomics.fixtures import (
     synthetic_cohort as jax_synthetic_cohort,
 )
+from spark_examples_tpu.genomics.fixtures import (
+    synthetic_reads as jax_synthetic_reads,
+)
 from spark_examples_tpu.genomics.sources import (
     JsonlSource as JaxJsonlSource,
 )
@@ -38,6 +41,7 @@ from spark_examples_tpu_torch.genomics.auth import Credentials
 from spark_examples_tpu_torch.genomics.fixtures import (
     DEFAULT_VARIANT_SET_ID,
     synthetic_cohort,
+    synthetic_reads,
 )
 from spark_examples_tpu_torch.genomics.shards import shards_for_references
 from spark_examples_tpu_torch.genomics.sources import (
@@ -386,8 +390,12 @@ def test_introspection_and_unserved_endpoints(servers):
     assert set(port["server"]) == set(ref["server"])
     status, body = _get(servers["port"], "/metrics")
     assert status == 200 and b"genomics_io_requests_total" in body
-    status, body = _get(servers["port"], "/reads?contig=17&start=0&end=9")
-    assert status == 501 and b"item 3" in body
+    # /reads is served; over a directory without reads.jsonl both
+    # packages' servers answer the same 500 (the JAX package's
+    # JsonlSource has no reads file to index).
+    got, want = (_get(servers[p], "/reads?contig=17&start=0&end=9")
+                 for p in ("port", "jax"))
+    assert got == want and got[0] == 500
 
 
 def test_fixture_sources_serve_byte_identical_frames(request):
@@ -467,3 +475,72 @@ def test_cli_serve_cohort_and_pca_api_url(cohort_dir, tmp_path):
     assert "genomics_rpc_latency_seconds_count" in prom
     assert json.loads((tmp_path / "man.json").read_text())["command"] == (
         "pca")
+
+
+# -- reads --------------------------------------------------------------------
+
+READ_REFS = "11:6888648:6890648"
+READ_BASES = 500
+
+
+@pytest.fixture(scope="module")
+def reads_dir(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("served_reads"))
+    src = synthetic_cohort(8, 40, seed=5)
+    src.add_reads(
+        synthetic_reads(150, references=READ_REFS, seed=6).reads_records())
+    src.dump(root)
+    return root
+
+
+@pytest.fixture(scope="module")
+def reads_servers(reads_dir, request):
+    """Each package's server over the reads directory and over its own
+    fixture of the same records: {(package, kind): url}."""
+    def fixture(pkg):
+        if pkg == "port":
+            return synthetic_reads(150, references=READ_REFS, seed=6)
+        return jax_synthetic_reads(150, references=READ_REFS, seed=6)
+
+    return {
+        ("port", "jsonl"): _serve(service.GenomicsServiceServer,
+                                  JsonlSource(reads_dir), request),
+        ("jax", "jsonl"): _serve(jax_service.GenomicsServiceServer,
+                                 JaxJsonlSource(reads_dir), request),
+        ("port", "fixture"): _serve(service.GenomicsServiceServer,
+                                    fixture("port"), request),
+        ("jax", "fixture"): _serve(jax_service.GenomicsServiceServer,
+                                   fixture("jax"), request),
+    }
+
+
+def _reads(source, rgsid):
+    return [[vars(r) for r in source.stream_reads(rgsid, shard)]
+            for shard in shards_for_references(READ_REFS, READ_BASES)]
+
+
+@pytest.mark.parametrize("kind", ["jsonl", "fixture"])
+@pytest.mark.parametrize("client_pkg", ["port", "jax"])
+@pytest.mark.parametrize("server_pkg", ["port", "jax"])
+def test_every_client_reads_reads_from_every_server(
+        reads_servers, reads_dir, server_pkg, client_pkg, kind):
+    local = JsonlSource(reads_dir)
+    src = _client(client_pkg, reads_servers[server_pkg, kind])
+    for rgsid in ("", "fixture-readset", "another-readset"):
+        got = _reads(src, rgsid)
+        assert got == _reads(local, rgsid)
+        assert sum(map(len, got)) == (0 if rgsid == "another-readset"
+                                      else 150)
+    ref = _client("port", reads_servers["port", "jsonl"])
+    for rgsid in ("", "fixture-readset", "another-readset"):
+        _reads(ref, rgsid)
+    assert _stats(src) == _stats(ref)
+    assert src.stats.reads_read == 300
+
+
+def test_reads_lines_are_byte_identical_across_servers(reads_servers):
+    query = "/reads?contig=11&start=6888648&end=6889648"
+    bodies = {key: _get(url, query) for key, url in reads_servers.items()}
+    assert len(set(bodies.values())) == 1
+    status, body = bodies["port", "jsonl"]
+    assert status == 200 and body.count(b"\n") > 50
