@@ -151,6 +151,27 @@ on failure:
     directory behind the port's HTTP and gRPC servers and a warm mirror:
     rows bit-identical to the local run, the warm run asking for no reads;
     no scatter launch in the phase.
+17. the host ingest core (``csrc/genomics_native.cpp``, built with ``g++``
+    in phase 2 beside the kernels) and the resilience of ingest, over phase
+    12's directory, uncut: (a) the cold sidecar built by the Python parse
+    and by the native parse (timed; the two sidecars equal member by
+    member), and the native parse on 1 thread, the auto count and 4
+    threads, bit-identical; (b) warm ``sparse`` and ``auto`` with the
+    native build under ``torch.profiler`` (G phase 4's bit for bit, the
+    idle share of ``ingest+gramian``, phase 4's scatter launches) and the
+    packed block of every window built native and with numpy (ms a block,
+    byte-identical); (c) ``sparse`` and ``auto`` with ``--shard-retries 3``
+    under a plan of ``ingest.stream`` error x2, ``ingest.build`` error x2
+    and ``ingest.shard`` stall x2: G bit-identical, the scatter launches
+    the fault-free run's, every rule that the route reaches fired (the
+    ``sparse`` route builds no packed block, so ``ingest.build`` fires only
+    under ``auto``), ``genomics_rpc_retries_total{transport="ingest"}``
+    read; the same plan with ``--shard-retries 1`` raises; (d)
+    ``--speculative-ingest`` at ``--ingest-workers 4`` over 33 shards with
+    the 11th stalled 2 s once: the straggler line, G and coordinates
+    bit-identical to the run without speculation, both wall-clocks; (e)
+    ``tools/ingest_workers.py``'s builder-thread table (1, 2, 4, 8 threads,
+    native and numpy, one rep).
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -2493,6 +2514,261 @@ def pairhmm_and_reads(torch, dev):
     return launches
 
 
+# -- phase 17: the host ingest core and its resilience -----------------------
+
+
+def stage_idle(prof, stage="ingest+gramian"):
+    """The device's idle share of one stage range of a profile, or None
+    where the profile holds no CUDA event."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    device = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA
+              and e.name not in ANNOTATIONS]
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == stage and e.device_type == DeviceType.CPU]
+    if not device or not ranges:
+        return None
+    lo, hi = ranges[0]
+    return 1 - merged_busy_us(device, lo, hi) / (hi - lo)
+
+
+def sidecars_equal(a, b) -> bool:
+    """Two sidecars' members equal, name for name, dtype for dtype."""
+    return sorted(a) == sorted(b) and all(
+        np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+        and np.array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                           equal_nan=np.asarray(a[k]).dtype.kind == "f")
+        for k in a)
+
+
+def host_ingest_core(torch, root, g_ref, want, windows, phase4_launches):
+    """Phase 17: the native host core and ingest resilience over phase 12's
+    directory. Returns the scatter launches of each ``sparse`` run."""
+    from spark_examples_tpu_torch import obs
+    from spark_examples_tpu_torch.arrays.blocks import packed_block_from_csr
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.sources import (
+        SIDECAR_BASENAME,
+        JsonlSource,
+        _CsrCohort,
+    )
+    from spark_examples_tpu_torch.resilience import faults
+    from spark_examples_tpu_torch.tools.ingest_workers import (
+        builder_thread_table,
+    )
+    from spark_examples_tpu_torch.utils import concurrency
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
+    sidecar = os.path.join(root, SIDECAR_BASENAME)
+    numbers = {}
+    by_leg = {}
+
+    def coords_err(result):
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), "coordinates must be finite")
+        return float(np.abs(coords - want).max())
+
+    print("  (a) the cold sidecar build, native against Python", flush=True)
+    open_fn = JsonlSource(root)._open
+    builds = {}
+    for name, native in (("python", False), ("native", True)):
+        if os.path.exists(sidecar):
+            os.unlink(sidecar)
+        t0 = time.perf_counter()
+        builds[name] = _CsrCohort.load_or_build(root, open_fn,
+                                                native=native)._d
+        numbers[f"cold_build_{name}_s"] = time.perf_counter() - t0
+    equal = sidecars_equal(builds["native"], builds["python"])
+    size = os.path.getsize(os.path.join(root, "variants.jsonl"))
+    print(f"    variants.jsonl {size} bytes: Python parse "
+          f"{numbers['cold_build_python_s']:.3f} s, native "
+          f"{numbers['cold_build_native_s']:.3f} s "
+          f"({numbers['cold_build_python_s'] / numbers['cold_build_native_s']:.2f}x); "
+          f"the two sidecars equal member by member: {equal}")
+    check(equal, "the native and Python sidecars differ")
+    ids = builds["native"]["callset_ids"].tolist()
+    parses = {}
+    for threads in (1, 0, 4):
+        t0 = time.perf_counter()
+        parses[threads] = _CsrCohort._parse_native(root, ids, threads)
+        numbers[f"parse_threads_{threads}_s"] = time.perf_counter() - t0
+        check(parses[threads] is not None,
+              f"the native parser refused phase 12's file ({threads})")
+    same = all(
+        all((x == y) if isinstance(x, list) else
+            (x.dtype == y.dtype and np.array_equal(x, y, equal_nan=True))
+            for x, y in zip(parses[1], parses[t]))
+        for t in (0, 4))
+    print(f"    native parse alone: 1 thread "
+          f"{numbers['parse_threads_1_s']:.3f} s, auto "
+          f"{numbers['parse_threads_0_s']:.3f} s, 4 threads "
+          f"{numbers['parse_threads_4_s']:.3f} s; bit-identical: {same}")
+    check(same, "the threaded native parse differs from one thread's")
+
+    print("  (b) warm ingest+gramian with the native build", flush=True)
+    for mode in ("sparse", "auto"):
+        reg = obs.get_registry()
+        hist = reg.histogram("ingest_block_build_seconds").labels(
+            mode="native")
+        n0, s0 = hist.count, hist.sum
+        driver, result, g, launches, _, prof = drive_file(
+            torch, JsonlSource(root), f"{mode}, warm, native build",
+            profiled=True, pca_mode=mode, **base)
+        idle = stage_idle(prof)
+        err = coords_err(result)
+        numbers[f"warm_{mode}_s"] = driver.timer.seconds["ingest+gramian"]
+        numbers[f"warm_{mode}_idle"] = idle
+        blocks = hist.count - n0
+        if blocks:
+            numbers["driver_native_ms_per_block"] = (
+                (hist.sum - s0) / blocks * 1e3)
+        print(f"    G bit-identical to phase 12's: {same_g(g, g_ref)}; "
+              f"coordinates {err:.3e}; idle share of ingest+gramian "
+              f"{'not measured' if idle is None else f'{idle:.4f}'}; "
+              f"native blocks built {blocks}")
+        check(same_g(g, g_ref), f"warm {mode}: G is not phase 12's")
+        check(err <= COORD_TOL, f"warm {mode}: coordinates beyond the bar")
+        if mode == "sparse":
+            check(launches == phase4_launches,
+                  f"warm sparse: {launches} launches, phase 4 "
+                  f"{phase4_launches}")
+            by_leg["sparse, warm, native build (phase 17b)"] = launches
+        else:
+            check(blocks == len(windows),
+                  f"auto built {blocks} native blocks for "
+                  f"{len(windows)} windows")
+    for name, native in (("native", True), ("python", False)):
+        times = []
+        for idx, lens in windows:
+            t0 = time.perf_counter()
+            packed_block_from_csr(idx, lens, N_SAMPLES, lens.size, native)
+            times.append(time.perf_counter() - t0)
+        numbers[f"{name}_ms_per_block"] = float(np.median(times)) * 1e3
+    packs_equal = all(
+        np.array_equal(packed_block_from_csr(i, l, N_SAMPLES, l.size),
+                       packed_block_from_csr(i, l, N_SAMPLES, l.size, False))
+        for i, l in windows)
+    print(f"    packed block, median of {len(windows)} windows: native "
+          f"{numbers['native_ms_per_block']:.3f} ms, Python "
+          f"{numbers['python_ms_per_block']:.3f} ms; byte-identical: "
+          f"{packs_equal}")
+    check(packs_equal, "the native and numpy packed blocks differ")
+
+    print("  (c) sparse and auto under a fault plan with --shard-retries 3",
+          flush=True)
+    rules = [dict(site="ingest.stream", kind="error", times=2),
+             dict(site="ingest.build", kind="error", times=2),
+             dict(site="ingest.shard", kind="stall", times=2)]
+    for mode in ("sparse", "auto"):
+        plan = faults.FaultPlan.from_dict({"seed": 17, "rules": rules})
+        with obs.telemetry_session(command="chip_smoke") as session, \
+                faults.active_plan(plan):
+            driver, result, g, launches, _, _ = drive_file(
+                torch, JsonlSource(root), f"{mode}, faulted, 3 attempts",
+                pca_mode=mode, shard_retries=3, **base)
+            snap = session.registry.snapshot()
+        retries = sum(v for k, v in snap["counters"].items()
+                      if k.startswith("genomics_rpc_retries_total")
+                      and 'transport="ingest"' in k)
+        fired = plan.fired_by_site()
+        # The sparse route builds no packed block: its dense windows are
+        # densified inside the sparse engine, so ingest.build cannot fire.
+        expect = sum(r["times"] for r in rules
+                     if mode == "auto" or r["site"] != "ingest.build")
+        err = coords_err(result)
+        print(f"    fired {plan.fired_total} ({json.dumps(fired)}), "
+              f"expected {expect}; genomics_rpc_retries_total"
+              f"{{transport=\"ingest\"}} {retries:.0f}; G bit-identical: "
+              f"{same_g(g, g_ref)}; coordinates {err:.3e}")
+        numbers[f"faulted_{mode}_fired"] = plan.fired_total
+        numbers[f"faulted_{mode}_retries"] = retries
+        numbers[f"faulted_{mode}_s"] = driver.timer.seconds["ingest+gramian"]
+        check(plan.fired_total == expect,
+              f"faulted {mode}: fired {plan.fired_total}, expected {expect}")
+        check(retries > 0, f"faulted {mode}: no ingest retry was counted")
+        check(same_g(g, g_ref), f"faulted {mode}: G is not phase 12's")
+        check(err <= COORD_TOL, f"faulted {mode}: coordinates beyond bar")
+        if mode == "sparse":
+            check(launches == phase4_launches,
+                  f"faulted sparse: {launches} launches, the fault-free "
+                  f"run {phase4_launches}")
+            by_leg["sparse, faulted, 3 attempts (phase 17c)"] = launches
+    plan = faults.FaultPlan.from_dict({"seed": 17, "rules": rules})
+    raised = None
+    try:
+        with faults.active_plan(plan):
+            drive_file(torch, JsonlSource(root), "sparse, faulted, 1 attempt",
+                       pca_mode="sparse", shard_retries=1, **base)
+    except IOError as e:
+        raised = e
+    print(f"    --shard-retries 1 under the same plan raised: {raised!r}")
+    check(raised is not None, "--shard-retries 1 must raise under the plan")
+
+    print("  (d) --speculative-ingest with one stalled shard", flush=True)
+    # 33 shards of about 2,000 variants: small shards keep the straggler
+    # threshold (SPECULATION_MULTIPLIER x the median shard time, and the
+    # four extraction threads share the GIL) well under the 2 s stall;
+    # with shards twice the size it can come near the stall, which then
+    # ends before a duplicate is launched.
+    shards = PcaConfig(bases_per_partition=2_500).shards()
+    late = str(shards[10])
+    spec_kw = dict(pca_mode="sparse", bases_per_partition=2_500,
+                   ingest_workers=4, **base)
+    results = {}
+    for name, speculate in (("plain", False), ("speculative", True)):
+        plan = faults.FaultPlan.from_dict({"seed": 1, "rules": [dict(
+            site="ingest.shard", kind="stall", times=1, stall_s=2.0,
+            match=late)]})
+        err_out = io.StringIO()
+        t0 = time.perf_counter()
+        with faults.active_plan(plan), contextlib.redirect_stderr(err_out):
+            driver, result, g, launches, _, _ = drive_file(
+                torch, JsonlSource(root), f"sparse, {name}, shard {late} "
+                "stalled 2 s", speculative_ingest=speculate, **spec_kw)
+        wall = time.perf_counter() - t0
+        results[name] = (result, g)
+        line = (f"Speculating straggler shard {late} (duplicate attempt "
+                "launched).")
+        seen = line in err_out.getvalue()
+        numbers[f"{name}_wall_s"] = wall
+        numbers[f"{name}_ingest_s"] = driver.timer.seconds["ingest+gramian"]
+        print(f"    {name}: wall-clock {wall:.3f} s, ingest+gramian "
+              f"{driver.timer.seconds['ingest+gramian']:.3f} s, "
+              f"{len(shards)} shards, speculated "
+              f"{driver._speculated_shards}, the line seen: {seen}")
+        check(plan.fired_total == 1, f"{name}: the stall did not fire")
+        check(launches == phase4_launches,
+              f"{name}: {launches} launches, phase 4 {phase4_launches}")
+        by_leg[f"sparse, {name}, stalled shard (phase 17d)"] = launches
+        check(seen == speculate and driver._speculated_shards == speculate,
+              f"{name}: speculation {'missing' if speculate else 'ran'}")
+    check(same_g(results["speculative"][1], results["plain"][1])
+          and same_g(results["plain"][1], g_ref),
+          "speculation changed G")
+    coords = {k: np.array([[a, b] for _, a, b in r])
+              for k, (r, _) in results.items()}
+    check(np.array_equal(coords["plain"], coords["speculative"]),
+          "speculation changed the coordinates")
+    print(f"    G and coordinates bit-identical with and without "
+          f"speculation (SPECULATION_MIN_COMPLETED = "
+          f"{concurrency.SPECULATION_MIN_COMPLETED})")
+
+    print("  (e) builder threads, native and numpy (tools/ingest_workers.py,"
+          " one rep)", flush=True)
+    table = builder_thread_table(root, reps=1)
+    numbers["builders"] = {
+        f"{'native' if n else 'python'}_x{t}": [
+            round(row["s"], 6), round(row["ms_per_block"], 4)]
+        for (n, t), row in table.items()}
+    print("  phase 17 numbers: " + json.dumps(numbers))
+    return by_leg
+
+
 def host_windows(source, conf, indexes):
     """The driver's CSR windows, rebuilt on the host from the same source."""
     from spark_examples_tpu_torch.arrays.blocks import windows_from_calls
@@ -2544,8 +2820,9 @@ def main() -> int:
 
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    cuda_build.build(["scatter_pairs"])
-    print(f"  scatter_pairs.cu built in {time.perf_counter() - t0:.2f} s")
+    cuda_build.build(["scatter_pairs", "genomics_native"])
+    print(f"  scatter_pairs.cu (nvcc) and genomics_native.cpp (g++) built "
+          f"together in {time.perf_counter() - t0:.2f} s")
     report = ptxas_report(cuda_build.build_log("scatter_pairs"))
     check(report, "the compiler reported no kernel resources")
     for line in report:
@@ -2765,6 +3042,15 @@ def main() -> int:
     by_leg["pairhmm and reads examples (phase 16)"] = pairhmm_and_reads(
         torch, dev)
     print(f"  phase 16 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 17. the host ingest core and its resilience: the native "
+          "parse/pack/hash, --shard-retries, the ingest.* faults and "
+          "--speculative-ingest (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    by_leg.update(host_ingest_core(torch, cohort_dir, g_ref, want, windows,
+                                   launches))
+    print(f"  phase 17 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{

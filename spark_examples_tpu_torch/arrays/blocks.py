@@ -16,10 +16,19 @@ from __future__ import annotations
 import collections
 import itertools
 import time
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import (
+    Callable,
+    Iterable,
+    Iterator,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 
+from spark_examples_tpu_torch import native as native_core
 from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.utils.concurrency import (
     completion_parallel_map,
@@ -173,13 +182,18 @@ def _densify_window(
 
 
 def densify_calls(
-    calls: Sequence[Sequence[int]], n_samples: int, width: int = None
+    calls: Sequence[Sequence[int]],
+    n_samples: int,
+    width: int = None,
+    native: bool = True,
 ) -> np.ndarray:
     """Per-variant index lists → one (n_samples, width) 0/1 int8 block.
 
     The hot host loop of ingest: the lists become one CSR window and the
-    block is filled by one vectorized scatter (:func:`_densify_window`),
-    not a write per variant. Out-of-range indices raise.
+    block is filled by the native core's ``pack_calls``, or with
+    ``native=False`` by one vectorized numpy scatter
+    (:func:`_densify_window`); the two are byte-identical. Out-of-range
+    indices raise on both.
     """
     width = width if width is not None else len(calls)
     if width < len(calls):
@@ -193,7 +207,20 @@ def densify_calls(
         count=int(lens.sum()),
     )
     _check_indices(idx, n_samples)
-    return _densify_window(idx, lens, n_samples, width)
+    if not native:
+        return _densify_window(idx, lens, n_samples, width)
+    offsets = np.zeros(lens.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    x = np.zeros((n_samples, width), dtype=np.int8)
+    native_core.load().pack_calls(
+        idx.ctypes.data,
+        offsets.ctypes.data,
+        lens.size,
+        n_samples,
+        width,
+        x.ctypes.data,
+    )
+    return x
 
 
 def blocks_from_calls(
@@ -238,27 +265,64 @@ def packed_block_from_csr(
     lens: np.ndarray,
     n_samples: int,
     block_variants: int = DEFAULT_BLOCK_VARIANTS,
+    native: bool = True,
 ) -> np.ndarray:
     """One CSR window → one BIT-PACKED ``(n_samples, ⌈Vb/8⌉)`` block.
 
     The build stage of the CSR ingest (an :data:`~spark_examples_tpu_torch.
     utils.tracing.INGEST_BUILD` range in the calling builder thread): the
-    JAX package's densify + ``np.packbits`` composition, byte for byte.
-    (Its native ``csr_to_packed_blocks`` scatter, which skips the int8
-    intermediate, is not ported.) Out-of-range indices raise.
+    native core's ``csr_to_packed_blocks`` scatters carrier bits straight
+    into packbits layout — no int8 densify intermediate — with the GIL
+    released for the whole scatter, which is what lets builder threads
+    scale. ``native=False`` runs the densify + ``np.packbits``
+    composition instead, byte for byte the same block. Out-of-range
+    indices raise on both.
     """
     window_idx = np.ascontiguousarray(window_idx, dtype=np.int64)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
-    _check_indices(window_idx, n_samples)
-    t0 = time.perf_counter()
-    with obs.span(INGEST_BUILD, mode="python", variants=int(lens.size)):
-        out = np.packbits(
-            _densify_window(
-                window_idx, lens, n_samples, block_variants
-            ).astype(bool),
-            axis=1,
+    # The native scatter trusts these sizes: a window wider than the block
+    # or lens that disagree with the indices would write or read past a
+    # buffer.
+    if lens.size > block_variants:
+        raise ValueError(
+            f"window of {lens.size} variants > block of {block_variants}"
         )
-    _record_block_built("python", time.perf_counter() - t0)
+    if (lens.size and lens.min() < 0) or int(lens.sum()) != window_idx.size:
+        raise ValueError(
+            f"window lens (sum {int(lens.sum())}) do not match its "
+            f"{window_idx.size} indices"
+        )
+    _check_indices(window_idx, n_samples)
+    mode = "native" if native else "python"
+    t0 = time.perf_counter()
+    with obs.span(INGEST_BUILD, mode=mode, variants=int(lens.size)):
+        if native:
+            offsets = np.zeros(lens.size + 1, dtype=np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            out = np.zeros((n_samples, (block_variants + 7) // 8), np.uint8)
+            rc = native_core.load().csr_to_packed_blocks(
+                window_idx.ctypes.data,
+                offsets.ctypes.data,
+                lens.size,
+                n_samples,
+                out.shape[1],
+                out.ctypes.data,
+            )
+            if rc != 0:
+                # Unreachable after _check_indices; kept so a corrupt
+                # window can never silently drop a carrier.
+                raise ValueError(
+                    f"sample index out of range for N={n_samples} "
+                    "in native csr_to_packed_blocks"
+                )
+        else:
+            out = np.packbits(
+                _densify_window(
+                    window_idx, lens, n_samples, block_variants
+                ).astype(bool),
+                axis=1,
+            )
+    _record_block_built(mode, time.perf_counter() - t0)
     return out
 
 
@@ -279,6 +343,10 @@ def packed_blocks_from_csr(
     n_samples: int,
     block_variants: int = DEFAULT_BLOCK_VARIANTS,
     workers: int = 1,
+    attempt: Optional[
+        Callable[[Callable[[], np.ndarray], str], np.ndarray]
+    ] = None,
+    native: bool = True,
 ) -> Iterator[np.ndarray]:
     """Stream per-shard CSR pairs into BIT-PACKED blocks, ``workers``
     at a time.
@@ -290,14 +358,26 @@ def packed_blocks_from_csr(
     bit-identical under any block arrival order. ``workers <= 1`` is the
     serial in-order path, byte-identical to
     ``pack_indicator_block(b) for b in blocks_from_csr(...)``.
-    """
 
-    def build(window):
-        window_idx, lens = window
-        return packed_block_from_csr(
-            window_idx, lens, n_samples, block_variants
+    ``attempt(thunk, key)`` wraps each block build (a pure, idempotent
+    function of its window; ``key`` is the window's index as a string):
+    the driver passes its retry and ``ingest.build`` fault-seam wrapper,
+    so a builder dying mid-block is retried instead of the block being
+    dropped.
+    """
+    if attempt is None:
+        def attempt(thunk, _key):
+            return thunk()
+
+    def build(numbered):
+        i, (window_idx, lens) = numbered
+        return attempt(
+            lambda: packed_block_from_csr(
+                window_idx, lens, n_samples, block_variants, native
+            ),
+            str(i),
         )
 
     yield from completion_parallel_map(
-        build, csr_windows(csr_iter, block_variants), workers
+        build, enumerate(csr_windows(csr_iter, block_variants)), workers
     )

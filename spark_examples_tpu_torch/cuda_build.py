@@ -1,17 +1,20 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host core.
 
 Each kernel source ``csrc/<name>.cu`` exposes a plain C launch function and
-is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
-under ``_build/`` in this package, at first use, from the sources in the
-checkout only. The library's file name carries a hash of its source and of
-the compiler flags, so an edited source is rebuilt and a stale library is
-never loaded. Libraries are loaded with ``ctypes``: no PyTorch headers are
-compiled, which keeps a build at seconds. The compiler's report of each
-kernel's registers, shared memory and spills (``-Xptxas -v``) is kept
-beside its library and read back with :func:`build_log`.
+is compiled by ``nvcc`` for Hopper (``sm_90a``); the native host core
+``csrc/genomics_native.cpp`` (host C++: the ingest parse, pack and hash
+loops) is compiled by ``g++`` (``-O3 -shared -fPIC -std=c++17 -pthread``).
+Each source becomes its own shared library under ``_build/`` in this
+package, at first use, from the sources in the checkout only. The
+library's file name carries a hash of its source and of the compiler
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Libraries are loaded with ``ctypes``: no PyTorch headers are compiled,
+which keeps a build at seconds. The compiler's output for each source (for
+a kernel, its ``-Xptxas -v`` report of registers, shared memory and
+spills) is kept beside its library and read back with :func:`build_log`.
 
 Nothing here runs at import time; the CPU tests import the package without
-a compiler.
+a compiler, and build only the host core (``g++``), never a ``.cu``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import subprocess
 import threading
 from typing import Dict, Sequence
 
-__all__ = ["build", "build_log", "load", "nvcc_path"]
+__all__ = ["build", "build_log", "cxx_path", "load", "nvcc_path"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -41,6 +44,8 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
+
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -66,18 +71,46 @@ def nvcc_path() -> str:
     )
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH. Raises if
+    neither exists."""
+    for candidate in (os.environ.get("CXX"), "g++"):
+        found = candidate and shutil.which(candidate)
+        if found:
+            return found
+    raise RuntimeError(
+        "g++ not found (set CXX or put g++ on PATH); the port's native "
+        "host core is built from csrc/genomics_native.cpp at first use"
+    )
+
+
+def _source(name: str) -> str:
+    """``csrc/<name>.cu`` (a kernel) or ``csrc/<name>.cpp`` (host code)."""
+    for ext in (".cu", ".cpp"):
+        path = os.path.join(CSRC_DIR, name + ext)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _flags(src: str) -> tuple:
+    return NVCC_FLAGS if src.endswith(".cu") else CXX_FLAGS
+
+
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+    src = _source(name)
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(src)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every named kernel source that has no current library.
+    """Compile every named source that has no current library.
 
-    One ``nvcc`` per source, all started together, so the wall-clock of a
-    build is that of the slowest source. Each compiles into a temporary
+    One compiler (``nvcc`` for a ``.cu``, ``g++`` for a ``.cpp``) per
+    source, all started together, so the wall-clock of a build is that of
+    the slowest source. Each compiles into a temporary
     file renamed into place when done, so a concurrent or interrupted build
     never leaves a torn library behind. Returns name -> library path;
     raises with the compiler's output if any source fails.
@@ -86,15 +119,15 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
-    nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name, path in todo.items():
-        tmp = f"{path}.{os.getpid()}.tmp"
+        src = _source(name)
+        compiler = nvcc_path() if src.endswith(".cu") else cxx_path()
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         procs[name] = (
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(CSRC_DIR, f"{name}.cu")],
+                [compiler, *_flags(src), "-o", tmp, src],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
             ),
@@ -105,28 +138,33 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+            failures.append(
+                f"{os.path.basename(_source(name))}:\n"
+                f"{out.decode(errors='replace')}"
+            )
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
-            with open(f"{path}.log", "wb") as f:
+            with open(f"{tmp}.log", "wb") as f:
                 f.write(out)
+            os.replace(f"{tmp}.log", f"{path}.log")
             os.replace(tmp, path)
     if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        raise RuntimeError("the build failed for " + "\n".join(failures))
     return paths
 
 
 def build_log(name: str) -> str:
-    """The compiler's output for kernel ``name``'s current library (the
-    ``-Xptxas -v`` resource report), building it first if needed."""
+    """The compiler's output for source ``name``'s current library (for a
+    kernel, the ``-Xptxas -v`` resource report), building it first if
+    needed."""
     with open(f"{build([name])[name]}.log", encoding="utf-8",
               errors="replace") as f:
         return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of source ``name``, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -8,11 +8,20 @@ algorithm, as Guava does) over the same byte stream Guava's hasher
 produces: UTF-8 bytes for ``putString``, 8-byte little-endian for
 ``putLong``; the hex digest matches Guava's ``HashCode.toString()``
 (little-endian byte order of h1 then h2).
+
+The digests come from the native core (``csrc/genomics_native.cpp``: one
+call per digest, or one call per batch in :func:`hash_payloads`); the
+pure-Python body below is the reference implementation, byte-identical,
+reached with ``native=False``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 from typing import Optional
+
+from spark_examples_tpu_torch import native as native_core
 
 __all__ = ["murmur3_x64_128", "variant_identity", "variant_identities"]
 
@@ -34,9 +43,14 @@ def _fmix64(k: int) -> int:
     return k
 
 
-def murmur3_x64_128(data: bytes, seed: int = 0) -> bytes:
-    """16-byte MurmurHash3 x64-128 digest (h1 then h2, little-endian)."""
-    return _murmur3_py(data, seed)
+def murmur3_x64_128(data: bytes, seed: int = 0, native: bool = True) -> bytes:
+    """16-byte MurmurHash3 x64-128 digest (h1 then h2, little-endian):
+    the native core's, or with ``native=False`` the pure-Python one."""
+    if not native:
+        return _murmur3_py(data, seed)
+    out = ctypes.create_string_buffer(16)
+    native_core.load().murmur3_x64_128(data, len(data), seed, out)
+    return out.raw
 
 
 def _murmur3_py(data: bytes, seed: int = 0) -> bytes:
@@ -111,19 +125,35 @@ def _identity_payload(
     )
 
 
-def hash_payloads(payloads) -> list:
+def hash_payloads(payloads, native: bool = True) -> list:
     """Hex identity keys of identity payload byte strings — the join/merge
-    hot path (one pure-Python murmur3 per payload)."""
-    return [murmur3_x64_128(p).hex() for p in payloads]
+    hot path: one native call over the concatenated payloads, or with
+    ``native=False`` one pure-Python murmur3 per payload."""
+    payloads = list(payloads)
+    if not native or not payloads:
+        return [_murmur3_py(p).hex() for p in payloads]
+    offsets = (ctypes.c_int64 * (len(payloads) + 1))(
+        *itertools.accumulate(map(len, payloads), initial=0)
+    )
+    out = ctypes.create_string_buffer(16 * len(payloads))
+    native_core.load().murmur3_x64_128_batch(
+        b"".join(payloads), offsets, len(payloads), 0, out
+    )
+    raw = out.raw
+    return [raw[i * 16 : (i + 1) * 16].hex() for i in range(len(payloads))]
 
 
-def variant_identities(variants) -> list:
+def variant_identities(variants, native: bool = True) -> list:
     """Batch identity hashing of built Variant objects."""
     return hash_payloads(
-        _identity_payload(
-            v.contig, v.start, v.end, v.reference_bases, v.alternate_bases
-        )
-        for v in variants
+        (
+            _identity_payload(
+                v.contig, v.start, v.end, v.reference_bases,
+                v.alternate_bases,
+            )
+            for v in variants
+        ),
+        native,
     )
 
 

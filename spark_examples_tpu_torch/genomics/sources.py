@@ -29,6 +29,7 @@ gives the reference (VariantsRDD.scala:210-211).
 from __future__ import annotations
 
 import bisect
+import ctypes
 import gzip
 import io
 import json
@@ -44,6 +45,7 @@ from typing import Iterator, List, Optional, Protocol, Sequence
 import numpy as np
 from numpy.lib import format as npformat
 
+from spark_examples_tpu_torch import native as native_core
 from spark_examples_tpu_torch.genomics.datasets import (
     _variant_triples,
     af_filter,
@@ -61,6 +63,7 @@ from spark_examples_tpu_torch.genomics.types import (
     Variant,
     normalize_contig,
 )
+from spark_examples_tpu_torch.resilience.faults import FaultPlan, FaultRule
 from spark_examples_tpu_torch.utils.stats import IoStats
 from spark_examples_tpu_torch.utils.tracing import rpc_range
 
@@ -376,6 +379,25 @@ class _SortedIndex:
         return items[lo:hi]
 
 
+class _FailOnceShards:
+    """The fail-once surface (``src._fail_once.add(shard)``) on the
+    resilience fault plane: each added shard becomes a one-shot
+    ``fixture.stream`` error rule on the source's plan."""
+
+    def __init__(self, plan: FaultPlan):
+        self._plan = plan
+
+    def add(self, shard) -> None:
+        self._plan.add_rule(
+            FaultRule(
+                site="fixture.stream",
+                kind="error",
+                times=1,
+                match=str(shard),
+            )
+        )
+
+
 class FixtureSource:
     """In-memory fake genomics service.
 
@@ -392,11 +414,20 @@ class FixtureSource:
         callsets: Sequence[Callset] = (),
         reads: Sequence = (),
         stats: Optional[IoStats] = None,
+        fail_shards: Sequence[Shard] = (),
     ):
         self._variants = list(variants)
         self._callsets = list(callsets)
         self._reads = list(reads)
         self.stats = stats if stats is not None else IoStats()
+        # Fault injection rides the resilience fault plane (a per-source
+        # FaultPlan at site "fixture.stream"): ``fail_shards`` become
+        # one-shot error rules keyed by shard, exercising the retry path
+        # the reference delegates to Spark task re-execution.
+        self.faults = FaultPlan()
+        self._fail_once = _FailOnceShards(self.faults)
+        for shard in fail_shards:
+            self._fail_once.add(shard)
         self._variant_idx: Optional[_SortedIndex] = None
         self._read_idx: Optional[_SortedIndex] = None
         # Served fixtures take concurrent shard requests (threaded HTTP
@@ -423,10 +454,18 @@ class FixtureSource:
         ]
 
     def _shard_items(self, shard: Shard) -> list:
-        """Stats/index preamble shared by both variant streaming paths."""
+        """Stats/fault-injection/index preamble shared by both variant
+        streaming paths."""
         self.stats.add(
             partitions=1, requests=1, reference_bases=shard.range
         )
+        try:
+            # Per-source fault plane (see __init__): one-shot fail_shards
+            # rules plus whatever a test registered on ``self.faults``.
+            self.faults.inject("fixture.stream", key=str(shard))
+        except IOError as e:
+            self.stats.add(io_exceptions=1)
+            raise IOError(f"injected stream failure for {shard}") from e
         if self._variant_idx is None:
             with self._idx_lock:
                 if self._variant_idx is None:
@@ -1108,13 +1147,22 @@ class _CsrCohort:
         return complete and bool(ident) and ident == ok
 
     @classmethod
-    def load_or_build(cls, root: str, open_fn) -> "_CsrCohort":
+    def load_or_build(
+        cls, root: str, open_fn, native: bool = True
+    ) -> "_CsrCohort":
         """The sidecar of ``root``: mapped when its digest matches the
         interchange files (or, in a completed cohort mirror, when the
         mirror protocol vouches for it), else rebuilt by one parse and
         written next to them (tmp file, then an atomic ``os.replace``; a
         read-only cohort directory serves the rebuilt arrays from
-        memory)."""
+        memory).
+
+        The parse is the native core's (:meth:`_parse_native`, on its
+        auto thread count) unless the input is gzipped or the native
+        parser refuses it, and the Python parse
+        (:meth:`_parse_python`) then; ``native=False`` takes the Python
+        parse and the Python identity hash throughout. Either way the
+        sidecar is the same, member for member."""
         sidecar = os.path.join(root, SIDECAR_BASENAME)
         src_paths = []
         for name in ("variants.jsonl", "callsets.json"):
@@ -1159,12 +1207,15 @@ class _CsrCohort:
                 f"{MIRROR_SIDECAR_OK} marker (re-mirror the cohort)"
             )
 
-        # One full parse to FILE-ORDERED columnar arrays, then one
-        # vectorized assembly into the per-contig sorted layout.
+        # One full parse (native C++ when possible, Python otherwise) to
+        # FILE-ORDERED columnar arrays, then one vectorized assembly into
+        # the per-contig sorted layout.
         with open_fn("callsets.json") as f:
             callset_ids = [r["id"] for r in json.load(f)]
-        parsed = cls._parse_python(open_fn, callset_ids)
-        data = cls._assemble(digest, callset_ids, *parsed)
+        parsed = cls._parse_native(root, callset_ids) if native else None
+        if parsed is None:
+            parsed = cls._parse_python(open_fn, callset_ids)
+        data = cls._assemble(digest, callset_ids, *parsed, native=native)
         tmp = f"{sidecar}.{os.getpid()}.tmp"
         try:
             with open(tmp, "wb") as f:
@@ -1178,10 +1229,74 @@ class _CsrCohort:
         return cls(data)
 
     @staticmethod
+    def _parse_native(root: str, callset_ids, threads: int = 0):
+        """The native core's parse of an uncompressed variants.jsonl on
+        ``threads`` threads (0 = the core's auto rule), or None for the
+        Python parse to decide: a ``.gz`` input (the native parser does
+        not decompress) or any parse anomaly (the native parser handles
+        the interchange schema and refuses everything else, so it is fast
+        without ever being wrong). The arrays are
+        :meth:`_parse_python`'s, and the same for any thread count."""
+        path = os.path.join(root, "variants.jsonl")
+        # _open()'s preference: when a .gz exists it is the authoritative
+        # file.
+        if os.path.exists(path + ".gz") or not os.path.exists(path):
+            return None
+        lib = native_core.load()
+        encoded = [cid.encode() for cid in callset_ids]
+        offs = np.zeros(len(encoded) + 1, dtype=np.int64)
+        if encoded:
+            np.cumsum([len(e) for e in encoded], out=offs[1:])
+        res = lib.parse_cohort_jsonl(
+            path.encode(), b"".join(encoded), offs.ctypes.data,
+            len(encoded), int(threads),
+        )
+        try:
+            c = res.contents
+            if c.error != 0:
+                return None
+            nv, nc = c.n_variants, c.n_calls
+
+            def arr(ptr, n, dtype):
+                # Copied out: the struct's memory is freed below.
+                if n == 0:
+                    return np.zeros(0, dtype=dtype)
+                return np.ctypeslib.as_array(ptr, shape=(int(n),)).astype(
+                    dtype, copy=True
+                )
+
+            def table(blob_ptr, offs_ptr, n):
+                if n == 0:
+                    return []
+                offs = arr(offs_ptr, int(n) + 1, np.int64)
+                raw = ctypes.string_at(blob_ptr, int(offs[-1]))
+                return [
+                    raw[offs[i] : offs[i + 1]].decode()
+                    for i in range(int(n))
+                ]
+
+            return (
+                table(c.contig_blob, c.contig_offs, c.n_contigs),
+                arr(c.contig_code, nv, np.int32),
+                arr(c.starts, nv, np.int64),
+                table(c.vsid_blob, c.vsid_offs, c.n_vsids),
+                arr(c.vsid_code, nv, np.int32),
+                arr(c.afs, nv, np.float64),
+                arr(c.offsets, nv + 1, np.int64),
+                arr(c.ords, nc, np.int32),
+                [],
+                arr(c.ends, nv, np.int64),
+                table(c.ref_blob, c.ref_offs, nv),
+                table(c.alt_blob, c.alt_offs, nv),
+            )
+        finally:
+            lib.cohort_csr_free(res)
+
+    @staticmethod
     def _parse_python(open_fn, callset_ids):
         """The parse: json.loads per line -> file-ordered columnar
-        arrays (the JAX package's pure-Python parse; its native C++ parser
-        produces the same arrays)."""
+        arrays (the JAX package's pure-Python parse; the native parser,
+        :meth:`_parse_native`, produces the same arrays)."""
         ord_of = {cid: i for i, cid in enumerate(callset_ids)}
         # Callset ids absent from callsets.json get ordinals past the
         # known table: the STAGED path only raises KeyError when a
@@ -1282,6 +1397,7 @@ class _CsrCohort:
         ends=None,
         refs=None,
         alts=None,
+        native=True,
     ):
         """File-ordered arrays -> per-contig sorted sidecar layout.
 
@@ -1372,7 +1488,7 @@ class _CsrCohort:
                     [alts[int(j)]] if alts[int(j)] else None,
                 )
             )
-        for slot, h in zip(slots, hash_payloads(payloads)):
+        for slot, h in zip(slots, hash_payloads(payloads, native)):
             keys[slot] = h
         return {
             "digest": np.str_(digest),

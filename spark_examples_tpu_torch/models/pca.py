@@ -10,9 +10,13 @@ report_io_stats — for a single-process, meshless, uncheckpointed run:
   offsets)`` CSR pairs straight off an on-disk cohort's sidecar (the
   CSR-direct tier of ``--input-path``, in ``--ingest-order``), per-variant
   carrier lists from the source (the fused fast path, shards extracted on
-  ``--ingest-workers`` threads in manifest order), keyed identity triples
-  joined or merged across two or more ``--variant-set-id`` datasets, or
-  the staged Variant path under ``--debug-datasets``;
+  ``--ingest-workers`` threads in manifest order, stragglers re-executed
+  under ``--speculative-ingest``), keyed identity triples joined or
+  merged across two or more ``--variant-set-id`` datasets, or the staged
+  Variant path under ``--debug-datasets``; every shard extraction and
+  block build retried up to ``--shard-retries`` attempts within
+  ``--shard-retry-deadline`` (the ``ingest.shard``, ``ingest.build`` and
+  ``ingest.stream`` fault sites sit inside that loop);
 - cohort restriction (``--samples``/``--exclude-samples``): ingest
   extracts in the full callset frame and carriers are remapped or dropped
   at the window boundary, so G, the finish and the emission are sized by
@@ -56,7 +60,7 @@ from typing import Iterable, Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch import obs
+from spark_examples_tpu_torch import obs, resilience
 from spark_examples_tpu_torch.arrays.blocks import (
     blocks_from_calls,
     csr_windows,
@@ -86,6 +90,7 @@ from spark_examples_tpu_torch.ops.sketch import (
     sketch_panel_blockwise,
 )
 from spark_examples_tpu_torch.ops.sparse import sparse_gramian_blockwise
+from spark_examples_tpu_torch.resilience import faults
 from spark_examples_tpu_torch.utils.config import (
     INGEST_ORDERS,
     PCA_MODES,
@@ -230,6 +235,7 @@ class VariantsPcaDriver:
         # stage timings.
         self.g = None
         self.timer = None
+        self._speculated_shards = 0  # straggler duplicates launched
 
     # -- stage 1: ingest -----------------------------------------------------
 
@@ -335,15 +341,60 @@ class VariantsPcaDriver:
             return self.conf.ingest_workers
         return min(os.cpu_count() or 1, 4)
 
+    def _retrying(self, site: str, key: str, method: str, fn):
+        """Run one idempotent unit of ingest under the resilience layer:
+        the ``site`` fault seam, then up to ``--shard-retries`` attempts,
+        each drawing down the ``--shard-retry-deadline`` budget. Default
+        (1 attempt, no fault plan): ``fn()`` with no overhead."""
+        retries = max(1, self.conf.shard_retries)
+        if retries <= 1 and faults.current_plan() is None:
+            return fn()
+
+        def attempt():
+            faults.inject(site, key=key)
+            return fn()
+
+        return resilience.call_with_retry(
+            attempt,
+            resilience.RetryPolicy(
+                max_attempts=retries,
+                base_delay=0.05,
+                deadline=self.conf.shard_retry_deadline,
+            ),
+            resilience.classify_ingest,
+            transport="ingest",
+            method=method,
+        )
+
+    def _build_attempt(self, thunk, key: str):
+        """One packed-block build (keyed by its window's index) behind the
+        ``ingest.build`` seam (a builder worker dying mid-block). Sound
+        because the build is a pure function of its already-sliced
+        window: a retry yields a byte-identical block, so a builder death
+        changes wall-clock, never G — and a block is either built or the
+        run fails loudly."""
+        return self._retrying("ingest.build", key, "build", thunk)
+
+    def _shard_attempt(self, shard, fn):
+        """One shard extraction behind the ``ingest.shard`` seam (worker
+        death = an injected error, a slow lane = an injected stall).
+        Re-execution is sound because the manifest is deterministic and
+        per-shard ingest idempotent (STRICT boundaries): a retried shard
+        yields the same records, so results never change."""
+        return self._retrying("ingest.shard", str(shard), "shard", fn)
+
     def _parallel_shard_calls(
         self, vsid: str, shards, stream_method=None, workers=None
     ):
         """Per-shard extraction lists in EXACT manifest order: block
         composition and accumulation order — and so G — never change with
         the worker count. With one extraction thread (``--ingest-workers
-        1``, or a manifest of one shard) each shard streams straight into
-        the block builder; with more, ``ordered_parallel_map`` extracts
-        whole shards on worker threads. ``stream_method`` defaults to the
+        1``, or a manifest of one shard) and no retry layer, each shard
+        streams straight into the block builder; otherwise each shard is
+        extracted whole by :meth:`_shard_attempt` (a retried shard must
+        not have yielded part of itself), on ``ordered_parallel_map``'s
+        worker threads with more than one, speculated under
+        ``--speculative-ingest``. ``stream_method`` defaults to the
         single-dataset fused stream; the keyed multi-dataset path passes
         its own."""
         shards = list(shards)
@@ -357,22 +408,48 @@ class VariantsPcaDriver:
                 self.conf.min_allele_frequency,
             )
 
+        def extract(shard):
+            return self._shard_attempt(shard, lambda: list(stream(shard)))
+
+        def note_speculation(shard):
+            self._speculated_shards += 1
+            print(
+                f"Speculating straggler shard {shard} "
+                "(duplicate attempt launched).",
+                file=sys.stderr,
+            )
+            obs.instant(
+                "speculative_shard_attempt", scope="p", shard=str(shard)
+            )
+
         workers = min(workers or self._ingest_workers(), len(shards))
         if workers <= 1:
+            plain = (
+                self.conf.shard_retries <= 1
+                and faults.current_plan() is None
+            )
             for shard in shards:
-                yield from stream(shard)
+                yield from stream(shard) if plain else extract(shard)
             return
         for calls in ordered_parallel_map(
-            lambda shard: list(stream(shard)), shards, workers
+            extract,
+            shards,
+            workers,
+            speculate=self.conf.speculative_ingest,
+            on_speculate=note_speculation,
         ):
             yield from calls
 
     def _fused_csr_possible(self) -> bool:
         """CSR-direct ingest: the fused single-dataset preconditions plus
         a source that can serve whole shards as (indices, offsets) pairs
-        (the JSONL sidecar tier)."""
-        return self._fused_ingest_possible() and hasattr(
-            self.source, "stream_carrying_csr"
+        (the JSONL sidecar tier). Skipped when speculation is on — the
+        straggler race re-executes extractions, which the fused lists
+        (:meth:`_parallel_shard_calls`) do and this tier does not."""
+        return (
+            self._fused_ingest_possible()
+            and hasattr(self.source, "stream_carrying_csr")
+            and not self.conf.speculative_ingest
         )
 
     def _cold_stream_active(self) -> bool:
@@ -396,7 +473,10 @@ class VariantsPcaDriver:
         differs. ``auto`` resolves to completion on a cold-stream run and
         to manifest otherwise. Each shard's extraction is an
         ``ingest.fetch`` range and the whole stream an ``ingest.stream``
-        range.
+        range; the ``ingest.stream`` fault seam sits inside each shard's
+        retry loop (:meth:`_shard_attempt`), so a mid-pipeline
+        stall/error/truncate retries per ``--shard-retries`` and G stays
+        bit-identical.
 
         COLD-STREAM runs (``--cold-stream`` on a cold remote cohort)
         default to completion order: fetch → decode → build → put runs as
@@ -426,13 +506,17 @@ class VariantsPcaDriver:
                 )
 
         def extract(shard):
-            with obs.span(INGEST_FETCH, shard=str(shard)):
-                return self.source.stream_carrying_csr(
-                    vsid,
-                    shard,
-                    self.index.indexes,
-                    self.conf.min_allele_frequency,
-                )
+            def fetch():
+                faults.inject("ingest.stream", key=str(shard))
+                with obs.span(INGEST_FETCH, shard=str(shard)):
+                    return self.source.stream_carrying_csr(
+                        vsid,
+                        shard,
+                        self.index.indexes,
+                        self.conf.min_allele_frequency,
+                    )
+
+            return self._shard_attempt(shard, fetch)
 
         pmap = (
             completion_parallel_map
@@ -591,6 +675,7 @@ class VariantsPcaDriver:
             self.cohort.size,
             self.conf.block_variants,
             workers=self._block_builder_workers(),
+            attempt=self._build_attempt,
         )
         return self._blocks_to_gramian(blocks, prepacked=True)
 
@@ -838,6 +923,12 @@ class VariantsPcaDriver:
     # -- observability -------------------------------------------------------
 
     def report_io_stats(self) -> None:
+        if self._speculated_shards:
+            print(
+                f"Speculative shard attempts on this host: "
+                f"{self._speculated_shards}.",
+                file=sys.stderr,
+            )
         stats = getattr(self.source, "stats", None)
         if stats is not None:
             print(stats.report())

@@ -33,6 +33,18 @@ Sites wired in the port (glob-matched, so ``transport.*`` works):
 ``transport.grpc.stream``    gRPC stream body (error/stall/truncate/corrupt;
                              truncate raises: gRPC has no end sentinel)
 ``transport.oauth.request``  before each token-exchange attempt
+``ingest.shard``             driver-side shard extraction (error = worker
+                             death mid-stream, stall = slow lane), keyed
+                             by the shard string
+``ingest.build``             packed-block build of the CSR tier (error = a
+                             builder dying mid-block), keyed by the
+                             window's index
+``ingest.stream``            fused-CSR streaming ingest, per shard inside
+                             the retry loop (error/stall/truncate = a
+                             fetch-decode-build-put pipeline fault
+                             mid-stream; retried per --shard-retries)
+``fixture.stream``           FixtureSource per-shard streams (its own
+                             per-source plan: the ``fail_shards`` hook)
 ``mirror.write``             cohort-mirror file commit (torn = kill -9
                              mid-write: the tmp truncates to half and
                              never renames; error/stall as usual)

@@ -6,22 +6,50 @@ manifest order: block composition and accumulation order — and so G —
 never depend on the worker count. :func:`completion_parallel_map` hands
 them on as they finish, for consumers whose result does not depend on
 arrival order (the integer-exact Gramian). Both are the JAX package's,
-without its speculative re-execution of stragglers (ROADMAP.md lists that
-with the resilience layer).
+the ordered map with its speculative re-execution of stragglers
+(``--speculative-ingest``).
 """
 
 from __future__ import annotations
 
 import collections
 import queue
+import statistics
 import threading
-from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, Sequence, TypeVar
+import time
+from concurrent.futures import (
+    FIRST_COMPLETED,
+    Future,
+    ThreadPoolExecutor,
+    wait,
+)
+from typing import Callable, Iterable, Iterator, Optional, Sequence, TypeVar
 
 __all__ = ["completion_parallel_map", "ordered_parallel_map"]
 
 T = TypeVar("T")
 R = TypeVar("R")
+
+# Spark speculates a task at 1.5x the stage median once a quantile of
+# tasks completed; extraction durations here are far noisier than Spark's
+# cluster tasks (sidecar slices against HTTP round-trips), so the
+# multiplier is more conservative and the floor avoids speculating
+# millisecond shards on scheduler jitter.
+SPECULATION_MULTIPLIER = 4.0
+SPECULATION_MIN_COMPLETED = 6
+SPECULATION_FLOOR_SECONDS = 0.05
+
+
+class _Attempt:
+    """One submitted extraction: its future plus the in-thread start time
+    (None until a pool thread actually begins — queue time must not count
+    toward straggler detection)."""
+
+    __slots__ = ("future", "started")
+
+    def __init__(self):
+        self.future = None
+        self.started = None
 
 
 def ordered_parallel_map(
@@ -29,33 +57,121 @@ def ordered_parallel_map(
     items: Iterable[T],
     workers: int,
     lookahead: int = 2,
+    speculate: bool = False,
+    on_speculate: Optional[Callable[[T], None]] = None,
 ) -> Iterator[R]:
     """Yield ``fn(item)`` in input order, computing up to ``workers``
     items concurrently with at most ``workers + lookahead`` in flight
     (bounding memory to a few shards' worth regardless of manifest
-    length). ``workers <= 1`` is the plain serial loop — no threads.
+    length). ``workers <= 1`` is the plain serial loop — no threads, and
+    ``speculate`` is ignored.
 
     A worker exception surfaces at the position of ITS item, as the serial
     loop would raise it, after which iteration stops; work still queued is
-    cancelled.
+    cancelled and the pools are joined before the exception leaves.
+
+    ``speculate=True`` adds Spark-style speculative execution: when the
+    head-of-line item — the only one blocking output — has been RUNNING
+    longer than ``SPECULATION_MULTIPLIER`` × the median completed duration
+    (with at least ``SPECULATION_MIN_COMPLETED`` samples, and never
+    sooner than ``SPECULATION_FLOOR_SECONDS``), a duplicate attempt
+    launches on a spare thread and whichever attempt finishes first wins.
+    Extraction is idempotent and deterministic, so both attempts produce
+    identical results. A failed attempt defers to the survivor, and the
+    failure surfaces only if BOTH attempts fail. ``on_speculate(item)``
+    fires at each launch.
     """
     if workers <= 1:
         for item in items:
             yield fn(item)
         return
+
+    durations: list = []
+
+    def submit(pool, item) -> _Attempt:
+        att = _Attempt()
+
+        def run():
+            att.started = time.monotonic()
+            out = fn(item)
+            durations.append(time.monotonic() - att.started)
+            return out
+
+        att.future = pool.submit(run)
+        return att
+
+    def drain_head(head_item, head: _Attempt, spare_pool) -> R:
+        """Block for the head-of-line result, speculating if it lags."""
+        attempts = [head]
+        while True:
+            # Check EVERY attempt for a winner at the top of the loop: an
+            # attempt can complete between a wait() timeout (where a
+            # speculation launches) and the next wait.
+            for a in attempts:
+                if a.future.done() and a.future.exception() is None:
+                    return a.future.result()
+            # Wait ONLY on unfinished attempts: a failed future left in the
+            # wait set would make wait() return at once, a busy spin for
+            # as long as the survivor runs.
+            live = [a for a in attempts if not a.future.done()]
+            if not live:
+                # Every attempt failed: the ORIGINAL's error surfaces.
+                return attempts[0].future.result()
+            deadline = None
+            timeout = None
+            if speculate and len(attempts) == 1:
+                if (
+                    len(durations) >= SPECULATION_MIN_COMPLETED
+                    and head.started is not None
+                ):
+                    threshold = max(
+                        SPECULATION_MULTIPLIER
+                        * statistics.median(tuple(durations)),
+                        SPECULATION_FLOOR_SECONDS,
+                    )
+                    deadline = head.started + threshold
+                    timeout = max(0.0, deadline - time.monotonic())
+                else:
+                    # Not yet eligible; re-check as siblings complete.
+                    timeout = 0.1
+            wait(
+                {a.future for a in live},
+                timeout=timeout,
+                return_when=FIRST_COMPLETED,
+            )
+            if (
+                deadline is not None
+                and time.monotonic() >= deadline
+                and len(attempts) == 1
+                and not head.future.done()
+            ):
+                # The deadline passed with the head still running.
+                if on_speculate is not None:
+                    on_speculate(head_item)
+                attempts.append(submit(spare_pool, head_item))
+
     window = workers + max(0, lookahead)
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    # The spare pool lets a speculative attempt start at once instead of
+    # queueing behind the main pool's backlog. It is sized like the main
+    # pool: an abandoned duplicate whose original won runs on until its IO
+    # completes, and one such thread must not queue every later
+    # speculation behind it. Leaving the ``with`` joins every attempt.
+    with ThreadPoolExecutor(max_workers=workers) as pool, ThreadPoolExecutor(
+        max_workers=workers, thread_name_prefix="speculate"
+    ) as spare:
         pending: collections.deque = collections.deque()
         try:
             for item in items:
-                pending.append(pool.submit(fn, item))
+                pending.append((item, submit(pool, item)))
                 if len(pending) >= window:
-                    yield pending.popleft().result()
+                    head_item, head = pending.popleft()
+                    yield drain_head(head_item, head, spare)
             while pending:
-                yield pending.popleft().result()
+                head_item, head = pending.popleft()
+                yield drain_head(head_item, head, spare)
         finally:
-            for future in pending:
-                future.cancel()
+            for _, att in pending:
+                att.future.cancel()
 
 
 def completion_parallel_map(

@@ -126,6 +126,17 @@ class PcaConfig:
     # change. "auto" resolves to completion on a cold-stream run (a cold
     # remote cohort behind --cache-dir) and to manifest everywhere else.
     ingest_order: str = "auto"
+    # Spark-style speculative execution for straggler shards: when the
+    # head-of-line extraction runs far past the median, a duplicate
+    # attempt races it and the winner's (identical) result is used.
+    speculative_ingest: bool = False
+    # Per-shard ingest retry (the driver-side resilience tier): each
+    # shard extraction (and, on the CSR tier, each block build) is
+    # idempotent, so a failed one re-executes up to this many total
+    # attempts, every attempt drawing down the per-shard wall-clock budget
+    # below. 1 = fail fast.
+    shard_retries: int = 1
+    shard_retry_deadline: Optional[float] = None
     # Blocks the host→device feed stages ahead of the product.
     prefetch_depth: int = 2
     # Reads-pipeline surface (models/pairhmm.py + the reads examples):
@@ -414,6 +425,33 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         "'auto' (default) picks completion on cold-stream runs and "
         "manifest otherwise. G is bit-identical either way "
         "(integer-exact accumulation)",
+    )
+    p.add_argument(
+        "--speculative-ingest",
+        action="store_true",
+        help="Speculatively re-execute straggler shard extractions "
+        "(Spark speculation analog): when the head-of-line shard runs "
+        "far past the median completed duration, a duplicate attempt "
+        "races it on a spare thread and the first identical result "
+        "wins; a failed attempt defers to the survivor. Needs "
+        "--ingest-workers > 1 (or auto)",
+    )
+    p.add_argument(
+        "--shard-retries",
+        type=int,
+        default=PcaConfig.shard_retries,
+        help="Total attempts per ingested shard (fused/checkpointed "
+        "ingest tiers): extraction is idempotent, so a failed shard "
+        "re-executes with backoff instead of killing the run — results "
+        "are identical, only wall-clock changes. 1 = fail fast "
+        "(historical behavior)",
+    )
+    p.add_argument(
+        "--shard-retry-deadline",
+        type=float,
+        default=None,
+        help="Per-shard wall-clock budget (seconds) its retry attempts "
+        "draw down",
     )
     p.add_argument(
         "--rpc-retries",

@@ -3,7 +3,10 @@
 Every module of ``spark_examples_tpu_torch`` is imported in a fresh
 interpreter with ``jax`` blocked; no module of ``spark_examples_tpu`` may
 load. The sources (and ``chip_smoke.py``) are also searched for imports of
-either, so a lazy import inside a function cannot slip past.
+either, so a lazy import inside a function cannot slip past. Every source
+of the port, its ``csrc/`` too, is searched for the JAX package's native
+library and its environment switches: the port builds and loads its own
+host core and reads no environment variable for it.
 """
 
 import os
@@ -29,11 +32,12 @@ def _port_modules():
     )
 
 
-def _port_sources():
+def _port_sources(exts=(".py",)):
     paths = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, files in os.walk(PKG_DIR):
+    for dirpath, dirs, files in os.walk(PKG_DIR):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
         paths.extend(
-            os.path.join(dirpath, f) for f in files if f.endswith(".py")
+            os.path.join(dirpath, f) for f in files if f.endswith(exts)
         )
     return sorted(paths)
 
@@ -58,6 +62,7 @@ def test_every_module_imports_without_jax():
         "models.pca",
         "models.search_reads",
         "models.search_variants",
+        "native",
         "obs",
         "obs.manifest",
         "obs.metrics",
@@ -79,8 +84,12 @@ def test_every_module_imports_without_jax():
         "utils.tracing",
     ):
         assert f"spark_examples_tpu_torch.{name}" in modules
-    for path in ("genomics/grpc_transport.py", "genomics/mirror.py"):
+    for path in ("genomics/grpc_transport.py", "genomics/mirror.py",
+                 "native/__init__.py"):
         assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
+    assert os.path.join(PKG_DIR, "csrc", "genomics_native.cpp") in (
+        _port_sources(_CSRC_EXTS)
+    )
     script = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -101,6 +110,53 @@ def test_every_module_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+_CSRC_EXTS = (".py", ".cu", ".cpp")
+# The JAX package's native library, its loader's path and its environment
+# switches (the library override, the kill switch, the parse threads).
+_JAX_NATIVE_NAMES = (
+    "spark_examples_tpu/native",
+    "_genomics_native.so",
+    "SPARK_EXAMPLES_TPU_NO_NATIVE",
+    "SPARK_EXAMPLES_TPU_NATIVE_SO",
+    "SPARK_EXAMPLES_TPU_PARSE_THREADS",
+)
+
+
+def test_the_native_loader_imports_with_jax_blocked():
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spark_examples_tpu_torch import native\n"
+        "lib = native.load()\n"
+        "assert lib.cohort_csr_abi_version() == native.COHORT_CSR_ABI\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'spark_examples_tpu'\n"
+        "             or m.startswith('spark_examples_tpu.'))\n"
+        "print('LOADED', bad, lib._name)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert os.path.join("spark_examples_tpu_torch", "_build") in out.stdout
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(_CSRC_EXTS),
+    ids=lambda p: os.path.relpath(p, ROOT),
+)
+def test_no_source_names_the_jax_packages_native_core(path):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for name in _JAX_NATIVE_NAMES:
+        assert name not in text, (path, name)
 
 
 @pytest.mark.parametrize(

@@ -151,15 +151,27 @@ def test_each_package_maps_the_others_sidecar_without_a_rebuild(
 
 
 def _count_parses(monkeypatch):
+    """Count the sidecar's parses: one per build, native or Python (a
+    native refusal hands the same build to the Python parse)."""
     calls = []
-    real = sources._CsrCohort._parse_python
+    real_python = sources._CsrCohort._parse_python
+    real_native = sources._CsrCohort._parse_native
 
-    def counted(open_fn, ids):
+    def counted_python(open_fn, ids):
         calls.append(1)
-        return real(open_fn, ids)
+        return real_python(open_fn, ids)
+
+    def counted_native(root, ids, threads=0):
+        parsed = real_native(root, ids, threads)
+        if parsed is not None:
+            calls.append(1)
+        return parsed
 
     monkeypatch.setattr(
-        sources._CsrCohort, "_parse_python", staticmethod(counted)
+        sources._CsrCohort, "_parse_python", staticmethod(counted_python)
+    )
+    monkeypatch.setattr(
+        sources._CsrCohort, "_parse_native", staticmethod(counted_native)
     )
     return calls
 
