@@ -172,6 +172,29 @@ on failure:
     bit-identical to the run without speculation, both wall-clocks; (e)
     ``tools/ingest_workers.py``'s builder-thread table (1, 2, 4, 8 threads,
     native and numpy, one rep).
+18. delta and gang serving over phase 12's directory, uncut: the analysis
+    tier set up by the CLI's own ``_analysis_tier`` (``serve-cohort
+    --analyze --analyze-journal-dir``, deltas up to 16 samples, gangs up
+    to 256) behind the port's HTTP server, driven with ``POST /analyze``
+    and ``GET /jobs``: (a) a cold ``{}`` job (phase 4's scatter launches,
+    rows equal the driver's run, G phase 4's); (b) its cached resubmission
+    (0 launches); (c) an 8-sample removal (a delta hit in ``/metrics``);
+    (d) those 8 added back and 8 others dropped, then the same cohort on an
+    engine whose only ancestor is (c)'s (a rank-8 correction), and the
+    correction alone by the int8 product and by the ±1 scatter: every G
+    phase 4's submatrix bit for bit, coordinates against the f64 oracle;
+    (e) four 256-sample cohorts queued behind a held worker, one gang
+    dispatch (``serving_gang_size``), each G bit-identical, and
+    ``run_gang`` against four serial runs; (f) a sketch job leaving the
+    delta index unchanged; (g) a ``pairhmm`` job over phase 16's reads
+    directory equal to ``PairHmmDriver.run_rows``; (h) ``serve-cohort
+    --analyze`` in a subprocess with a ``serving.job.kill`` fault, killed
+    and restarted on its journal: the job replayed, a delta hit on the
+    re-loaded G; (i) two tiers over one ``--store-dir`` with a 1 s lease:
+    one replica's job killed, the survivor adopts and finishes it, the
+    zombie's write refused. Each job's wall-clock, and the device idle
+    share of a profiled cold job and a profiled rank-8 delta job; no job
+    may record a delta ``fallback``.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -1551,10 +1574,11 @@ def metric(snapshot, name):
     return float(snapshot["counters"].get(name, 0.0))
 
 
-def serve_cli(root, env, *extra):
+def serve_cli(root, env, *extra, seen=None):
     """``serve-cohort`` in a subprocess on an ephemeral port; returns the
     process and its URLs (``{"http": ..., "grpc": ...}``, the second with
-    ``--grpc-port``) once it listens."""
+    ``--grpc-port``) once it listens. The lines it printed until then are
+    appended to ``seen`` when given."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
          "serve-cohort", "--input-path", root, "--port", "0",
@@ -1566,6 +1590,8 @@ def serve_cli(root, env, *extra):
     urls = {}
     for line in proc.stdout:
         print(f"  serve-cohort | {line.rstrip()}", flush=True)
+        if seen is not None:
+            seen.append(line.rstrip())
         for scheme in ("grpc", "http"):
             if f" on {scheme}://" in line:
                 urls[scheme] = line.split(" on ", 1)[1].split()[0]
@@ -2511,7 +2537,7 @@ def pairhmm_and_reads(torch, dev):
     print(f"  scatter kernel launches in phase 16: {launches}")
     print("  phase 16 numbers: " + json.dumps(
         {k: round(float(v), 6) for k, v in numbers.items()}))
-    return launches
+    return launches, bench_dir
 
 
 # -- phase 17: the host ingest core and its resilience -----------------------
@@ -2784,6 +2810,557 @@ def host_windows(source, conf, indexes):
 T_START = time.perf_counter()
 
 
+# -- phase 18: delta and gang serving ----------------------------------------
+
+# The phase's sample sets: A is removed by the removal-only delta and added
+# back by the rank-8 one, which drops B instead; each gang cohort holds 256
+# samples.
+DELTA_K, GANG_N, GANG_B = 8, 256, 4
+LEASE_TTL_S, LEASE_HEARTBEAT_S = 1.0, 0.2
+
+
+def http_json(url, method="GET", doc=None):
+    """One bearer-token request to a phase-18 server: (status, JSON body
+    or the text of a non-JSON body)."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=300)
+    try:
+        body = None if doc is None else json.dumps(doc).encode()
+        headers = {"Authorization": f"Bearer {NET_TOKEN}"}
+        if body is not None:
+            headers["Content-Type"] = "application/json"
+        conn.request(method, u.path + (f"?{u.query}" if u.query else ""),
+                     body=body, headers=headers)
+        resp = conn.getresponse()
+        raw = resp.read()
+        try:
+            return resp.status, json.loads(raw)
+        except ValueError:
+            return resp.status, raw.decode("utf-8", "replace")
+    finally:
+        conn.close()
+
+
+def run_job(url, spec, want_state="done", timeout_s=300.0):
+    """POST /analyze, then poll GET /jobs/<id> until ``want_state``:
+    returns (submit status, the job record, submit-to-state seconds)."""
+    t0 = time.perf_counter()
+    status, rec = http_json(url + "/analyze", "POST", spec)
+    check(status in (200, 202), f"POST /analyze {spec}: {status} {rec}")
+    deadline = time.monotonic() + timeout_s
+    while rec.get("state") != want_state:
+        check(rec.get("state") != "failed",
+              f"job {rec.get('id')} failed: {rec.get('error')}")
+        check(time.monotonic() < deadline,
+              f"job {rec.get('id')} did not reach {want_state}")
+        time.sleep(0.005)
+        status, rec = http_json(f"{url}/jobs/{rec['id']}")
+        check(status == 200, f"GET /jobs/{rec}: {status}")
+    return status, rec, time.perf_counter() - t0
+
+
+def prom_value(text, sample):
+    """The value of one exposition sample line (0.0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def rows_of(rec):
+    return [tuple(r) for r in rec["result"]]
+
+
+def rows_err(got, want):
+    """Max |Δ| of two row lists' coordinates; the names must agree."""
+    check([r[0] for r in got] == [r[0] for r in want],
+          "job rows name other samples than the reference's")
+    a = np.array([[r[1], r[2]] for r in got], np.float64)
+    b = np.array([[r[1], r[2]] for r in want], np.float64)
+    check(np.isfinite(a).all(), "job coordinates must be finite")
+    return float(np.abs(a - b).max())
+
+
+def job_idle(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` inside one host range: the
+    device's idle share of that range (None when the profile holds no CUDA
+    event), the range's seconds and ``fn``'s result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    with all_threads_profile(torch) as prof:
+        with record_function("chip_smoke.job"):
+            out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    device = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA
+              and e.name not in host_names]
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "chip_smoke.job"
+              and e.device_type == DeviceType.CPU]
+    lo, hi = ranges[0]
+    idle = (1 - merged_busy_us(device, lo, hi) / (hi - lo)) if device else None
+    return idle, (hi - lo) / 1e6, out
+
+
+def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
+                           device="cuda"):
+    """Phase 18: ``serve-cohort --analyze`` over phase 12's directory on the
+    card — the cold, cached, delta, gang, sketch and pairhmm jobs, a
+    crash and replay, and replica failover. Returns the scatter launches
+    of each path that launches the kernel. ``device`` is the servers' and
+    engines' ``--device`` (``cpu`` only to try the phase at a small size
+    without a card)."""
+    import contextlib as ctx
+
+    from spark_examples_tpu_torch.cli.main import _analysis_tier, build_parser
+    from spark_examples_tpu_torch.genomics.fixtures import FIXTURE_READSET_ID
+    from spark_examples_tpu_torch.genomics.service import (
+        GenomicsServiceServer,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.models.pairhmm import PairHmmDriver
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.obs.session import TelemetrySession
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.pcoa import (
+        mllib_principal_components_reference,
+    )
+    from spark_examples_tpu_torch.resilience import faults
+    from spark_examples_tpu_torch.serving import (
+        AnalysisEngine,
+        JobSpec,
+        gramian_base_key,
+        job_config,
+    )
+    from spark_examples_tpu_torch.store import FencedWriteError
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    atexit.register(shutil.rmtree, work, True)
+    by_leg, times, idle = {}, {}, {}
+    fallbacks = []
+    source = JsonlSource(root)
+    source.ensure_serving_index()
+
+    def args_for(*extra, input_path=root):
+        return build_parser().parse_args(
+            ["serve-cohort", "--input-path", input_path, "--analyze",
+             "--token", NET_TOKEN, "--port", "0", "--device", device,
+             *extra])
+
+    def serve(tier, src):
+        server = GenomicsServiceServer(src, port=0, token=NET_TOKEN,
+                                       job_tier=tier).start()
+        return server, f"http://127.0.0.1:{server.port}"
+
+    def metrics(url):
+        status, text = http_json(url + "/metrics")
+        check(status == 200, f"/metrics answered {status}")
+        fallbacks.append(prom_value(
+            text, 'serving_delta_jobs_total{outcome="fallback"}'))
+        return text
+
+    stack = ctx.ExitStack()
+    atexit.register(stack.close)
+    # The CLI keeps one telemetry session open for the server's life.
+    stack.enter_context(TelemetrySession(command="serve-cohort"))
+    journal = os.path.join(work, "journal")
+    tier = _analysis_tier(args_for("--analyze-journal-dir", journal), source)
+    stack.callback(tier.close)
+    server, url = serve(tier, source)
+    stack.callback(server.stop)
+    engine = tier._engine
+    print(f"  serve-cohort --analyze set up by the CLI's _analysis_tier on "
+          f"{url}: engine device {engine.device}, deltas <= "
+          f"{engine._deltas.max_delta_samples} samples, gangs <= "
+          f"{tier._gang_max} samples", flush=True)
+    base = tier._base
+    ids = list(VariantsPcaDriver(job_config(JobSpec(), base), source)
+               .index.indexes)
+    n = len(ids)
+    check(n == g_ref.shape[0], f"phase 12's directory holds {n} samples")
+    rng = np.random.default_rng(18)
+    perm = rng.permutation(n)
+    set_a = sorted(perm[:DELTA_K].tolist())
+    set_b = sorted(perm[DELTA_K:2 * DELTA_K].tolist())
+    key = gramian_base_key(job_config(JobSpec(), base))
+
+    def cached_g(keep):
+        """The delta index's G for the cohort ``keep`` (full indices)."""
+        frame = tuple(ids[i] for i in keep)
+        entry = engine._deltas.resolve(key, frame)
+        check(entry is not None and entry.samples == frame,
+              "the delta index holds no G for a finished cohort")
+        check(entry.verify(), "a cached G fails its checksum")
+        return entry.g
+
+    def check_sub_g(g, keep, what):
+        ok = same_g(g, g_ref[np.ix_(keep, keep)])
+        check(ok, f"{what}: G is not phase 4's (sub)matrix bit for bit")
+        return ok
+
+    # (a) cold --------------------------------------------------------------
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    _, cold, times["cold_http_s"] = run_job(url, {})
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    by_leg["serve-cohort --analyze cold job (phase 18a)"] = launches
+    d = VariantsPcaDriver(job_config(JobSpec(), base), source)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_rows = d.collect_result(d.compute_pca(d.ingest_gramian()))
+    err = rows_err(rows_of(cold), ref_rows)
+    check(err <= COORD_TOL, f"cold job rows {err:.3e} from the driver's")
+    full = list(range(n))
+    check_sub_g(cached_g(full), full, "cold job")
+    print(f"  (a) cold {{}} job: {times['cold_http_s']:.3f} s POST to done; "
+          f"{launches} scatter launches (phase 4: {phase4_launches}); rows "
+          f"vs the port driver's run on the directory: max abs diff "
+          f"{err:.3e} (bit-identical: {rows_of(cold) == ref_rows}); G "
+          f"phase 4's bit for bit", flush=True)
+    check(launches == phase4_launches,
+          f"the cold job launched the scatter kernel {launches} times")
+
+    # (b) cached ------------------------------------------------------------
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    status, hit, times["cached_http_s"] = run_job(url, {"tenant": "other"})
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    check(status == 200 and hit["cached"] and rows_of(hit) == rows_of(cold),
+          "the resubmitted job must be a cached 200 with the same rows")
+    check(launches == 0, f"the cached job launched {launches} times")
+    print(f"  (b) resubmitted: cached 200 in {times['cached_http_s']:.4f} s, "
+          f"rows identical, 0 launches")
+
+    # (c) delta, removal only -----------------------------------------------
+    hits0 = prom_value(metrics(url), 'serving_delta_jobs_total{outcome="hit"}')
+    spec_a = {"exclude_samples": [ids[i] for i in set_a]}
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    _, rec_a, times["delta_removal_http_s"] = run_job(url, spec_a)
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    text = metrics(url)
+    hits1 = prom_value(text, 'serving_delta_jobs_total{outcome="hit"}')
+    keep_a = [i for i in full if i not in set_a]
+    check_sub_g(cached_g(keep_a), keep_a, "removal-only delta")
+    check(hits1 == hits0 + 1, f"delta hits {hits0} -> {hits1}")
+    check(launches == 0, f"the delta job launched {launches} times")
+    print(f"  (c) exclude {DELTA_K} samples: {times['delta_removal_http_s']:.3f}"
+          f" s; serving_delta_jobs_total{{outcome=\"hit\"}} {hits0:.0f} -> "
+          f"{hits1:.0f}; G phase 4's submatrix bit for bit; 0 launches")
+
+    # (d) delta, additions: over HTTP, then on an in-process engine whose
+    # only ancestor is (c)'s cohort, and through both correction routes.
+    spec_b = {"exclude_samples": [ids[i] for i in set_b]}
+    keep_b = [i for i in full if i not in set_b]
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    _, rec_b, times["delta_http_s"] = run_job(url, spec_b)
+    check(sk.SCATTER_KERNEL_LAUNCHES == 0, "the (d) job launched the kernel")
+    check_sub_g(cached_g(keep_b), keep_b, "(d) delta over HTTP")
+    windows = engine._deltas.windows(key)
+    conf_a = job_config(JobSpec.from_record(spec_a), base)
+    conf_b = job_config(JobSpec.from_record(spec_b), base)
+    g_a = g_ref[np.ix_(keep_a, keep_a)].astype(np.float32)
+    frame_a = tuple(ids[i] for i in keep_a)
+    routes = {}
+    for name, threshold in (("int8 product", 0.0), ("±1 scatter", 2.0)):
+        drv = VariantsPcaDriver(conf_b, source)
+        t0 = time.perf_counter()
+        g = drv.ingest_gramian_delta(g_a, frame_a, windows=windows,
+                                     density_threshold=threshold)
+        routes[name] = time.perf_counter() - t0
+        check_sub_g(g, keep_b, f"rank-{DELTA_K} delta by the {name}")
+    def rank_engine():
+        """An engine whose delta index holds only (c)'s cohort."""
+        eng = AnalysisEngine(source, delta_max_samples=16, device=device)
+        eng._deltas.put(key, frame_a, g_a)
+        if windows is not None:
+            eng._deltas.put_windows(key, windows)
+        check(eng.delta_resolvable(conf_b),
+              "(c)'s cohort must be a rank-8 ancestor of (d)'s")
+        return eng
+
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    eng = rank_engine()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        rows_d = eng.run(conf_b)
+        times["delta_rank8_s"] = time.perf_counter() - t0
+        profiled = rank_engine()
+        idle["delta_rank8"], times["delta_rank8_profiled_s"], again = (
+            job_idle(torch, lambda: profiled.run(conf_b)))
+    check(again == rows_d, "the profiled rank-8 job's rows differ")
+    check(sk.SCATTER_KERNEL_LAUNCHES == 0, "the rank-8 job launched")
+    g_d = eng._deltas.resolve(key, tuple(ids[i] for i in keep_b)).g
+    check_sub_g(g_d, keep_b, f"rank-{DELTA_K} delta job")
+    err = rows_err(rows_d, rows_of(rec_b))
+    check(err <= COORD_TOL, f"rank-8 rows {err:.3e} from the HTTP job's")
+    t0 = time.perf_counter()
+    want_b, _ = mllib_principal_components_reference(
+        g_ref[np.ix_(keep_b, keep_b)], 2)
+    oracle_s = time.perf_counter() - t0
+    names = [d.cohort.names[ids[i]] for i in keep_b]
+    by_name = {r[0]: (r[1], r[2]) for r in rows_d}
+    got_b = np.array([by_name[nm] for nm in names])
+    oracle_err = float(np.abs(got_b - want_b).max())
+    check(oracle_err <= COORD_TOL,
+          f"rank-8 coordinates {oracle_err:.3e} from the f64 oracle")
+    print(f"  (d) add the {DELTA_K} back, drop {DELTA_K} others: over HTTP "
+          f"{times['delta_http_s']:.3f} s (ancestor: the nearest, the full "
+          f"cohort); an engine holding only (c)'s G serves it as a rank-"
+          f"{DELTA_K} correction in {times['delta_rank8_s']:.3f} s "
+          f"({times['delta_rank8_profiled_s']:.3f} s profiled), "
+          f"G phase 4's submatrix bit for bit, rows {err:.3e} from the HTTP "
+          f"job's, coordinates {oracle_err:.3e} from the f64 oracle "
+          f"({oracle_s:.1f} s); the correction alone by the int8 product "
+          f"{routes['int8 product']:.4f} s and by the ±1 scatter "
+          f"{routes['±1 scatter']:.4f} s, both bit-identical; window cache "
+          f"{'hit' if windows is not None else 'empty (re-streamed)'}",
+          flush=True)
+
+    # (e) gang ----------------------------------------------------------------
+    gang_sets = [sorted(perm[2 * DELTA_K + GANG_N * b:
+                             2 * DELTA_K + GANG_N * (b + 1)].tolist())
+                 for b in range(GANG_B)]
+    gang_specs = [{"samples": [ids[i] for i in s]} for s in gang_sets]
+    text = metrics(url)
+    count0 = prom_value(text, "serving_gang_size_count")
+    sum0 = prom_value(text, "serving_gang_size_sum")
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    # Hold the worker: it takes a job and waits for the device lock the
+    # script holds, while the four cohorts queue behind it.
+    with engine._device_lock:
+        status, blocker = http_json(url + "/analyze", "POST", {"num_pc": 3})
+        check(status == 202, f"the blocker job answered {status}")
+        deadline = time.monotonic() + 60
+        while http_json(f"{url}/jobs/{blocker['id']}")[1]["state"] != (
+                "running"):
+            check(time.monotonic() < deadline, "the worker never started")
+            time.sleep(0.005)
+        gang_ids = []
+        for spec in gang_specs:
+            status, rec = http_json(url + "/analyze", "POST", spec)
+            check(status == 202, f"a gang cohort answered {status}")
+            gang_ids.append(rec["id"])
+        t0 = time.perf_counter()
+    recs = []
+    for job_id in gang_ids:
+        deadline = time.monotonic() + 300
+        while True:
+            _, rec = http_json(f"{url}/jobs/{job_id}")
+            check(rec["state"] != "failed", f"gang job failed: {rec}")
+            if rec["state"] == "done":
+                break
+            check(time.monotonic() < deadline, "a gang job never finished")
+            time.sleep(0.005)
+        recs.append(rec)
+    times["gang_http_s"] = time.perf_counter() - t0
+    check(sk.SCATTER_KERNEL_LAUNCHES == 0, "the gang launched the kernel")
+    text = metrics(url)
+    count1 = prom_value(text, "serving_gang_size_count")
+    sum1 = prom_value(text, "serving_gang_size_sum")
+    check(count1 - count0 == 1 and sum1 - sum0 == GANG_B,
+          f"gang counters: {count1 - count0:.0f} dispatches of "
+          f"{sum1 - sum0:.0f} jobs, want 1 of {GANG_B}")
+    for s in gang_sets:
+        check_sub_g(cached_g(s), s, "gang member")
+    serial_engine = AnalysisEngine(source, device=device)
+    gang_confs = [job_config(JobSpec.from_record(s), base)
+                  for s in gang_specs]
+    with contextlib.redirect_stdout(io.StringIO()):
+        serial_engine.run(gang_confs[0])  # warm
+        t0 = time.perf_counter()
+        serial_rows = [serial_engine.run(c) for c in gang_confs]
+        times["gang_serial_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gang_rows = serial_engine.run_gang(gang_confs)
+        times["gang_s"] = time.perf_counter() - t0
+    check(gang_rows == serial_rows, "gang rows differ from serial rows")
+    for rec, rows in zip(recs, serial_rows):
+        err = rows_err(rows_of(rec), rows)
+        check(err <= COORD_TOL, f"a gang job's rows {err:.3e} from serial")
+    print(f"  (e) {GANG_B} cohorts of {GANG_N} queued behind a held worker: "
+          f"one gang dispatch of {sum1 - sum0:.0f} (serving_gang_size), "
+          f"{times['gang_http_s']:.3f} s from release to the last done; "
+          f"every G phase 4's submatrix bit for bit, 0 launches; in-process "
+          f"run_gang {times['gang_s']:.3f} s against {GANG_B} serial runs "
+          f"{times['gang_serial_s']:.3f} s, rows bit-identical", flush=True)
+
+    # (f) sketch ----------------------------------------------------------------
+    before = http_json(url + "/statusz")[1]["tier"]["delta_cache"]
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    _, sketch, times["sketch_http_s"] = run_job(url, {"pca_mode": "sketch"})
+    after = http_json(url + "/statusz")[1]["tier"]["delta_cache"]
+    check(after == before, f"a sketch job changed the delta index: "
+          f"{before} -> {after}")
+    check(len(sketch["result"]) == n, "the sketch job's rows")
+    print(f"  (f) {{\"pca_mode\": \"sketch\"}}: {times['sketch_http_s']:.3f} s, "
+          f"{sk.SCATTER_KERNEL_LAUNCHES} launches, delta index unchanged "
+          f"({after['entries']} entries)")
+
+    # (g) pairhmm ---------------------------------------------------------------
+    reads = JsonlSource(reads_dir)
+    reads_tier = _analysis_tier(args_for(
+        "--references", PHMM_REFS, "--bases-per-partition", str(READS_BASES),
+        input_path=reads_dir), reads)
+    stack.callback(reads_tier.close)
+    reads_server, reads_url = serve(reads_tier, reads)
+    stack.callback(reads_server.stop)
+    spec = {"kind": "pairhmm", "read_group_set_id": FIXTURE_READSET_ID}
+    _, phmm, times["pairhmm_http_s"] = run_job(reads_url, spec)
+    want_rows = PairHmmDriver(
+        job_config(JobSpec.from_record(spec), reads_tier._base), reads
+    ).run_rows()
+    check(rows_of(phmm) == [tuple(r) for r in want_rows],
+          "the pairhmm job's rows differ from PairHmmDriver.run_rows")
+    print(f"  (g) pairhmm job over phase 16's reads directory: "
+          f"{len(want_rows)} rows in {times['pairhmm_http_s']:.3f} s, equal "
+          f"to PairHmmDriver.run_rows")
+    metrics(url)
+
+    # profiled cold job on a fresh engine -------------------------------------
+    fresh = AnalysisEngine(source, delta_max_samples=16, device=device)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        idle["cold"], times["cold_profiled_s"], _ = job_idle(
+            torch, lambda: fresh.run(job_config(JobSpec(), base)))
+    check(sk.SCATTER_KERNEL_LAUNCHES == phase4_launches,
+          "the profiled cold job's launches")
+
+    # (h) crash and replay through the CLI in subprocesses ----------------------
+    token_file = os.path.join(work, "token.json")
+    with open(token_file, "w") as f:
+        json.dump({"token": NET_TOKEN}, f)
+    env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
+    crash_journal = os.path.join(work, "crash-journal")
+    plan = {"rules": [{"site": "serving.job.kill", "after": 1, "times": 1}]}
+    t0 = time.perf_counter()
+    proc, urls = serve_cli(root, env, "--analyze", "--analyze-journal-dir",
+                           crash_journal, "--device", device,
+                           "--fault-plan", json.dumps(plan))
+    try:
+        _, first, _ = run_job(urls["http"], {})
+        _, killed, _ = run_job(urls["http"], spec_a, want_state="running")
+        time.sleep(0.5)
+        check(http_json(f"{urls['http']}/jobs/{killed['id']}")[1]["state"]
+              == "running", "the killed job must stay running")
+    finally:
+        proc.kill()
+        proc.wait()
+    seen = []
+    proc, urls = serve_cli(root, env, "--analyze", "--analyze-journal-dir",
+                           crash_journal, "--device", device, seen=seen)
+    try:
+        replay_lines = [ln for ln in seen if "journal replayed" in ln
+                        or "Delta cache re-loaded" in ln]
+        check(any("Delta cache re-loaded: 1" in ln for ln in seen),
+              "the restart did not re-load the persisted delta G")
+        check(any("Analysis journal replayed: 2 job(s), 1 done" in ln
+                  for ln in seen), "the restart did not replay the journal")
+        status, rec = http_json(f"{urls['http']}/jobs/{first['id']}")
+        check(status == 200 and rows_of(rec) == rows_of(cold),
+              "the replayed done job's rows are not the cold job's")
+        deadline = time.monotonic() + 300
+        while True:
+            status, rec = http_json(f"{urls['http']}/jobs/{killed['id']}")
+            check(status == 200 and rec["state"] != "failed",
+                  f"the replayed job: {status} {rec}")
+            if rec["state"] == "done":
+                break
+            check(time.monotonic() < deadline, "the replayed job never ran")
+            time.sleep(0.01)
+        err = rows_err(rows_of(rec), rows_of(rec_a))
+        check(err <= COORD_TOL, f"replayed rows {err:.3e} from (c)'s")
+        text = metrics(urls["http"])
+        replay_hits = prom_value(
+            text, 'serving_delta_jobs_total{outcome="hit"}')
+        check(replay_hits == 1, "the replayed job must be a delta hit on "
+              "the re-loaded G")
+    finally:
+        proc.kill()
+        proc.wait()
+    times["crash_replay_s"] = time.perf_counter() - t0
+    print(f"  (h) serving.job.kill on the second job, the server killed and "
+          f"restarted on the same journal: {' | '.join(replay_lines)}; the "
+          f"replayed job a delta hit on the re-loaded G, rows {err:.3e} from "
+          f"(c)'s (bit-identical: {rows_of(rec) == rows_of(rec_a)}); "
+          f"{times['crash_replay_s']:.1f} s with two server starts",
+          flush=True)
+
+    # (i) replicas --------------------------------------------------------------
+    store = os.path.join(work, "store")
+    replica = ("--store-dir", store, "--replica-lease-ttl", str(LEASE_TTL_S),
+               "--replica-heartbeat", str(LEASE_HEARTBEAT_S))
+    tier_a = _analysis_tier(args_for(*replica, "--replica-id", "r-a"), source)
+    stack.callback(tier_a.close)
+    tier_b = _analysis_tier(args_for(*replica, "--replica-id", "r-b"), source)
+    stack.callback(tier_b.close)
+    kill = faults.FaultPlan.from_spec(json.dumps(
+        {"rules": [{"site": "serving.job.kill", "kind": "error",
+                    "times": 1}]}))
+    # A full-cohort job (as the blocker of (e)): cold on the survivor, whose
+    # delta index is empty, so it launches phase 4's scatter windows.
+    spec_i = JobSpec(num_pc=3)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with faults.active_plan(kill):
+        job, _ = tier_a.submit(spec_i)
+        deadline = time.monotonic() + 60
+        while kill.fired_total < 1:
+            check(time.monotonic() < deadline, "replica a never ran the job")
+            time.sleep(0.005)
+    tier_a._replica.pause()
+    deadline = time.monotonic() + 120
+    while True:
+        adopted = tier_b.job(job.id)
+        if adopted is not None and adopted.state == "done":
+            break
+        check(adopted is None or adopted.state != "failed",
+              f"the adopted job failed: {adopted and adopted.error}")
+        check(time.monotonic() < deadline, "replica b never finished it")
+        time.sleep(0.01)
+    times["failover_s"] = time.perf_counter() - t0
+    failover_launches = sk.SCATTER_KERNEL_LAUNCHES
+    by_leg["replica failover, the survivor's cold job (phase 18i)"] = (
+        failover_launches)
+    check(failover_launches == phase4_launches,
+          f"the survivor's cold job launched {failover_launches} times")
+    status, blocker = http_json(f"{url}/jobs/{blocker['id']}")
+    err = rows_err(adopted.result, rows_of(blocker))
+    check(err <= COORD_TOL,
+          f"the adopted job's rows {err:.3e} from the (e) blocker's")
+    tier_a._replica.resume()
+    deadline = time.monotonic() + 30
+    while tier_a._replica.state() != "lost":
+        check(time.monotonic() < deadline, "replica a never saw its loss")
+        time.sleep(0.01)
+    try:
+        tier_a.submit(JobSpec(num_pc=4))
+        fail("the zombie replica's write was accepted")
+    except FencedWriteError as e:
+        fenced = str(e)
+    print(f"  (i) two tiers over one --store-dir (lease {LEASE_TTL_S:g} s): "
+          f"replica a's job killed, replica b adopted it and finished in "
+          f"{times['failover_s']:.3f} s from the submission "
+          f"({failover_launches} scatter launches, a cold run), rows "
+          f"{err:.3e} from the same cohort's in (e); the "
+          f"zombie's write refused: FencedWriteError({fenced[:60]!r}...)")
+
+    metrics(url)
+    stack.close()
+    check(max(fallbacks) == 0, "a phase-18 job recorded a delta fallback")
+    print(f"  no job recorded serving_delta_jobs_total{{outcome=\"fallback\"}}")
+    print("  phase 18 wall-clock, s: " + json.dumps(
+        {k: round(v, 6) for k, v in times.items()}))
+    print("  phase 18 device idle share: " + json.dumps(
+        {k: (None if v is None else round(v, 6)) for k, v in idle.items()}))
+    print(f"  phase 18 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg
+
+
 def main() -> int:
     import torch
 
@@ -3039,8 +3616,8 @@ def main() -> int:
           "/reads and StreamReads over HTTP, gRPC and the mirror",
           flush=True)
     t0 = time.perf_counter()
-    by_leg["pairhmm and reads examples (phase 16)"] = pairhmm_and_reads(
-        torch, dev)
+    by_leg["pairhmm and reads examples (phase 16)"], reads_dir = (
+        pairhmm_and_reads(torch, dev))
     print(f"  phase 16 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
@@ -3051,6 +3628,15 @@ def main() -> int:
     by_leg.update(host_ingest_core(torch, cohort_dir, g_ref, want, windows,
                                    launches))
     print(f"  phase 17 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 18. delta and gang serving: serve-cohort --analyze with the job "
+          "tier, the delta and gang Gramians, the journal, the store and "
+          "replicas (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    by_leg.update(delta_and_gang_serving(torch, cohort_dir, g_ref, launches,
+                                         reads_dir))
+    print(f"  phase 18 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{

@@ -10,7 +10,10 @@ The JAX package's CLI on PyTorch, for the commands the port serves so far:
   cpu`` runs on the CPU;
 - ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service,
   and with ``--grpc-port`` as a gRPC service beside it (either package's
-  client reads either);
+  client reads either); with ``--analyze``, the analysis job tier
+  (``POST /analyze``, ``GET /jobs``) with its delta and gang Gramians,
+  journal, durable store and replica leases, on the card unless
+  ``--device cpu``;
 - ``generate-fixture``: write a synthetic JSONL cohort, with reads
   (``--fixture-reads``) or a tumor/normal pair of readsets
   (``--fixture-tumor-normal``) beside the variants;
@@ -48,6 +51,7 @@ from spark_examples_tpu_torch.genomics.shards import (
 )
 from spark_examples_tpu_torch.genomics.sources import JsonlSource
 from spark_examples_tpu_torch.utils.config import (
+    add_analyze_flags,
     add_pca_flags,
     pca_config_from_args,
     unported,
@@ -361,13 +365,143 @@ def _cmd_pairhmm(args) -> int:
     return 0
 
 
+def _analysis_tier(args, source):
+    """The --analyze job tier: re-entrant PCA engine over the served
+    source (on the card unless --device cpu) + bounded admission +
+    crash-safe journal (serving/)."""
+    from spark_examples_tpu_torch.serving import (
+        DEFAULT_HEARTBEAT_S,
+        DEFAULT_LEASE_TTL_S,
+        AnalysisEngine,
+        AnalysisJobTier,
+        LeaseManager,
+    )
+
+    _REPLICA_FLAG_DEFAULTS = {
+        "--replica-id": None,
+        "--replica-lease-ttl": DEFAULT_LEASE_TTL_S,
+        "--replica-heartbeat": DEFAULT_HEARTBEAT_S,
+    }
+
+    # Loud validation before any work, like every other flag surface
+    # (--prefetch-depth/--ingest-workers discipline): a zero-worker
+    # tier would accept jobs and never run them.
+    for flag, value in (
+        ("--analyze-workers", args.analyze_workers),
+        ("--analyze-queue-depth", args.analyze_queue_depth),
+        ("--analyze-tenant-quota", args.analyze_tenant_quota),
+        ("--analyze-cache-size", args.analyze_cache_size),
+    ):
+        if value < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {value}")
+    for flag, value in (
+        ("--delta-max-samples", args.delta_max_samples),
+        ("--gang-max-samples", args.gang_max_samples),
+    ):
+        if value < 0:
+            raise SystemExit(
+                f"{flag} must be >= 0 (0 disables), got {value}"
+            )
+    if args.store_dir is None:
+        # --replica-* only mean something over a shared store; a
+        # silently ignored flag is how operators think they deployed
+        # failover and discover otherwise during an outage.
+        for flag, value in (
+            ("--replica-id", args.replica_id),
+            ("--replica-lease-ttl", args.replica_lease_ttl),
+            ("--replica-heartbeat", args.replica_heartbeat),
+        ):
+            if value is not None and value != _REPLICA_FLAG_DEFAULTS[flag]:
+                raise SystemExit(
+                    f"{flag} requires --store-dir (replicated serving "
+                    "needs a shared durable store)"
+                )
+    else:
+        if args.replica_lease_ttl <= 0:
+            raise SystemExit(
+                "--replica-lease-ttl must be > 0, got "
+                f"{args.replica_lease_ttl}"
+            )
+        if not 0 < args.replica_heartbeat < args.replica_lease_ttl:
+            raise SystemExit(
+                "--replica-heartbeat must satisfy 0 < heartbeat < "
+                f"lease ttl ({args.replica_lease_ttl}), got "
+                f"{args.replica_heartbeat}"
+            )
+    if args.mesh_shape:
+        # The engine is meshless until the mesh layer is ported.
+        raise unported("--mesh-shape", "item 7, the mesh layer")
+    base = pca_config_from_args(args)
+    if not args.variant_set_ids:
+        base.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
+    if not args.analyze_journal_dir and not args.store_dir:
+        print(
+            "WARNING: --analyze without --analyze-journal-dir: jobs are "
+            "in-memory only and a crash forgets them all.",
+            file=sys.stderr,
+        )
+    import os
+
+    replica = None
+    delta_fence = None
+    if args.store_dir:
+        from spark_examples_tpu_torch.store import LocalDirStore
+
+        replica = LeaseManager(
+            LocalDirStore(args.store_dir),
+            replica_id=args.replica_id,
+            ttl_s=args.replica_lease_ttl,
+            heartbeat_s=args.replica_heartbeat,
+        )
+        if not replica.start():
+            # Degraded from birth (store unreachable): the tier still
+            # comes up — single-replica local mode, journal/ckpt on
+            # local disk, serving_store_degraded=1. Restart with a
+            # reachable store to rejoin the replica set.
+            print(
+                "WARNING: --store-dir unreachable at startup; serving "
+                "single-replica local (restart with a reachable store "
+                "to rejoin the replica set).",
+                file=sys.stderr,
+            )
+        delta_fence = replica.check_fence
+    # The delta cache persists beside the journal — or, replicated, in
+    # the shared store so a warm delta computed on one replica answers
+    # on all: a kill -9'd server restarted on the same directory
+    # answers ±k cohort deltas warm (checksummed write-through; torn
+    # entries drop loudly to cold on re-load).
+    if args.store_dir and args.delta_max_samples > 0:
+        delta_persist = os.path.join(args.store_dir, "deltas")
+    elif args.analyze_journal_dir and args.delta_max_samples > 0:
+        delta_persist = os.path.join(args.analyze_journal_dir, "deltas")
+    else:
+        delta_persist = None
+    tier = AnalysisJobTier(
+        AnalysisEngine(
+            source,
+            delta_max_samples=args.delta_max_samples,
+            delta_persist_dir=delta_persist,
+            delta_fence=delta_fence,
+            device=args.device,
+        ),
+        base,
+        queue_depth=args.analyze_queue_depth,
+        tenant_quota=args.analyze_tenant_quota,
+        workers=args.analyze_workers,
+        journal_dir=args.analyze_journal_dir,
+        cache_size=args.analyze_cache_size,
+        gang_max_samples=args.gang_max_samples,
+        replica=replica,
+    )
+    return tier.start()
+
+
 def _cmd_serve_cohort(args) -> int:
     """Host a cohort as a Genomics-compatible HTTP service (and, with
-    ``--grpc-port``, a gRPC service on the same source)."""
-    if args.analyze:
-        raise unported(
-            "serve-cohort --analyze", "item 6, delta and gang serving"
-        )
+    ``--grpc-port``, a gRPC service on the same source); with
+    ``--analyze``, the analysis job tier behind ``POST /analyze``."""
+    import os
+
     from spark_examples_tpu_torch.genomics.service import (
         GenomicsServiceServer,
     )
@@ -385,28 +519,95 @@ def _cmd_serve_cohort(args) -> int:
         print("Indexing cohort for serving ...", flush=True)
         print(f"Indexed {warm()} variant records.", flush=True)
     grpc_server = None
-    if args.grpc_port is not None:
-        from spark_examples_tpu_torch.genomics.grpc_transport import (
-            GrpcGenomicsServer,
-            grpc_available,
-        )
-
-        if not grpc_available():
-            raise SystemExit(
-                "--grpc-port needs grpcio (pip install "
-                "'spark_examples_tpu[grpc]'); omit it to serve HTTP only"
-            )
-        grpc_server = GrpcGenomicsServer(
-            source, port=args.grpc_port, token=args.token, host=args.host
-        ).start()
-        print(
-            f"gRPC stream service on grpc://{args.host}:{grpc_server.port}"
-            + (" (token auth)" if args.token else ""),
-            flush=True,
-        )
+    job_tier = None
+    stack = contextlib.ExitStack()
     try:
+        if args.grpc_port is not None:
+            from spark_examples_tpu_torch.genomics.grpc_transport import (
+                GrpcGenomicsServer,
+                grpc_available,
+            )
+
+            if not grpc_available():
+                raise SystemExit(
+                    "--grpc-port needs grpcio (pip install "
+                    "'spark_examples_tpu[grpc]'); omit it to serve HTTP "
+                    "only"
+                )
+            grpc_server = GrpcGenomicsServer(
+                source, port=args.grpc_port, token=args.token,
+                host=args.host,
+            ).start()
+            print(
+                f"gRPC stream service on grpc://{args.host}:"
+                f"{grpc_server.port}"
+                + (" (token auth)" if args.token else ""),
+                flush=True,
+            )
+        if args.analyze:
+            # The live introspection plane (/metrics, /statusz,
+            # /jobs?trace=1) reads the ambient registry and tracer, so
+            # an analysis server keeps one collection session open for
+            # its whole lifetime — unless the CLI entrypoint already
+            # opened one for --trace-out/--metrics-out artifacts.
+            from spark_examples_tpu_torch.obs.session import (
+                TelemetrySession,
+            )
+            from spark_examples_tpu_torch.obs.tracer import (
+                collection_active,
+            )
+
+            if not collection_active():
+                stack.enter_context(
+                    TelemetrySession(command="serve-cohort")
+                )
+            if args.analyze_journal_dir:
+                # Crash flight recorder rides beside the journal: the
+                # last K span/metric transitions land in
+                # <journal>/flightrec/ on watchdog exit-77, SIGTERM,
+                # or an unhandled exception.
+                from spark_examples_tpu_torch.obs import flightrec
+
+                flightrec.install(
+                    os.path.join(args.analyze_journal_dir, "flightrec")
+                )
+            job_tier = _analysis_tier(args, source)
+            print(
+                f"Analysis tier up: queue depth "
+                f"{args.analyze_queue_depth}, tenant quota "
+                f"{args.analyze_tenant_quota}, "
+                f"{args.analyze_workers} worker(s)"
+                + (
+                    f", journal {args.analyze_journal_dir}"
+                    if args.analyze_journal_dir
+                    else " (no journal)"
+                )
+                + (
+                    f", deltas <= {args.delta_max_samples} samples"
+                    if args.delta_max_samples > 0
+                    else ", deltas off"
+                )
+                + (
+                    f", gangs <= {args.gang_max_samples} samples"
+                    if args.gang_max_samples > 0
+                    else ", gangs off"
+                )
+                + (
+                    ", replica "
+                    f"{job_tier.replica_health()['replica_id']} on "
+                    f"store {args.store_dir} (lease ttl "
+                    f"{args.replica_lease_ttl:g}s)"
+                    if args.store_dir
+                    else ""
+                ),
+                flush=True,
+            )
         server = GenomicsServiceServer(
-            source, port=args.port, token=args.token, host=args.host
+            source,
+            port=args.port,
+            token=args.token,
+            host=args.host,
+            job_tier=job_tier,
         )
         print(
             f"Genomics service listening on http://{args.host}:"
@@ -420,10 +621,13 @@ def _cmd_serve_cohort(args) -> int:
         finally:
             server.stop()
     finally:
-        # Covers HTTP bind failures too — a started gRPC server must
-        # never outlive the command that printed its URL.
+        # Covers HTTP bind failures too — a started gRPC server or job
+        # tier must never outlive the command that printed its URL.
         if grpc_server is not None:
             grpc_server.stop()
+        if job_tier is not None:
+            job_tier.close()
+        stack.close()
     return 0
 
 
@@ -516,11 +720,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     add_pca_flags(serve)
     _add_fixture_flags(serve)
-    serve.add_argument(
-        "--analyze",
-        action="store_true",
-        help="Also run the analysis job tier (not ported yet)",
-    )
+    add_analyze_flags(serve)
     serve.add_argument("--port", type=int, default=18718)
     serve.add_argument(
         "--grpc-port",

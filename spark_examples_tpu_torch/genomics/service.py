@@ -35,8 +35,13 @@ server's ``/identity`` (:mod:`.mirror`, shared with the gRPC transport of
 :mod:`.grpc_transport`), and serves every later run from the mirror's CSR
 sidecar (and its ``reads.jsonl``).
 
-Not served yet (ROADMAP.md, Queue 1): the analysis job tier
-(``POST /analyze``, ``/jobs``; item 6).
+With a ``job_tier`` (``serve-cohort --analyze``) the server also fronts
+the analysis job tier of :mod:`spark_examples_tpu_torch.serving`:
+``POST /analyze`` (429/503 + Retry-After shedding, a 1 MiB body ceiling),
+``GET /jobs`` and ``/jobs/<id>`` (``?trace=1`` adds the job's spans), the
+journal and device probes of ``/healthz`` and ``/statusz``'s ``tier``.
+``/statusz`` carries no ``jit_retraces`` or ``compile_cache``: those are
+XLA records.
 """
 
 from __future__ import annotations
@@ -179,7 +184,7 @@ def _build_fragment() -> dict:
     return doc
 
 
-def _make_handler(source, token: Optional[str]):
+def _make_handler(source, token: Optional[str], job_tier=None):
     started_unix = time.time()
 
     class Handler(BaseHTTPRequestHandler):
@@ -188,13 +193,84 @@ def _make_handler(source, token: Optional[str]):
         def log_message(self, *args):  # quiet: tests run many requests
             pass
 
-        def _send_json(self, code: int, doc: dict) -> None:
+        def _send_json(
+            self,
+            code: int,
+            doc: dict,
+            retry_after: Optional[float] = None,
+        ) -> None:
             body = (json.dumps(doc) + "\n").encode()
             self.send_response(code)
+            if retry_after is not None:
+                # Integer delta-seconds (RFC 9110), never below 1 — a
+                # Retry-After of 0 invites an immediate hammer.
+                self.send_header(
+                    "Retry-After", str(max(1, int(-(-retry_after // 1))))
+                )
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _handle_jobs_get(self, path: str, q: dict) -> None:
+            # The job tier's read surface: /jobs lists, /jobs/<id>
+            # fetches one (result rows included when done). Records are
+            # serialized UNDER the tier lock (job_records/job_record):
+            # workers mutate Job state/result/error under that lock,
+            # and a lock-free to_record() here could serve a torn
+            # transition — state flipped, result not yet attached.
+            if path == "/jobs":
+                self._send_json(
+                    200,
+                    {
+                        "jobs": job_tier.job_records(
+                            include_result=False
+                        ),
+                        "queue_depth": job_tier.queue_depth(),
+                    },
+                )
+                return
+            job_id = path[len("/jobs/"):]
+            rec = job_tier.job_record(job_id)
+            if rec is None:
+                # Replicated mode: a job admitted by a PEER replica is
+                # findable through the shared store index — polling any
+                # replica behind one load balancer works. 503 + Retry-
+                # After (never a lying 404) when the store is
+                # unreachable: the job may well exist.
+                peer_lookup = getattr(job_tier, "peer_job_record", None)
+                if peer_lookup is not None:
+                    from spark_examples_tpu_torch.store import StoreError
+
+                    try:
+                        rec = peer_lookup(job_id)
+                    except StoreError as e:
+                        self._send_json(
+                            503,
+                            {
+                                "error": str(e),
+                                "reason": "store_degraded",
+                            },
+                            retry_after=5.0,
+                        )
+                        return
+                if rec is None:
+                    self.send_error(404, "no such job")
+                    return
+                if q.get("trace") in ("1", "true"):
+                    # The owning replica holds this job's timeline; the
+                    # index record carries only its trace id.
+                    rec["trace"] = []
+                self._send_json(200, rec)
+                return
+            if q.get("trace") in ("1", "true"):
+                # The job's span timeline: every tracer event carrying
+                # the trace id minted at this job's admission (journal
+                # replay restores the id, so a resumed server serves
+                # the REPLAYED execution's timeline here).
+                rec["trace"] = job_tier.job_trace(job_id) or []
+            self._send_json(200, rec)
+
 
         # -- the live introspection plane ---------------------------------
         #
@@ -218,10 +294,45 @@ def _make_handler(source, token: Optional[str]):
             self.wfile.write(body)
 
         def _handle_healthz(self) -> None:
-            # A data server without the job tier has one check: it
-            # answered.
+            # Liveness + journal-writable + device-lock-not-wedged.
+            # Every probe is BOUNDED (the exit-77 discipline): a health
+            # check must never hang on the wedge it exists to detect.
+            checks: dict = {"live": True}
+            healthy = True
+            if job_tier is not None:
+                journal_ok = bool(job_tier.journal_writable())
+                checks["journal_writable"] = journal_ok
+                device_ok = bool(job_tier.device_available(0.5))
+                running = int(job_tier.running_jobs())
+                # Held WITH a running job = busy (healthy: the chip is
+                # doing the work it queued for). Held with nothing
+                # running = wedged.
+                wedged = (not device_ok) and running == 0
+                checks["device_lock"] = (
+                    "ok"
+                    if device_ok
+                    else ("busy" if running else "wedged")
+                )
+                healthy = journal_ok and not wedged
+                replica = getattr(
+                    job_tier, "replica_health", lambda: None
+                )()
+                if replica is not None:
+                    # In-memory lease bits only — no store I/O in a
+                    # health probe. A zombie (lease lost) must FAIL
+                    # liveness so the balancer routes clients to the
+                    # replica that now owns its jobs; degraded-but-
+                    # leased keeps serving (single-replica local mode).
+                    checks["replica"] = replica
+                    healthy = (
+                        healthy and replica["lease_state"] != "lost"
+                    )
             self._send_json(
-                200, {"status": "ok", "checks": {"live": True}}
+                200 if healthy else 503,
+                {
+                    "status": "ok" if healthy else "unhealthy",
+                    "checks": checks,
+                },
             )
 
         def _handle_statusz(self) -> None:
@@ -236,7 +347,9 @@ def _make_handler(source, token: Optional[str]):
                     "python": platform.python_version(),
                 },
                 "build": _build_fragment(),
-                "tier": None,
+                "tier": (
+                    job_tier.status() if job_tier is not None else None
+                ),
             }
             self._send_json(200, doc)
 
@@ -282,15 +395,54 @@ def _make_handler(source, token: Optional[str]):
                 )
                 self.close_connection = True  # body left unread
                 return
-            if length > 0:
-                self.rfile.read(length)
+            body = self.rfile.read(length) if length > 0 else b""
             if not self._authorized():
                 self._deny()
                 return
-            # The analysis tier (POST /analyze) is ROADMAP.md Queue 1,
-            # item 6; a server without it answers as the JAX package's
-            # does without --analyze.
-            self.send_error(404, "no analysis tier here")
+            url = urlparse(self.path)
+            if url.path != "/analyze" or job_tier is None:
+                self.send_error(
+                    404,
+                    "no analysis tier here"
+                    if job_tier is None
+                    else "unknown endpoint",
+                )
+                return
+            from spark_examples_tpu_torch.resilience import CircuitOpenError
+            from spark_examples_tpu_torch.serving import AdmissionError, JobSpec
+
+            try:
+                spec = JobSpec.from_record(json.loads(body or b"{}"))
+            except (ValueError, TypeError) as e:
+                self._send_json(400, {"error": str(e)})
+                return
+            try:
+                job, created = job_tier.submit(spec)
+            except AdmissionError as e:
+                # Explicit load shedding: bounded queue / tenant quota.
+                # Retry-After derives from RetryPolicy.backoff_delay
+                # over the shed streak (serving/queue.py) — the same
+                # backoff engine the client's retry loop honors.
+                self._send_json(
+                    429,
+                    {"error": str(e), "reason": e.reason},
+                    retry_after=e.retry_after,
+                )
+                return
+            except CircuitOpenError as e:
+                # The analyze breaker is open (job executions are
+                # failing IO-shaped): shed until the next probe window.
+                self._send_json(
+                    503,
+                    {"error": str(e), "reason": "breaker_open"},
+                    retry_after=e.retry_in,
+                )
+                return
+            # record_of: a worker may already be finishing this job on
+            # another thread — serialize it under the tier lock too.
+            self._send_json(
+                202 if created else 200, job_tier.record_of(job)
+            )
 
         def _authorized(self) -> bool:
             if token is None:
@@ -513,6 +665,10 @@ def _make_handler(source, token: Optional[str]):
                     self._handle_metrics()
                 elif url.path == "/statusz":
                     self._handle_statusz()
+                elif (
+                    url.path == "/jobs" or url.path.startswith("/jobs/")
+                ) and job_tier is not None:
+                    self._handle_jobs_get(url.path, q)
                 elif url.path.startswith("/export/"):
                     # Whole-cohort interchange-file export, framed and
                     # gzip-able like every stream.
@@ -547,9 +703,10 @@ class GenomicsServiceServer:
         port: int = 0,
         token: Optional[str] = None,
         host: str = "127.0.0.1",
+        job_tier=None,
     ):
         self._srv = ThreadingHTTPServer(
-            (host, port), _make_handler(source, token)
+            (host, port), _make_handler(source, token, job_tier)
         )
         self._srv.daemon_threads = True
         self._thread: Optional[threading.Thread] = None

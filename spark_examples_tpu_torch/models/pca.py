@@ -41,6 +41,11 @@ report_io_stats — for a single-process, meshless, uncheckpointed run:
   ``auto`` and ``sparse`` for N ≤ ``--dense-eigh-limit``, with dense
   ``eigh`` when it collapses on a degenerate G), dense ``eigh``
   (``stream``, or above the limit), or host float64 with ``--precise``;
+- serving entry points for the analysis engine
+  (:mod:`spark_examples_tpu_torch.serving`): ``ingest_gramian_windows``
+  (the sparse engine's window route whatever the mode, capturing the
+  full-frame windows) and ``ingest_gramian_delta`` (an exact rank-k
+  correction of a cached G, :mod:`~spark_examples_tpu_torch.ops.delta`);
 - emission byte-format compatible with ``emitResult``
   (``VariantsPca.scala:233-246``): stdout ``name\\tdataset\\tpc1\\tpc2``
   sorted by name; ``--output-path`` writes ``<path>-pca.tsv`` lines
@@ -89,7 +94,10 @@ from spark_examples_tpu_torch.ops.sketch import (
     sketch_eig,
     sketch_panel_blockwise,
 )
-from spark_examples_tpu_torch.ops.sparse import sparse_gramian_blockwise
+from spark_examples_tpu_torch.ops.sparse import (
+    DEFAULT_SPARSE_DENSITY_THRESHOLD,
+    sparse_gramian_blockwise,
+)
 from spark_examples_tpu_torch.resilience import faults
 from spark_examples_tpu_torch.utils.config import (
     INGEST_ORDERS,
@@ -727,6 +735,68 @@ class VariantsPcaDriver:
 
     def _gramian_sparse(self):
         return self._windows_to_gramian(self._cohort_windows())
+
+    # -- serving entry points: window capture, deltas ------------------------
+
+    def ingest_gramian_windows(self, window_sink=None):
+        """Window-route ingest for the delta-aware serving engine: the
+        same finished G as :meth:`ingest_gramian` (integer-exact
+        accumulation — bit-identical across routes), but fed through the
+        sparse engine's window stream, whatever ``--pca-mode`` says, so the
+        FULL-frame windows can be captured into ``window_sink`` on the way
+        (the delta index's per-base-key window cache) while the
+        cohort-restricted view of each window accumulates. Rare windows
+        launch the scatter kernel."""
+
+        def stream():
+            for window in self._cohort_windows(restrict=False):
+                if window_sink is not None:
+                    window_sink.append(window)
+                yield self._restrict_window(window)
+
+        return self._windows_to_gramian(stream())
+
+    def ingest_gramian_delta(
+        self, cached_g, cached_samples, windows=None, window_sink=None,
+        density_threshold=DEFAULT_SPARSE_DENSITY_THRESHOLD,
+    ):
+        """Target-cohort G from a cached ancestor G by exact rank-k
+        sample correction (:mod:`spark_examples_tpu_torch.ops.delta`) —
+        bit-identical to from-scratch, O(k·N) device work instead of a
+        full re-accumulation.
+
+        ``cached_samples`` is the ancestor's callset-id frame (row i of
+        ``cached_g`` is that callset). ``windows`` is the base key's
+        cached full-frame window list; None re-streams the source (and
+        captures into ``window_sink`` so the next delta is ingest-free).
+        ``density_threshold`` routes the correction (the JAX package's
+        fixed threshold unless a caller forces a route). Returns a host
+        float32 array in this driver's cohort frame.
+        """
+        from spark_examples_tpu_torch.ops.delta import delta_gramian
+
+        full = self.index.indexes
+        ancestor = np.asarray(
+            [full[cid] for cid in cached_samples], dtype=np.int64
+        )
+        target = np.asarray(
+            [full[cid] for cid in self.cohort.callset_of_index()],
+            dtype=np.int64,
+        )
+        if windows is None:
+
+            def stream():
+                for window in self._cohort_windows(restrict=False):
+                    if window_sink is not None:
+                        window_sink.append(window)
+                    yield window
+
+            windows = stream()
+        return delta_gramian(
+            cached_g, ancestor, target, self.index.size, windows,
+            density_threshold=density_threshold,
+            device=self.device,
+        )
 
     # The auto-sketch trigger, the JAX package's: above 4 GiB of float32 G
     # (N > 32768) its exact engines refuse, and only there does auto trade

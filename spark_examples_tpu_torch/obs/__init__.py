@@ -15,12 +15,17 @@ The JAX package's ``obs`` package on PyTorch. Three pillars:
    per run — config, torch/CUDA devices, stage timings, counters,
    histogram summaries.
 
+A crash flight recorder (:mod:`.flightrec`) keeps the last span, instant
+and metric transitions per thread whether or not a session is active; the
+analysis server installs it beside its job journal.
+
 Ambient use: the CLI (``--trace-out/--metrics-out/--manifest-out``) opens a
 :func:`telemetry_session`; library code records through the module-level
 ``span``/``instant``/``observe_rpc`` helpers, which collect nothing when no
 session is active.
 """
 
+from spark_examples_tpu_torch.obs import flightrec
 from spark_examples_tpu_torch.obs.tracer import (
     SpanTracer,
     collection_active,
@@ -55,6 +60,7 @@ from spark_examples_tpu_torch.obs.session import (
 )
 
 __all__ = [
+    "flightrec",
     "SpanTracer",
     "collection_active",
     "counter",

@@ -37,6 +37,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+from spark_examples_tpu_torch.obs import flightrec
+
 __all__ = [
     "Counter",
     "Gauge",
@@ -102,7 +104,8 @@ class _Metric:
             child = self._children.get(key)
             if child is None:
                 child = self._children[key] = self._make_child()
-                # Children carry the family name; exposition still
+                # Children carry the family name so per-write taps (the
+                # flight recorder) can attribute deltas; exposition still
                 # renders from the parent's name + label items.
                 child.name = self.name
             return child
@@ -134,6 +137,10 @@ class Counter(_Metric):
             raise ValueError("counters only go up")
         with self._lock:
             self._value += amount
+        # Outside the lock: the flight recorder is lock-free per thread
+        # and must never widen a metric's critical section.
+        if flightrec.get_recorder() is not None and self.name:
+            flightrec.note("metric", self.name, {"delta": amount})
 
     @property
     def value(self) -> float:
@@ -154,10 +161,14 @@ class Gauge(_Metric):
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+        if flightrec.get_recorder() is not None and self.name:
+            flightrec.note("metric", self.name, {"value": float(value)})
 
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
+        if flightrec.get_recorder() is not None and self.name:
+            flightrec.note("metric", self.name, {"delta": amount})
 
     @property
     def value(self) -> float:

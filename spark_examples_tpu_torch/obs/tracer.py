@@ -39,6 +39,8 @@ from typing import Any, Dict, Iterator, List, Optional
 
 from torch.profiler import record_function
 
+from spark_examples_tpu_torch.obs import flightrec
+
 __all__ = [
     "SpanTracer",
     "collection_active",
@@ -321,23 +323,35 @@ def collection_active() -> bool:
 @contextlib.contextmanager
 def span(name: str, **args: Any) -> Iterator[None]:
     """Ambient span: one profiler range of ``name`` always, and an event
-    in the session tracer while collection is active."""
-    with record_function(name):
-        if not _active:
-            yield
-        else:
-            with get_tracer().span(name, **args):
+    in the session tracer while collection is active.
+
+    The flight recorder (when installed) sees the begin/end transitions
+    whether or not a session is active — a last-seconds record even with
+    full tracing off."""
+    flightrec.note("span_begin", name, args or None)
+    try:
+        with record_function(name):
+            if not _active:
                 yield
+            else:
+                with get_tracer().span(name, **args):
+                    yield
+    finally:
+        flightrec.note("span_end", name, None)
 
 
 def instant(name: str, scope: str = "t", **args: Any) -> None:
-    """Ambient instant event: no-op unless a session is active."""
+    """Ambient instant event: no-op unless a session is active (the
+    flight recorder, when installed, always sees it)."""
+    flightrec.note("instant", name, args or None)
     if _active:
         get_tracer().instant(name, scope=scope, **args)
 
 
 def counter(name: str, **series: float) -> None:
     """Ambient counter ("C") sample — a stacked-area track in the viewer
-    (queue depth, in-flight jobs). No-op unless a session is active."""
+    (queue depth, in-flight jobs). No-op unless a session is active (the
+    flight recorder, when installed, records the sample)."""
+    flightrec.note("counter", name, series or None)
     if _active:
         get_tracer().counter(name, **series)

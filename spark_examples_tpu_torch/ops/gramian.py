@@ -41,6 +41,7 @@ from spark_examples_tpu_torch.utils.tracing import (
 )
 
 __all__ = [
+    "gang_gramian_blockwise",
     "gramian",
     "gramian_accumulate",
     "gramian_accumulate_packed",
@@ -208,6 +209,58 @@ def gramian_accumulate_packed(
     x = unpack_indicator_block(xp, n_bits)
     g += _cross_product(x, x, compute_dtype)
     return g
+
+
+def gang_gramian_blockwise(
+    windows: Iterable,
+    remaps,
+    n_max: int,
+    device=DEFAULT_DEVICE,
+    compute_dtype=None,
+) -> np.ndarray:
+    """Batched Gramians for B cohorts from ONE full-frame window stream.
+
+    ``windows`` yields full-frame ``(indices, lens)`` CSR windows (the
+    ``csr_windows``/``windows_from_calls`` shape); ``remaps`` is one int
+    array per cohort mapping full-frame sample index → that cohort's dense
+    index (< 0 drops the carrier). Each window is scattered on the host
+    into one ``(B, rows, width)`` int8 stack — cohorts shorter than
+    ``n_max`` zero-pad, and ``rows``/``width`` are already the shape the
+    int8 product takes, so no operand is re-padded on the device — copied
+    to ``device`` once, and each cohort's slice is accumulated into its
+    ``G[b]`` by :func:`gramian_accumulate` (the JAX package maps that
+    product over the batch with ``vmap``; PyTorch has no batched int8
+    product). Each ``G[b]``'s
+    top-left ``(n_b, n_b)`` corner is bit-identical to that cohort's
+    serial accumulation — exact integer counts, any composition. (The
+    JAX package also pads every window to ``block_variants`` columns, for
+    its jit cache; the port needs no fixed width.)
+
+    Returns the host ``(B, n_max, n_max)`` float32 stack (callers slice
+    per-cohort corners).
+    """
+    batch = len(remaps)
+    if batch == 0:
+        raise ValueError("gang_gramian_blockwise needs >= 1 cohort")
+    dev = resolve_device(device)
+    remaps = [np.asarray(r, dtype=np.int64) for r in remaps]
+    rows = int_mm_rows(n_max)
+    g = torch.zeros((batch, rows, rows), dtype=torch.float32, device=dev)
+    for window_idx, lens in windows:
+        window_idx = np.asarray(window_idx, dtype=np.int64)
+        lens = np.asarray(lens, dtype=np.int64)
+        width = round_up_multiple(max(int(lens.size), 1), 8)
+        cols = np.repeat(np.arange(lens.size, dtype=np.int64), lens)
+        stack = np.zeros((batch, rows, width), dtype=np.int8)
+        for b, remap in enumerate(remaps):
+            mapped = remap[window_idx]
+            keep = mapped >= 0
+            stack[b][mapped[keep], cols[keep]] = 1
+        xs = torch.from_numpy(stack).to(dev)
+        with obs.span(GRAMIAN_ACCUMULATE, gang=batch):
+            for b in range(batch):
+                gramian_accumulate(g[b], xs[b], compute_dtype)
+    return g[:, :n_max, :n_max].cpu().numpy()
 
 
 def gramian_blockwise(

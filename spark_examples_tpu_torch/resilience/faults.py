@@ -48,6 +48,24 @@ Sites wired in the port (glob-matched, so ``transport.*`` works):
 ``mirror.write``             cohort-mirror file commit (torn = kill -9
                              mid-write: the tmp truncates to half and
                              never renames; error/stall as usual)
+``store.read``               durable-store object reads (error/stall)
+``store.write``              durable-store object puts (torn = kill -9
+                             mid-write: the framed blob truncates under its
+                             ``.tmp-`` name and never renames)
+``store.lease``              lease CAS operations, keyed ``<op>:<name>``
+                             (error/stall; ``corrupt`` = a STALE FENCING
+                             TOKEN: the op raises ``FencedWriteError``)
+``store.lease.write``        lease-doc file commit (torn = kill -9 between
+                             fsync and rename: reads back as "no lease"
+                             with the token floor intact)
+``serving.job.run``          analysis job execution (error/stall)
+``serving.job.kill``         a simulated process death between the
+                             journaled start and execution
+``serving.journal.append``   job-journal appends (torn/error)
+``serving.delta.write``      delta-cache persist-dir commit (torn = the
+                             ``.tmp-`` partial the next load sweeps)
+``flightrec.write``          flight-recorder dump commit (torn = kill
+                             mid-dump; the previous dump survives)
 ===========================  ===============================================
 """
 

@@ -2,9 +2,9 @@
 
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
-every field and flag here keeps the JAX package's name and default. Options
-of routes not ported yet (meshes, checkpoints, the analysis job tier) are
-accepted and then refused with ``NotImplementedError`` naming
+every field and flag here keeps the JAX package's name and default, and
+:func:`add_analyze_flags` is the analysis tier's surface. Options of routes
+not ported yet (meshes, checkpoints) are accepted and then refused with ``NotImplementedError`` naming
 the ROADMAP.md item that ports them, never silently ignored. ``--device``
 is the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
@@ -44,6 +44,7 @@ __all__ = [
     "INGEST_ORDERS",
     "PCA_MODES",
     "PcaConfig",
+    "add_analyze_flags",
     "add_pca_flags",
     "pca_config_from_args",
     "unported",
@@ -528,6 +529,142 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         default=DEFAULT_DEVICE,
         help="Device the run computes on: 'cuda' (default; fails without "
         "a card) or 'cpu'",
+    )
+
+
+def add_analyze_flags(p: argparse.ArgumentParser) -> None:
+    """The serve-cohort analysis-tier surface (serving/): flag defaults
+    derive from the serving layer's own constants — one source of
+    truth, like the breaker/retry flags above."""
+    from spark_examples_tpu_torch.serving.queue import (
+        DEFAULT_QUEUE_DEPTH,
+        DEFAULT_TENANT_QUOTA,
+    )
+    from spark_examples_tpu_torch.serving.tier import DEFAULT_RESULT_CACHE
+
+    p.add_argument(
+        "--analyze",
+        action="store_true",
+        help="Serve the multi-tenant analysis job tier: POST /analyze "
+        "submits a cohort spec (dataset, references, AF filter, num_pc) "
+        "and GET /jobs/<id> polls it; jobs run PCA against the served "
+        "cohort on this host's card (--device) with admission control, "
+        "per-tenant quotas, result caching, and crash-safe replay",
+    )
+    p.add_argument(
+        "--analyze-workers",
+        type=int,
+        default=1,
+        help="Analysis worker threads executing queued jobs (device "
+        "phases serialize on one engine lock regardless; extra workers "
+        "only overlap host-side work)",
+    )
+    p.add_argument(
+        "--analyze-queue-depth",
+        type=int,
+        default=DEFAULT_QUEUE_DEPTH,
+        help="Bounded analysis queue depth: submissions beyond it shed "
+        "with 429 + Retry-After (derived from the retry policy's "
+        "backoff over the consecutive-shed streak) instead of queuing "
+        "unboundedly",
+    )
+    p.add_argument(
+        "--analyze-tenant-quota",
+        type=int,
+        default=DEFAULT_TENANT_QUOTA,
+        help="Per-tenant in-flight job quota (queued + running): a "
+        "tenant at quota sheds with 429 + Retry-After so one greedy "
+        "client cannot starve the others",
+    )
+    p.add_argument(
+        "--analyze-journal-dir",
+        default=None,
+        help="Directory for the crash-safe analysis job journal (plus "
+        "the persisted delta Gramians and the flight recorder): a killed "
+        "server restarted with the same directory replays finished jobs "
+        "into the result cache and re-queues in-flight ones "
+        "deterministically; unset = in-memory only (a crash forgets "
+        "every job)",
+    )
+    p.add_argument(
+        "--analyze-cache-size",
+        type=int,
+        default=DEFAULT_RESULT_CACHE,
+        help="Result-cache entries kept (LRU), keyed on the cohort "
+        "hash + analysis flags: identical submissions are served "
+        "without recomputation, across tenants",
+    )
+    from spark_examples_tpu_torch.serving.deltas import (
+        DEFAULT_DELTA_MAX_SAMPLES,
+        DEFAULT_GANG_MAX_SAMPLES,
+    )
+
+    p.add_argument(
+        "--delta-max-samples",
+        type=int,
+        default=DEFAULT_DELTA_MAX_SAMPLES,
+        help="Incremental serving: a submitted cohort whose sample set "
+        "differs from a cached ancestor's by at most this many samples "
+        "(same variantsets/references/AF filter) is answered by exact "
+        "rank-k corrections to the cached Gramian instead of a "
+        "from-scratch re-accumulation — bit-identical results, O(k*N) "
+        "touch-up instead of O(N*V) ingest; a checksum guard falls "
+        "back to cold on any cache doubt. 0 disables the delta tier",
+    )
+    from spark_examples_tpu_torch.serving.replica import (
+        DEFAULT_HEARTBEAT_S,
+        DEFAULT_LEASE_TTL_S,
+    )
+
+    p.add_argument(
+        "--store-dir",
+        default=None,
+        help="Shared durable-store directory for replicated serving: "
+        "N serve-cohort replicas pointed at the same directory "
+        "coordinate through lease-owned jobs (per-replica journals, a "
+        "fenced shared job index and delta write-through), so killing "
+        "any replica mid-job lets a survivor re-run it bit-identically. "
+        "Unset = single-replica local mode; an unreachable store "
+        "degrades to the same, never crashes",
+    )
+    p.add_argument(
+        "--replica-id",
+        default=None,
+        help="Stable identity of this replica in the shared store "
+        "(its lease name and journal subdirectory); default is a "
+        "generated host-pid-suffix id. Reusing a dead replica's id "
+        "resumes its journal; two LIVE replicas must never share one",
+    )
+    p.add_argument(
+        "--replica-lease-ttl",
+        type=float,
+        default=DEFAULT_LEASE_TTL_S,
+        help="Replica lease time-to-live in seconds (> 0): how stale a "
+        "peer's heartbeat must be before survivors declare it dead and "
+        "adopt its in-flight jobs. Lower = faster failover, higher = "
+        "more tolerance for GC/IO pauses before a live replica is "
+        "zombied (its late writes are then fenced, not merged)",
+    )
+    p.add_argument(
+        "--replica-heartbeat",
+        type=float,
+        default=DEFAULT_HEARTBEAT_S,
+        help="Replica lease renewal interval in seconds (0 < value < "
+        "ttl; ttl/5 to ttl/3 is a sane band): each renewal re-proves "
+        "ownership under the fencing token and recovers the store "
+        "after degraded spells",
+    )
+    p.add_argument(
+        "--gang-max-samples",
+        type=int,
+        default=DEFAULT_GANG_MAX_SAMPLES,
+        help="Gang batching: queued compatible jobs (same resolved "
+        "variantsets/references/AF filter, cohort size at most this) "
+        "coalesce into ONE batched Gramian dispatch — cohorts stacked "
+        "on a leading batch axis, one host-to-device copy a window, "
+        "per-job results unstacked and journaled individually "
+        "(crash-safe replay semantics unchanged; results bit-identical "
+        "to serial execution). 0 disables gang batching",
     )
 
 

@@ -238,12 +238,78 @@ def _served_grpc_port(tmp_path, capsys, monkeypatch, request):
         proc.stdout.close()
 
 
+def _served_analyze(tmp_path, capsys, monkeypatch, request):
+    """``serve-cohort --analyze`` (item 6, served now): a ``{}`` job over
+    HTTP, its rows within 1e-4 of the JAX package's engine on the same
+    fixture, the flight recorder beside the journal, a clean SIGINT."""
+    import http.client
+
+    import numpy as np
+
+    from spark_examples_tpu.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+        synthetic_cohort as jax_synthetic_cohort,
+    )
+    from spark_examples_tpu.serving import AnalysisEngine as JaxEngine
+    from spark_examples_tpu.utils.config import PcaConfig as JaxConfig
+
+    journal = str(tmp_path / "journal")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+         "serve-cohort", "--fixture-samples", "12", "--fixture-variants",
+         "200", "--port", "0", "--analyze", "--analyze-journal-dir",
+         journal, "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        url, lines = None, []
+        for line in proc.stdout:
+            lines.append(line)
+            if " on http://" in line:
+                url = line.split(" on http://", 1)[1].split()[0]
+                break
+        assert url, "serve-cohort did not listen: " + "".join(lines)
+        assert any(l.startswith("Analysis tier up:") for l in lines)
+        host, port = url.split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        conn.request("POST", "/analyze", body=b"{}")
+        resp = conn.getresponse()
+        doc = json.loads(resp.read())
+        assert resp.status == 202, doc
+        deadline = time.time() + 120
+        while doc["state"] not in ("done", "failed"):
+            assert time.time() < deadline
+            time.sleep(0.05)
+            conn.request("GET", f"/jobs/{doc['id']}")
+            doc = json.loads(conn.getresponse().read())
+        assert doc["state"] == "done", doc
+        conn.close()
+        want = JaxEngine(jax_synthetic_cohort(12, 200)).run(
+            JaxConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
+        )
+        got = [tuple(r) for r in doc["result"]]
+        assert [r[0] for r in got] == [r[0] for r in want]
+        assert np.abs(
+            np.array([r[1:3] for r in got], float)
+            - np.array([r[1:3] for r in want], float)
+        ).max() <= 1e-4
+        assert os.path.isdir(os.path.join(journal, "flightrec"))
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+
+
 _SERVED = {
     "grpc": _served_grpc,
     "cache-dir-network": lambda *a: _served_mirror("full", *a),
     "mirror-mode": lambda *a: _served_mirror("light", *a),
     "cache-dir-offline": _served_cache_dir_offline,
     "grpc-port": _served_grpc_port,
+    "analyze": _served_analyze,
 }
 
 
@@ -257,9 +323,7 @@ _SERVED = {
             ("mirror-mode", None, None),
             ("cache-dir-offline", None, None),
             ("grpc-port", None, None),
-            ("analyze",
-             ["serve-cohort", "--fixture-samples", "4", "--analyze"],
-             "item 6"),
+            ("analyze", None, None),
             ("mesh",
              ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2"],
              "item 7"),
@@ -272,8 +336,8 @@ _SERVED = {
 def test_unserved_options_name_their_roadmap_item(
         case, argv, item, request, tmp_path, capsys, monkeypatch):
     """Options of later items raise naming their item. The item-2 options
-    (gRPC and the cohort mirror) are served now: each case runs them and
-    holds them to the JAX CLI."""
+    (gRPC and the cohort mirror) and item 6's ``serve-cohort --analyze``
+    are served now: each case runs them and holds them to the JAX CLI."""
     if item is None:
         _SERVED[case](tmp_path, capsys, monkeypatch, request)
         return

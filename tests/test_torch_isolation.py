@@ -64,10 +64,12 @@ def test_every_module_imports_without_jax():
         "models.search_variants",
         "native",
         "obs",
+        "obs.flightrec",
         "obs.manifest",
         "obs.metrics",
         "obs.session",
         "obs.tracer",
+        "ops.delta",
         "ops.fused",
         "ops.gramian",
         "ops.pairhmm",
@@ -78,10 +80,22 @@ def test_every_module_imports_without_jax():
         "resilience.breaker",
         "resilience.faults",
         "resilience.policy",
+        "serving",
+        "serving.deltas",
+        "serving.engine",
+        "serving.jobs",
+        "serving.journal_schema",
+        "serving.queue",
+        "serving.replica",
+        "serving.tier",
+        "store",
+        "store.local",
         "tools.ingest_workers",
         "utils.concurrency",
+        "utils.lockcheck",
         "utils.stats",
         "utils.tracing",
+        "utils.watchdog",
     ):
         assert f"spark_examples_tpu_torch.{name}" in modules
     for path in ("genomics/grpc_transport.py", "genomics/mirror.py",
