@@ -176,8 +176,11 @@ on failure:
     tier set up by the CLI's own ``_analysis_tier`` (``serve-cohort
     --analyze --analyze-journal-dir``, deltas up to 16 samples, gangs up
     to 256) behind the port's HTTP server, driven with ``POST /analyze``
-    and ``GET /jobs``: (a) a cold ``{}`` job (phase 4's scatter launches,
-    rows equal the driver's run, G phase 4's); (b) its cached resubmission
+    and ``GET /jobs``: (a) a cold ``{}`` job, which under the journal takes
+    the checkpointed dense-block route (0 scatter launches, rows equal the
+    driver's run, G phase 4's), and a cold ``{}`` job on a tier without a
+    journal, which takes the window route (phase 4's scatter launches, G
+    phase 4's); (b) its cached resubmission
     (0 launches); (c) an 8-sample removal (a delta hit in ``/metrics``);
     (d) those 8 added back and 8 others dropped, then the same cohort on an
     engine whose only ancestor is (c)'s (a rank-8 correction), and the
@@ -191,10 +194,33 @@ on failure:
     --analyze`` in a subprocess with a ``serving.job.kill`` fault, killed
     and restarted on its journal: the job replayed, a delta hit on the
     re-loaded G; (i) two tiers over one ``--store-dir`` with a 1 s lease:
-    one replica's job killed, the survivor adopts and finishes it, the
-    zombie's write refused. Each job's wall-clock, and the device idle
-    share of a profiled cold job and a profiled rank-8 delta job; no job
-    may record a delta ``fallback``.
+    one replica's job killed, the survivor adopts and finishes it (a
+    checkpointed cold run: 0 launches), the zombie's write refused. Each
+    job's wall-clock, and the device idle share of a profiled cold job and
+    a profiled rank-8 delta job; no job may record a delta ``fallback``.
+19. checkpointed ingest, soft cancel, the job's resume, the bridge and
+    ``--trace-dir`` over phase 12's directory (N = 2504, V = 65536, 9
+    shards at ``--bases-per-partition 10000``, ``--checkpoint-every 3``: 3
+    groups): (a) a checkpointed ``auto`` run, G phase 4's bit for bit, each
+    snapshot's device-to-host copy and write timed apart, its bytes and its
+    share of ``ingest+gramian``, against uncheckpointed runs in turns, and
+    the JAX package's deflated write of the same G beside it; (b) an
+    ``ingest.shard`` error on shard 4 with ``--shard-retries 1`` raises
+    after the snapshot of 3 shards, a fresh driver resumes and ingests 6, G
+    phase 4's; (c) a CLI ``pca --checkpoint-dir``, started with phase 18,
+    whose ``SPARK_EXAMPLES_TPU_TORCH_SOFT_DEADLINE`` (launch + 60 s) passes
+    during group 2 (the group's first shard stalled 60 s) exits 75 leaving
+    the snapshot of 6 shards, with the margin by which group 1 beat the
+    deadline, and a rerun resumes to phase 4's G; ``sparse`` with a future
+    deadline launches phase 4's scatter windows and gives phase 4's G, with
+    a past one exits 75 with 0 launches; (d) ``serve-cohort --analyze
+    --analyze-journal-dir`` in a subprocess, SIGKILLed once its job's
+    ``ckpt/<id>/gramian_snapshot.npz`` appears, restarted on the journal:
+    the job resumes from its snapshot and its rows equal the driver's; (e)
+    ``pca-bridge`` and ``ComputePca`` over ``serve-cohort --grpc-port`` fed
+    phase 4's carrier lists, coordinates within 1e-4 of the f64 oracle,
+    seconds per call and bytes sent; (f) a CLI ``pca --trace-dir`` run: the
+    trace's size and its CUDA kernel events.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -1579,6 +1605,12 @@ def serve_cli(root, env, *extra, seen=None):
     process and its URLs (``{"http": ..., "grpc": ...}``, the second with
     ``--grpc-port``) once it listens. The lines it printed until then are
     appended to ``seen`` when given."""
+    return await_listening(spawn_serve_cli(root, env, *extra), seen=seen)
+
+
+def spawn_serve_cli(root, env, *extra):
+    """Start ``serve-cohort`` in a subprocess on an ephemeral port, without
+    waiting for it (:func:`await_listening` does)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
          "serve-cohort", "--input-path", root, "--port", "0",
@@ -1586,6 +1618,12 @@ def serve_cli(root, env, *extra, seen=None):
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     atexit.register(proc.kill)
+    return proc
+
+
+def await_listening(proc, seen=None):
+    """Read a ``serve-cohort`` subprocess's output until it listens:
+    (the process, its URLs)."""
     deadline = time.monotonic() + 120
     urls = {}
     for line in proc.stdout:
@@ -2991,10 +3029,11 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
     set_b = sorted(perm[DELTA_K:2 * DELTA_K].tolist())
     key = gramian_base_key(job_config(JobSpec(), base))
 
-    def cached_g(keep):
-        """The delta index's G for the cohort ``keep`` (full indices)."""
+    def cached_g(keep, eng=None):
+        """The delta index's G for the cohort ``keep`` (full indices), in
+        ``eng``'s index (the journaled tier's engine by default)."""
         frame = tuple(ids[i] for i in keep)
-        entry = engine._deltas.resolve(key, frame)
+        entry = (eng or engine)._deltas.resolve(key, frame)
         check(entry is not None and entry.samples == frame,
               "the delta index holds no G for a finished cohort")
         check(entry.verify(), "a cached G fails its checksum")
@@ -3005,11 +3044,11 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
         check(ok, f"{what}: G is not phase 4's (sub)matrix bit for bit")
         return ok
 
-    # (a) cold --------------------------------------------------------------
+    # (a) cold: under the journal the job checkpoints (the dense-block
+    # route, no scatter launch); without one it takes the window route.
     sk.SCATTER_KERNEL_LAUNCHES = 0
     _, cold, times["cold_http_s"] = run_job(url, {})
     launches = sk.SCATTER_KERNEL_LAUNCHES
-    by_leg["serve-cohort --analyze cold job (phase 18a)"] = launches
     d = VariantsPcaDriver(job_config(JobSpec(), base), source)
     with contextlib.redirect_stdout(io.StringIO()):
         ref_rows = d.collect_result(d.compute_pca(d.ingest_gramian()))
@@ -3017,13 +3056,39 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
     check(err <= COORD_TOL, f"cold job rows {err:.3e} from the driver's")
     full = list(range(n))
     check_sub_g(cached_g(full), full, "cold job")
-    print(f"  (a) cold {{}} job: {times['cold_http_s']:.3f} s POST to done; "
+    print(f"  (a) cold {{}} job under the journal (checkpointed, "
+          f"--checkpoint-every {base.checkpoint_every}): "
+          f"{times['cold_http_s']:.3f} s POST to done; {launches} scatter "
+          f"launches; rows vs the port driver's run on the directory: max "
+          f"abs diff {err:.3e} (bit-identical: {rows_of(cold) == ref_rows});"
+          f" G phase 4's bit for bit", flush=True)
+    check(launches == 0, f"the checkpointed cold job launched the scatter "
+          f"kernel {launches} times")
+    plain_tier = _analysis_tier(args_for(), source)
+    stack.callback(plain_tier.close)
+    plain_server, plain_url = serve(plain_tier, source)
+    stack.callback(plain_server.stop)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    _, cold_w, times["cold_no_journal_http_s"] = run_job(plain_url, {})
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    by_leg["serve-cohort --analyze cold job, no journal (phase 18a)"] = (
+        launches)
+    check_sub_g(cached_g(full, plain_tier._engine), full,
+                "the journal-less cold job")
+    err_w = rows_err(rows_of(cold_w), rows_of(cold))
+    check(err_w <= COORD_TOL, f"the two cold jobs' rows {err_w:.3e} apart")
+    check(plain_tier._engine._deltas.windows(key) is not None
+          and engine._deltas.windows(key) is None,
+          "only the window route captures the windows")
+    print(f"  (a) cold {{}} job on a tier without a journal (the window "
+          f"route): {times['cold_no_journal_http_s']:.3f} s POST to done; "
           f"{launches} scatter launches (phase 4: {phase4_launches}); rows "
-          f"vs the port driver's run on the directory: max abs diff "
-          f"{err:.3e} (bit-identical: {rows_of(cold) == ref_rows}); G "
-          f"phase 4's bit for bit", flush=True)
+          f"{err_w:.3e} from the checkpointed job's (bit-identical: "
+          f"{rows_of(cold_w) == rows_of(cold)}); G phase 4's bit for bit; its "
+          f"windows captured, the checkpointed job's not", flush=True)
     check(launches == phase4_launches,
-          f"the cold job launched the scatter kernel {launches} times")
+          f"the journal-less cold job launched the scatter kernel "
+          f"{launches} times")
 
     # (b) cached ------------------------------------------------------------
     sk.SCATTER_KERNEL_LAUNCHES = 0
@@ -3301,7 +3366,8 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
         {"rules": [{"site": "serving.job.kill", "kind": "error",
                     "times": 1}]}))
     # A full-cohort job (as the blocker of (e)): cold on the survivor, whose
-    # delta index is empty, so it launches phase 4's scatter windows.
+    # delta index is empty; the replicated tier checkpoints it under the
+    # store (the dense-block route), so it launches no scatter kernel.
     spec_i = JobSpec(num_pc=3)
     sk.SCATTER_KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -3323,10 +3389,9 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
         time.sleep(0.01)
     times["failover_s"] = time.perf_counter() - t0
     failover_launches = sk.SCATTER_KERNEL_LAUNCHES
-    by_leg["replica failover, the survivor's cold job (phase 18i)"] = (
-        failover_launches)
-    check(failover_launches == phase4_launches,
-          f"the survivor's cold job launched {failover_launches} times")
+    check(failover_launches == 0,
+          f"the survivor's checkpointed cold job launched "
+          f"{failover_launches} times")
     status, blocker = http_json(f"{url}/jobs/{blocker['id']}")
     err = rows_err(adopted.result, rows_of(blocker))
     check(err <= COORD_TOL,
@@ -3344,7 +3409,8 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
     print(f"  (i) two tiers over one --store-dir (lease {LEASE_TTL_S:g} s): "
           f"replica a's job killed, replica b adopted it and finished in "
           f"{times['failover_s']:.3f} s from the submission "
-          f"({failover_launches} scatter launches, a cold run), rows "
+          f"({failover_launches} scatter launches, a checkpointed cold "
+          f"run), rows "
           f"{err:.3e} from the same cohort's in (e); the "
           f"zombie's write refused: FencedWriteError({fenced[:60]!r}...)")
 
@@ -3357,6 +3423,510 @@ def delta_and_gang_serving(torch, root, g_ref, phase4_launches, reads_dir,
     print("  phase 18 device idle share: " + json.dumps(
         {k: (None if v is None else round(v, 6)) for k, v in idle.items()}))
     print(f"  phase 18 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg
+
+
+# -- phase 19: checkpointed ingest, soft cancel, the bridge, --trace-dir ----
+
+# 9 shards of BRCA1's 81 kb at 10,000 bases a shard, 3 groups of 3.
+CKPT_BASES, CKPT_EVERY, CKPT_SHARDS = 10_000, 3, 9
+SNAP = "gramian_snapshot.npz"
+# Soft cancel of a CLI run: its deadline is this many seconds after its
+# launch, and the first shard of group 2 stalls as long, so the deadline
+# passes while group 2 runs whenever group 1 is done before it. The run
+# starts with phase 18 and sleeps beside it, so the wide margin costs the
+# script little.
+CANCEL_AFTER_S = 60.0
+# The stage ranges and the CSR tier's ingest ranges a --trace-dir run of
+# the default command over a directory must hold.
+TRACE_RANGES = frozenset({
+    "ingest+gramian", "pca", "emit", "ingest.stream", "ingest.fetch",
+    "ingest.build", "ingest.put", "gramian.accumulate"})
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def snapshot_done(directory) -> int:
+    """``shards_done`` of the snapshot in ``directory``."""
+    with np.load(os.path.join(directory, SNAP)) as z:
+        return int(z["shards_done"])
+
+
+def start_soft_cancel(root, device="cuda", after_s=CANCEL_AFTER_S):
+    """Start phase 19 (c)'s CLI run: ``pca --checkpoint-dir`` over phase
+    12's directory with the port's soft deadline ``after_s`` seconds after
+    its launch and the first shard of group 2 stalled as long. A thread
+    notes when each snapshot appears and when the process ends; phase 19
+    reads them. Returns the run's state as a dict."""
+    from spark_examples_tpu_torch.utils import softcancel
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cancel_")
+    atexit.register(shutil.rmtree, work, True)
+    shards = PcaConfig(bases_per_partition=CKPT_BASES).shards()
+    env = {k: v for k, v in os.environ.items()
+           if k != softcancel.SOFT_DEADLINE_ENV}
+    stall = {"rules": [{"site": "ingest.shard", "kind": "stall",
+                        "stall_s": after_s, "match": str(shards[3])}]}
+    t0 = time.time()
+    env[softcancel.SOFT_DEADLINE_ENV] = str(t0 + after_s)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
+         "--input-path", root, "--bases-per-partition", str(CKPT_BASES),
+         "--checkpoint-dir", work, "--checkpoint-every", str(CKPT_EVERY),
+         "--fault-plan", json.dumps(stall), "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+    run = {"proc": proc, "t0": t0, "after_s": after_s, "dir": work,
+           "snapshots": {}, "end": None}
+
+    def watch():
+        path = os.path.join(work, SNAP)
+        while proc.poll() is None:
+            if os.path.exists(path):
+                done = snapshot_done(work)
+                run["snapshots"].setdefault(done, time.time() - t0)
+            time.sleep(0.05)
+        run["end"] = time.time() - t0
+
+    run["watcher"] = threading.Thread(target=watch, daemon=True)
+    run["watcher"].start()
+    print(f"  phase 19 (c)'s soft-cancelled CLI run started beside phase 18 "
+          f"(deadline launch + {after_s:g} s)", flush=True)
+    return run
+
+
+def bridge_bytes(calls, n, k, batch_size=4096):
+    """The bytes a bridge client sends for ``calls``: the newline-JSON
+    lines, and the gRPC messages (before the channel's compression)."""
+    from spark_examples_tpu_torch.bridge import iter_call_batches
+
+    batches = [json.dumps(b) for b in iter_call_batches(calls, batch_size)]
+    tcp = sum(len(json.dumps({"cmd": "calls", "batch": json.loads(b)})) + 1
+              for b in batches)
+    tcp += len(json.dumps({"cmd": "init", "n_samples": n, "num_pc": k})) + 1
+    tcp += len(json.dumps({"cmd": "finish"})) + 1
+    grpc = sum(len(b) for b in batches) + len(
+        json.dumps({"n_samples": n, "num_pc": k}))
+    return tcp, grpc
+
+
+def checkpointed_ingest(torch, root, g_ref, want, windows, phase4_launches,
+                        cancel, device="cuda"):
+    """Phase 19: checkpointed ingest, soft cancel, the job tier's
+    mid-ingest resume, the PcaBackend bridge and ``--trace-dir`` over phase
+    12's directory. The subprocesses run beside the in-process legs: the
+    soft-cancelled CLI run (``cancel``, from :func:`start_soft_cancel`)
+    since phase 18, the bridge and the first job server from the phase's
+    start. Returns the scatter launches of each path that launches the
+    kernel. ``device`` is every run's ``--device`` (``cpu`` only to try
+    the phase at a small size without a card)."""
+    from spark_examples_tpu_torch.bridge import PcaBridgeClient
+    from spark_examples_tpu_torch.cli import main as cli
+    from spark_examples_tpu_torch.genomics.auth import Credentials
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.grpc_transport import (
+        GrpcVariantSource,
+        grpc_available,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.resilience import faults
+    from spark_examples_tpu_torch.serving import JobSpec, job_config
+    from spark_examples_tpu_torch.utils import checkpoint, softcancel
+    from spark_examples_tpu_torch.utils.config import (
+        PcaConfig,
+        pca_config_from_args,
+    )
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, work, True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = g_ref.shape[0]
+    vsid = DEFAULT_VARIANT_SET_ID
+    base = dict(variant_set_ids=[vsid], device=device)
+    ckpt_kw = dict(pca_mode="auto", bases_per_partition=CKPT_BASES,
+                   checkpoint_every=CKPT_EVERY)
+    times, by_leg, numbers = {}, {}, {}
+    shards = PcaConfig(bases_per_partition=CKPT_BASES).shards()
+    check(len(shards) == CKPT_SHARDS, f"{len(shards)} shards, want 9")
+    env = {k: v for k, v in os.environ.items()
+           if k != softcancel.SOFT_DEADLINE_ENV}
+    os.environ.pop(softcancel.SOFT_DEADLINE_ENV, None)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def run(name, **kw):
+        """One ``VariantsPcaDriver.run()`` on a fresh source, stdout
+        captured: (driver, result, G on the host, launches, stdout, the
+        source's shard count)."""
+        src = JsonlSource(root)
+        conf = PcaConfig(**base, **kw)
+        sk.SCATTER_KERNEL_LAUNCHES = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            driver = VariantsPcaDriver(conf, src)
+            result = driver.run()
+        launches = sk.SCATTER_KERNEL_LAUNCHES
+        stage_s = {k: round(v, 6) for k, v in driver.timer.seconds.items()}
+        print(f"  {name}: stage seconds {json.dumps(stage_s)}; scatter "
+              f"launches {launches}; shards read {src.stats.partitions}",
+              flush=True)
+        return (driver, result, driver.g.cpu().numpy(), launches,
+                out.getvalue(), src.stats.partitions)
+
+    def coords_err(result):
+        coords = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+        check(np.isfinite(coords).all(), "coordinates must be finite")
+        return float(np.abs(coords - want).max())
+
+    def cli_proc(*args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+             *args, "--device", device],
+            cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        atexit.register(proc.kill)
+        return proc
+
+    # The bridge and (d)'s first job server start now, beside (a) to (c).
+    bridge_port = free_port()
+    bridge = cli_proc("pca-bridge", "--port", str(bridge_port))
+    journal = os.path.join(work, "journal")
+    serve_args = ("--analyze", "--analyze-journal-dir", journal, "--device",
+                  device, "--bases-per-partition", str(CKPT_BASES),
+                  "--checkpoint-every", str(CKPT_EVERY))
+    hold = {"rules": [{"site": "ingest.shard", "kind": "stall",
+                       "stall_s": 300, "after": CKPT_EVERY}]}
+    t_jobs = time.perf_counter()
+    first_server = spawn_serve_cli(root, env, *serve_args, "--fault-plan",
+                                   json.dumps(hold))
+
+    # (a) a checkpointed auto run between two uncheckpointed ones ----------
+    snaps = []
+    real_save = checkpoint.save_snapshot
+
+    def timed_save(directory, g, shards_done, digest):
+        """The driver's snapshot, its device-to-host copy and its write
+        timed apart."""
+        sync()
+        t0 = time.perf_counter()
+        host = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        t1 = time.perf_counter()
+        real_save(directory, host, shards_done, digest)
+        snaps.append({"shards_done": shards_done, "copy_s": t1 - t0,
+                      "write_s": time.perf_counter() - t1,
+                      "bytes": os.path.getsize(os.path.join(directory, SNAP)),
+                      "g": host})
+
+    checkpoint.save_snapshot = timed_save
+    try:
+        ingest = {"plain": [], "checkpointed": []}
+        for ckpt in (False, True, False):
+            kw = dict(ckpt_kw)
+            if ckpt:
+                kw["checkpoint_dir"] = os.path.join(work, "ck-a")
+            driver, result, g, launches, _, read = run(
+                "auto, checkpointed" if ckpt else "auto, uncheckpointed",
+                **kw)
+            err = coords_err(result)
+            check(same_g(g, g_ref), f"(a) G is not phase 4's")
+            check(err <= COORD_TOL, f"(a) coordinates {err:.3e} off")
+            check(launches == 0, "(a) auto launched the scatter kernel")
+            check(read == CKPT_SHARDS, f"(a) read {read} shards")
+            stage = driver.timer.seconds["ingest+gramian"]
+            ingest["checkpointed" if ckpt else "plain"].append(stage)
+    finally:
+        checkpoint.save_snapshot = real_save
+    check([x["shards_done"] for x in snaps] == [3, 6, 9],
+          f"(a) snapshots at {[x['shards_done'] for x in snaps]}")
+    # The JAX package's write of the same snapshots (np.savez_compressed),
+    # off the driver's path: what the deflate would cost here.
+    for x in snaps:
+        path = os.path.join(work, f"deflated-{x['shards_done']}.npz")
+        t0 = time.perf_counter()
+        np.savez_compressed(path, g=x.pop("g"),
+                            shards_done=np.int64(x["shards_done"]),
+                            run_digest=np.bytes_(b"chip_smoke"))
+        x["deflated_write_s"] = time.perf_counter() - t0
+        x["deflated_bytes"] = os.path.getsize(path)
+    snap_s = [x["copy_s"] + x["write_s"] for x in snaps]
+    share = sum(snap_s) / ingest["checkpointed"][0]
+    numbers["snapshots"] = snaps
+    numbers["snapshot_share_of_ingest_gramian"] = share
+    numbers["ingest_gramian_s"] = ingest
+
+    def secs(key):
+        return ", ".join(f"{x[key]:.4f}" for x in snaps)
+
+    print(f"  (a) --checkpoint-every {CKPT_EVERY} over {CKPT_SHARDS} shards: "
+          f"G phase 4's bit for bit, coordinates {err:.3e} from the f64 "
+          f"oracle, 0 launches; a snapshot of the {n} x {n} float32 G: "
+          f"device-to-host copy {secs('copy_s')} s, stored np.savez "
+          f"{secs('write_s')} s of {snaps[0]['bytes']} bytes; together "
+          f"{share:.4f} of the checkpointed ingest+gramian "
+          f"({ingest['checkpointed'][0]:.3f} s; uncheckpointed before and "
+          f"after: {', '.join(f'{x:.3f}' for x in ingest['plain'])} s); "
+          f"the JAX package's np.savez_compressed of the same G, off the "
+          f"path: {secs('deflated_write_s')} s, "
+          f"{', '.join(str(x['deflated_bytes']) for x in snaps)} bytes",
+          flush=True)
+
+    # (b) killed in group 2, resumed by a fresh driver ----------------------
+    ck_b = os.path.join(work, "ck-b")
+    conf_b = dict(ckpt_kw, checkpoint_dir=ck_b, shard_retries=1)
+    plan = faults.FaultPlan(rules=[faults.FaultRule(
+        site="ingest.shard", kind="error", match=str(shards[4]))])
+    try:
+        with faults.active_plan(plan), contextlib.redirect_stdout(
+                io.StringIO()):
+            VariantsPcaDriver(PcaConfig(**base, **conf_b),
+                              JsonlSource(root)).ingest_gramian()
+        fail("(b) the ingest.shard fault did not raise")
+    except IOError as e:
+        raised = f"{type(e).__name__}: {e}"
+    check(plan.fired_total == 1, "(b) the fault fired once")
+    done = snapshot_done(ck_b)
+    check(done == 3, f"(b) the snapshot holds {done} shards, want 3")
+    t0 = time.perf_counter()
+    driver, result, g, _, out, read = run("(b) resumed", **conf_b)
+    times["resume_s"] = time.perf_counter() - t0
+    check("Resuming from snapshot: 3/9 shards done." in out,
+          "(b) the resume line is missing")
+    check(read == 6, f"(b) the resume read {read} shards, want 6")
+    check(same_g(g, g_ref), "(b) the resumed G is not phase 4's")
+    check(coords_err(result) <= COORD_TOL, "(b) coordinates off")
+    print(f"  (b) ingest.shard error on shard 4 ({shards[4]}) with "
+          f"--shard-retries 1: raised {raised[:70]!r} after the snapshot of "
+          f"{done} shards; a fresh driver printed \"Resuming from snapshot: "
+          f"3/9 shards done.\", read {read} shards, G phase 4's bit for "
+          f"bit ({times['resume_s']:.3f} s)", flush=True)
+
+    # (c) sparse under a future and a past deadline ------------------------
+    try:
+        os.environ[softcancel.SOFT_DEADLINE_ENV] = str(time.time() + 3600)
+        _, _, g, launches, _, _ = run("sparse, a deadline an hour ahead",
+                                      pca_mode="sparse")
+        by_leg["sparse under a future soft deadline (phase 19c)"] = launches
+        check(launches == phase4_launches,
+              f"(c) sparse launched {launches}, phase 4 {phase4_launches}")
+        check(same_g(g, g_ref), "(c) sparse G is not phase 4's")
+        os.environ[softcancel.SOFT_DEADLINE_ENV] = str(time.time() - 1)
+        sk.SCATTER_KERNEL_LAUNCHES = 0
+        err_out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err_out):
+                VariantsPcaDriver(PcaConfig(**base, pca_mode="sparse"),
+                                  JsonlSource(root)).run()
+            fail("(c) a past deadline did not cancel the sparse run")
+        except softcancel.SoftCancel as e:
+            code, where = e.code, e.where
+        past_launches = sk.SCATTER_KERNEL_LAUNCHES
+    finally:
+        os.environ.pop(softcancel.SOFT_DEADLINE_ENV, None)
+    check(code == 75 and where == "sparse gramian window boundary",
+          f"(c) exit {code} at {where}")
+    check(past_launches == 0, f"(c) {past_launches} launches past the "
+          "deadline")
+    print(f"  (c) sparse with a deadline an hour ahead: {launches} scatter "
+          f"launches, G phase 4's bit for bit; with a past deadline: "
+          f"SoftCancel({code}) at the {where}, {past_launches} launches; "
+          f"stderr: {err_out.getvalue().strip()[:90]!r}", flush=True)
+
+    # (f) --trace-dir ------------------------------------------------------
+    trace_dir = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["pca", "--input-path", root, "--trace-dir",
+                       trace_dir, "--device", device])
+    times["trace_run_s"] = time.perf_counter() - t0
+    check(rc == 0, f"(f) pca --trace-dir exited {rc}")
+    traces = [f for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"(f) traces written: {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    missing = TRACE_RANGES - {e.get("name") for e in events}
+    check(not missing, f"(f) the trace lacks the ranges {sorted(missing)}")
+    check(kernels > 0 or device == "cpu", "(f) no CUDA kernel event")
+    numbers["trace_bytes"] = os.path.getsize(path)
+    numbers["trace_kernel_events"] = kernels
+    print(f"  (f) pca --trace-dir: {numbers['trace_bytes']} bytes of "
+          f"{len(events)} events, {kernels} CUDA kernel events; the "
+          f"ranges {', '.join(sorted(TRACE_RANGES))} present; the run took "
+          f"{times['trace_run_s']:.3f} s", flush=True)
+
+    # (d) the job tier's resume after a SIGKILL ----------------------------
+    proc, urls = await_listening(first_server)
+    try:
+        _, job, _ = run_job(urls["http"], {}, want_state="running")
+        snap = os.path.join(journal, "ckpt", job["id"], SNAP)
+        deadline = time.monotonic() + 300
+        while not os.path.exists(snap):
+            check(time.monotonic() < deadline, "(d) no job snapshot")
+            time.sleep(0.01)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    killed_at = snapshot_done(os.path.dirname(snap))
+    with_grpc = grpc_available()
+    seen = []
+    grpc_args = ("--grpc-port", "0") if with_grpc else ()
+    proc, urls = serve_cli(root, env, *serve_args, *grpc_args, seen=seen)
+
+    # (e) the bridge and ComputePca (on the restarted job server), fed
+    # phase 4's carrier lists, while the resumed job runs -----------------
+    calls = []
+    for idx, lens in windows:
+        calls.extend(np.split(np.asarray(idx), np.cumsum(lens)[:-1]))
+    calls = [c.tolist() for c in calls]
+    tcp_bytes, grpc_bytes = bridge_bytes(calls, n, 2)
+    for line in bridge.stdout:
+        print(f"  pca-bridge | {line.rstrip()}", flush=True)
+        if "PcaBackend bridge listening" in line:
+            break
+    else:
+        fail(f"(e) pca-bridge exited {bridge.wait()}: "
+             f"{bridge.stderr.read()[-1500:]}")
+    client = PcaBridgeClient(port=bridge_port)
+    try:
+        t0 = time.perf_counter()
+        coords, _ = client.compute(calls, n, 2)
+        times["bridge_call_s"] = time.perf_counter() - t0
+    finally:
+        client.close()
+        bridge.kill()
+        bridge.wait()
+    err = float(np.abs(coords - want).max())
+    check(coords.shape == (n, 2) and err <= COORD_TOL,
+          f"(e) bridge coordinates {err:.3e} from the f64 oracle")
+    numbers["bridge_bytes"] = tcp_bytes
+    print(f"  (e) pca-bridge (a subprocess): {len(calls)} carrier lists, "
+          f"{tcp_bytes} bytes sent, {times['bridge_call_s']:.3f} s for the "
+          f"call; coordinates {err:.3e} from the f64 oracle", flush=True)
+    if with_grpc:
+        src = GrpcVariantSource(urls["grpc"],
+                                credentials=Credentials(NET_TOKEN, "chip"))
+        try:
+            t0 = time.perf_counter()
+            coords, _ = src.compute_pca(calls, n, 2)
+            times["compute_pca_call_s"] = time.perf_counter() - t0
+        finally:
+            src.close()
+        err = float(np.abs(coords - want).max())
+        check(coords.shape == (n, 2) and err <= COORD_TOL,
+              f"(e) ComputePca coordinates {err:.3e} from the f64 oracle")
+        numbers["compute_pca_bytes"] = grpc_bytes
+        print(f"  (e) ComputePca over serve-cohort --grpc-port (the "
+              f"restarted job server of (d)): {grpc_bytes} bytes of "
+              f"messages before compression, "
+              f"{times['compute_pca_call_s']:.3f} s for the call; "
+              f"coordinates {err:.3e} from the f64 oracle", flush=True)
+    else:
+        print("  (e) ComputePca: not run, grpcio is not installed on this "
+              "host")
+
+    # (d), continued: the resumed job ends and its checkpoint goes ---------
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            status, rec = http_json(f"{urls['http']}/jobs/{job['id']}")
+            check(status == 200 and rec["state"] != "failed",
+                  f"(d) the resumed job: {status} {rec}")
+            if rec["state"] == "done":
+                break
+            check(time.monotonic() < deadline, "(d) the job never resumed")
+            time.sleep(0.01)
+        times["job_kill_resume_s"] = time.perf_counter() - t_jobs
+        # The worker reclaims the checkpoint dir just after the job is done.
+        while os.path.exists(os.path.dirname(snap)):
+            check(time.monotonic() < deadline,
+                  "(d) the done job's checkpoint dir was not reclaimed")
+            time.sleep(0.01)
+    finally:
+        proc.kill()
+        rest = proc.stdout.read()
+        proc.wait()
+    lines = seen + rest.splitlines()
+    resume = [ln for ln in lines if "Resuming from snapshot" in ln]
+    check(resume == [f"Resuming from snapshot: {killed_at}/9 shards done."],
+          f"(d) resume lines {resume}")
+    server_base = pca_config_from_args(
+        cli.build_parser().parse_args(["serve-cohort", *serve_args]))
+    server_base.variant_set_ids = [vsid]  # as the CLI's _analysis_tier
+    d = VariantsPcaDriver(job_config(JobSpec(), server_base),
+                          JsonlSource(root))
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_rows = d.collect_result(d.compute_pca(d.ingest_gramian()))
+    err = rows_err(rows_of(rec), ref_rows)
+    check(err <= COORD_TOL, f"(d) the resumed job's rows {err:.3e} off")
+    print(f"  (d) serve-cohort --analyze --analyze-journal-dir, SIGKILLed "
+          f"once ckpt/<id>/{SNAP} held {killed_at} shards (group 2 held by "
+          f"a stall), restarted on the journal: {resume[0]!r}, so "
+          f"{CKPT_SHARDS - killed_at} shards ingested after the restart; "
+          f"rows {err:.3e} from the driver's (bit-identical: "
+          f"{rows_of(rec) == ref_rows}); the checkpoint dir reclaimed; "
+          f"{times['job_kill_resume_s']:.1f} s from the first server's "
+          f"launch to the resumed job's end", flush=True)
+
+    # (c), continued: the soft-cancelled CLI run, and its resume -----------
+    proc, after_s = cancel["proc"], cancel["after_s"]
+    try:
+        _, cancel_err = proc.communicate(
+            timeout=max(1.0, 300 - (time.time() - cancel["t0"])))
+    except subprocess.TimeoutExpired:
+        fail("(c) the CLI run never ended")
+    cancel["watcher"].join(timeout=30)
+    times["cancel_run_s"] = cancel["end"]
+    check(proc.returncode == softcancel.SOFT_CANCEL_EXIT,
+          f"(c) the CLI exited {proc.returncode}: {cancel_err[-1500:]}")
+    cancel_line = [ln for ln in cancel_err.splitlines()
+                   if "Soft-cancel" in ln]
+    check(cancel_line and "checkpoint group boundary" in cancel_line[0],
+          "(c) the soft-cancel line is missing")
+    done = snapshot_done(cancel["dir"])
+    seen_at = cancel["snapshots"]
+    check(done == 6, f"(c) the deadline passed while group "
+          f"{done // CKPT_EVERY + 1} ran (the snapshot holds {done} shards, "
+          f"want 6; snapshots seen at {seen_at} s after the launch)")
+    check(CKPT_EVERY in seen_at, "(c) the snapshot of group 1 went unseen")
+    margin = after_s - seen_at[CKPT_EVERY]
+    numbers["cancel_margin_s"] = margin
+    _, result, g, _, out, read = run(
+        "(c) rerun without the deadline", checkpoint_dir=cancel["dir"],
+        **ckpt_kw)
+    check("Resuming from snapshot: 6/9 shards done." in out and read == 3,
+          f"(c) the rerun read {read} shards")
+    check(same_g(g, g_ref), "(c) the resumed G is not phase 4's")
+    print(f"  (c) CLI pca --checkpoint-dir, started with phase 18, with "
+          f"{softcancel.SOFT_DEADLINE_ENV} = launch + {after_s:g} s and "
+          f"shard 3 stalled {after_s:g} s: group 1's snapshot seen "
+          f"{seen_at[CKPT_EVERY]:.1f} s after the launch ({margin:.1f} s "
+          f"before the deadline); exit {proc.returncode} after "
+          f"{times['cancel_run_s']:.1f} s ({cancel_line[0]!r}), the "
+          f"snapshot holds {done} shards; the rerun resumed, read {read} "
+          f"shards, G phase 4's bit for bit", flush=True)
+
+    print("  phase 19 wall-clock, s: " + json.dumps(times))
+    print("  phase 19 numbers: " + json.dumps(numbers))
+    print(f"  phase 19 card (nvidia-smi name, power.limit): "
           f"{nvidia_smi_line()}")
     return by_leg
 
@@ -3634,9 +4204,19 @@ def main() -> int:
           "tier, the delta and gang Gramians, the journal, the store and "
           "replicas (N = 2504, V = 65536)", flush=True)
     t0 = time.perf_counter()
+    cancel = start_soft_cancel(cohort_dir)
     by_leg.update(delta_and_gang_serving(torch, cohort_dir, g_ref, launches,
                                          reads_dir))
     print(f"  phase 18 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 19. checkpointed ingest, soft cancel, the job's mid-ingest "
+          "resume, the PcaBackend bridge and --trace-dir (N = 2504, "
+          "V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    by_leg.update(checkpointed_ingest(torch, cohort_dir, g_ref, want,
+                                      windows, launches, cancel))
+    print(f"  phase 19 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{

@@ -13,7 +13,11 @@ The JAX package's CLI on PyTorch, for the commands the port serves so far:
   client reads either); with ``--analyze``, the analysis job tier
   (``POST /analyze``, ``GET /jobs``) with its delta and gang Gramians,
   journal, durable store and replica leases, on the card unless
-  ``--device cpu``;
+  ``--device cpu``; a gRPC server also serves ``ComputePca`` on the
+  driver's device;
+- ``pca-bridge``: the PcaBackend seam over newline-JSON TCP (``--port``,
+  default 18717): an external driver streams carrier lists and gets
+  coordinates computed on the card (``--device cpu`` on the CPU);
 - ``generate-fixture``: write a synthetic JSONL cohort, with reads
   (``--fixture-reads``) or a tumor/normal pair of readsets
   (``--fixture-tumor-normal``) beside the variants;
@@ -365,6 +369,32 @@ def _cmd_pairhmm(args) -> int:
     return 0
 
 
+def _cmd_pca_bridge(args) -> int:
+    """Serve the PcaBackend seam over TCP."""
+    from spark_examples_tpu_torch.bridge import (
+        PcaBridgeServer,
+        TorchPcaBackend,
+    )
+
+    if args.mesh_shape:
+        raise unported("--mesh-shape", "item 7, the mesh layer")
+    server = PcaBridgeServer(
+        TorchPcaBackend(
+            block_variants=args.block_variants, device=args.device
+        ),
+        port=args.port,
+    ).start()
+    print(f"PcaBackend bridge listening on 127.0.0.1:{server.port}",
+          flush=True)
+    try:
+        import threading
+
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
 def _analysis_tier(args, source):
     """The --analyze job tier: re-entrant PCA engine over the served
     source (on the card unless --device cpu) + bounded admission +
@@ -534,9 +564,24 @@ def _cmd_serve_cohort(args) -> int:
                     "'spark_examples_tpu[grpc]'); omit it to serve HTTP "
                     "only"
                 )
+            from spark_examples_tpu_torch.bridge.backend import (
+                TorchPcaBackend,
+            )
+
+            # The gRPC endpoint also exposes the ComputePca dense-math
+            # seam: external drivers stream call lists and get
+            # coordinates back from this host's card (--device), with the
+            # same block flag pca-bridge takes. The backend resolves its
+            # device at the first ComputePca call, so serving stays
+            # host-only until one arrives.
+            if args.mesh_shape:
+                raise unported("--mesh-shape", "item 7, the mesh layer")
             grpc_server = GrpcGenomicsServer(
                 source, port=args.grpc_port, token=args.token,
                 host=args.host,
+                pca_backend=TorchPcaBackend(
+                    block_variants=args.block_variants, device=args.device
+                ),
             ).start()
             print(
                 f"gRPC stream service on grpc://{args.host}:"
@@ -713,6 +758,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="Run against synthetic reads",
     )
     phmm.set_defaults(references=None, fn=_cmd_pairhmm)
+
+    bridge = sub.add_parser(
+        "pca-bridge", help="Serve the PcaBackend seam over TCP"
+    )
+    add_pca_flags(bridge)
+    bridge.add_argument("--port", type=int, default=18717)
+    bridge.set_defaults(fn=_cmd_pca_bridge)
 
     serve = sub.add_parser(
         "serve-cohort",

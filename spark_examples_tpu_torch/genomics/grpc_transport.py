@@ -24,9 +24,10 @@ package's server.
   :mod:`.mirror` over the ``Identity``/``ExportLines``/``ExportSidecar``
   RPCs, so a gRPC client and an HTTP client share one cache directory.
 
-Not served yet (ROADMAP.md, Queue 1): the ``ComputePca`` dense-math seam
-is not registered and :meth:`GrpcVariantSource.compute_pca` raises
-(item 8).
+- **The dense-math seam.** A server given a ``pca_backend`` also
+  registers ``ComputePca`` (client-streaming: per-variant sample-index
+  lists in, coordinates out), and :meth:`GrpcVariantSource.compute_pca`
+  calls it — the gRPC twin of :mod:`spark_examples_tpu_torch.bridge`.
 
 ``grpcio`` is optional: it is imported only when a server or client is
 built, and :func:`grpc_available` says whether it can be.
@@ -67,7 +68,6 @@ from spark_examples_tpu_torch.resilience import (
     classify_grpc,
     faults,
 )
-from spark_examples_tpu_torch.utils.config import unported
 from spark_examples_tpu_torch.utils.stats import IoStats
 
 __all__ = ["GrpcGenomicsServer", "GrpcVariantSource", "grpc_available"]
@@ -145,11 +145,19 @@ class GrpcGenomicsServer:
         port: int = 0,
         token: Optional[str] = None,
         host: str = "127.0.0.1",
+        pca_backend=None,
     ):
+        """``pca_backend`` (optional, any
+        :class:`~spark_examples_tpu_torch.bridge.backend.PcaBackend`)
+        also registers ``ComputePca`` — the dense-math seam as a
+        client-streaming RPC (stream in per-variant sample-index lists,
+        return PCs), the gRPC twin of the newline-JSON
+        ``PcaBridgeServer``."""
         import grpc
         from concurrent import futures
 
         self._source = source
+        self._pca_backend = pca_backend
         interceptors = (
             [_AuthInterceptor(token)] if token is not None else []
         )
@@ -195,6 +203,10 @@ class GrpcGenomicsServer:
                 self._export_sidecar, _identity, _identity
             ),
         }
+        if pca_backend is not None:
+            handlers["ComputePca"] = grpc.stream_unary_rpc_method_handler(
+                self._compute_pca, _identity, _identity
+            )
         self._server.add_generic_rpc_handlers(
             (grpc.method_handlers_generic_handler(_SERVICE, handlers),)
         )
@@ -370,6 +382,47 @@ class GrpcGenomicsServer:
                 grpc.StatusCode.NOT_FOUND, "source has no identity"
             )
         return json.dumps({"identity": ident}).encode()
+
+    def _compute_pca(self, request_iterator, context) -> bytes:
+        """Client-streaming PcaBackend seam: first message
+        ``{"n_samples": N, "num_pc": k}``, then any number of
+        ``[[sample indices...], ...]`` batch messages; reply is
+        ``{"coords": ..., "eigvals": ...}`` — the same message shapes as
+        the newline-JSON bridge, carried as HTTP/2 stream frames."""
+        import grpc
+        import numpy as np
+
+        it = iter(request_iterator)
+        try:
+            header = json.loads(next(it))
+        except StopIteration:
+            context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT, "empty ComputePca stream"
+            )
+
+        def rows():
+            # Lazy: backend.compute → blocks_from_calls consumes one
+            # block at a time, so the server never holds the whole call
+            # stream in RAM.
+            for msg in it:
+                yield from json.loads(msg)
+
+        try:
+            coords, eigvals = self._pca_backend.compute(
+                rows(),
+                int(header["n_samples"]),
+                int(header["num_pc"]),
+            )
+        except (ValueError, KeyError) as e:
+            # Validation failures travel back as a status, exactly as
+            # the newline-JSON bridge replies {"error": ...}.
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        return json.dumps(
+            {
+                "coords": np.asarray(coords).tolist(),
+                "eigvals": np.asarray(eigvals).tolist(),
+            }
+        ).encode()
 
 
 def _grpc_code(exc: IOError) -> Optional[str]:
@@ -884,14 +937,48 @@ class GrpcVariantSource:
         )
         return wire.remap_frames(frames, lookup, ids, shard)
 
-    # -- seams of later items ------------------------------------------------
+    # -- the dense-math seam -------------------------------------------------
 
-    def compute_pca(self, calls, n_samples: int, num_pc: int,
-                    batch_size: int = 4096):
-        """The ``ComputePca`` dense-math seam (the JAX package's bridge
-        backend over gRPC): not ported yet."""
-        raise unported("GrpcVariantSource.compute_pca",
-                       "item 8, checkpoint, elastic and bridge")
+    def compute_pca(
+        self, calls, n_samples: int, num_pc: int, batch_size: int = 4096
+    ):
+        """Dense-math seam over gRPC: stream per-variant sample-index
+        lists, get principal coordinates back — the role the reference's
+        JVM driver plays through py4j (variants_pca.py:162-182), with the
+        same batch shapes as
+        :class:`~spark_examples_tpu_torch.bridge.backend.PcaBridgeClient`."""
+        import grpc
+        import numpy as np
+
+        from spark_examples_tpu_torch.bridge.backend import (
+            iter_call_batches,
+        )
+
+        fn = self._channel.stream_unary(
+            f"/{_SERVICE}/ComputePca",
+            request_serializer=_identity,
+            response_deserializer=_identity,
+        )
+
+        def messages():
+            yield json.dumps(
+                {"n_samples": n_samples, "num_pc": num_pc}
+            ).encode()
+            for batch in iter_call_batches(calls, batch_size):
+                yield json.dumps(batch).encode()
+
+        self.stats.add(requests=1)
+        try:
+            with obs.rpc_timer("grpc", "ComputePca"):
+                resp = json.loads(
+                    fn(messages(), metadata=self._metadata())
+                )
+        except grpc.RpcError as e:
+            self._count_rpc_error(e)
+            raise IOError(
+                f"ComputePca: {e.code().name}: {e.details()}"
+            ) from e
+        return np.asarray(resp["coords"]), np.asarray(resp["eigvals"])
 
     # -- metadata ------------------------------------------------------------
 

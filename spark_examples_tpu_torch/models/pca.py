@@ -4,7 +4,7 @@ auto|fused|stream|sparse|sketch``.
 The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 ``VariantsPca.scala:36-246``) with the same stage surface — get_data /
 filter_dataset / get_calls / ingest_gramian / compute_pca / emit_result /
-report_io_stats — for a single-process, meshless, uncheckpointed run:
+report_io_stats — for a single-process, meshless run:
 
 - ingest, routed as the JAX driver routes it: per-shard ``(indices,
   offsets)`` CSR pairs straight off an on-disk cohort's sidecar (the
@@ -17,6 +17,16 @@ report_io_stats — for a single-process, meshless, uncheckpointed run:
   block build retried up to ``--shard-retries`` attempts within
   ``--shard-retry-deadline`` (the ``ingest.shard``, ``ingest.build`` and
   ``ingest.stream`` fault sites sit inside that loop);
+- checkpointed ingest (``--checkpoint-dir``, ``--checkpoint-every``): the
+  manifest in groups of shards, in manifest order, each group's blocks
+  added onto the G of the groups before it and a ``(G, shards_done)``
+  snapshot committed after it, so a killed or soft-cancelled run resumes
+  from its last group (:mod:`spark_examples_tpu_torch.utils.checkpoint`,
+  the JAX package's snapshot file); single dataset, full cohort, not
+  ``sparse`` nor ``sketch``;
+- soft cancel: past the ``SPARK_EXAMPLES_TPU_TORCH_SOFT_DEADLINE``
+  deadline the run exits with code 75 at the next block, window or group
+  boundary (:mod:`spark_examples_tpu_torch.utils.softcancel`);
 - cohort restriction (``--samples``/``--exclude-samples``): ingest
   extracts in the full callset frame and carriers are remapped or dropped
   at the window boundary, so G, the finish and the emission are sized by
@@ -49,7 +59,8 @@ report_io_stats — for a single-process, meshless, uncheckpointed run:
 - emission byte-format compatible with ``emitResult``
   (``VariantsPca.scala:233-246``): stdout ``name\\tdataset\\tpc1\\tpc2``
   sorted by name; ``--output-path`` writes ``<path>-pca.tsv`` lines
-  ``name\\tpc1\\tpc2\\tdataset``.
+  ``name\\tpc1\\tpc2\\tdataset``; ``--trace-dir`` writes a
+  ``torch.profiler`` trace of the run.
 
 Options of routes not ported yet raise ``NotImplementedError`` before any
 ingest (:func:`spark_examples_tpu_torch.utils.config.unported`).
@@ -99,6 +110,7 @@ from spark_examples_tpu_torch.ops.sparse import (
     sparse_gramian_blockwise,
 )
 from spark_examples_tpu_torch.resilience import faults
+from spark_examples_tpu_torch.utils import softcancel
 from spark_examples_tpu_torch.utils.config import (
     INGEST_ORDERS,
     PCA_MODES,
@@ -113,6 +125,7 @@ from spark_examples_tpu_torch.utils.tracing import (
     INGEST_FETCH,
     INGEST_STREAM,
     StageTimer,
+    profiler_trace,
 )
 
 __all__ = ["VariantsPcaDriver"]
@@ -158,6 +171,15 @@ class VariantsPcaDriver:
             raise ValueError(
                 f"pca_mode must be one of {allowed}; got "
                 f"{conf.pca_mode!r}"
+            )
+        if conf.pca_mode == "sparse" and conf.checkpoint_dir:
+            # Snapshot digests cut at manifest positions; the sparse
+            # accumulator's window stream has no checkpoint grid yet.
+            # Refuse before ingest, not after hours of it.
+            raise ValueError(
+                "--pca-mode sparse does not compose with checkpointed "
+                "ingest yet; drop --checkpoint-dir or use --pca-mode "
+                "auto/stream"
             )
         if conf.pca_mode == "sketch" and conf.checkpoint_dir:
             # The sketch panel has no snapshot grid (and a resumed partial
@@ -215,9 +237,9 @@ class VariantsPcaDriver:
             )
         if conf.mesh_shape:
             raise unported("--mesh-shape", "item 7, the mesh layer")
-        if conf.checkpoint_dir:
+        if conf.elastic_checkpoint:
             raise unported(
-                "--checkpoint-dir", "item 8, checkpoint/elastic/bridge"
+                "--elastic-checkpoint", "item 8, elastic and pod checkpoints"
             )
         self.conf = conf
         self.source = source
@@ -645,18 +667,40 @@ class VariantsPcaDriver:
 
     # -- stage 4: the Gramian ------------------------------------------------
 
-    def _blocks_to_gramian(self, blocks, prepacked=False):
+    def _blocks_to_gramian(self, blocks, g_init=None, prepacked=False):
         """Dense 0/1 blocks (or, with ``prepacked``, their bit-packed
         bytes) → (N, N) G on the device, meshless: bit-packed (8× fewer
         host→device bytes, bit-identical) through the double-buffered
-        feed at ``--prefetch-depth``."""
-        return gramian_blockwise(
+        feed at ``--prefetch-depth``. ``g_init`` (a snapshot's or an
+        earlier group's G) is added on the device: exact, since every
+        count stays below 2^24 in float32."""
+        g = gramian_blockwise(
             blocks,
             self.cohort.size,
             packed=True,
             prepacked=prepacked,
             prefetch_depth=self.conf.prefetch_depth,
             device=self.device,
+        )
+        if g_init is not None:
+            g = g + torch.as_tensor(g_init).to(g.device, g.dtype)
+        return g
+
+    @staticmethod
+    def _cancellable_blocks(blocks):
+        """Soft-deadline seam (:mod:`~spark_examples_tpu_torch.utils.
+        softcancel`): the check sits at BLOCK boundaries — between one
+        accumulation step and the next — so a deadline cancels with no
+        device dispatch in flight."""
+        for block in blocks:
+            softcancel.check("gramian block boundary")
+            yield block
+
+    def _gramian_from_block_stream(self, blocks, prepacked=False):
+        """An uncheckpointed block stream → G, cancellable at every block
+        boundary."""
+        return self._blocks_to_gramian(
+            self._cancellable_blocks(blocks), prepacked=prepacked
         )
 
     def get_similarity_matrix(self, calls: Iterable[List[int]]):
@@ -668,7 +712,7 @@ class VariantsPcaDriver:
             self.cohort.size,
             self.conf.block_variants,
         )
-        return self._blocks_to_gramian(blocks)
+        return self._gramian_from_block_stream(blocks)
 
     def get_similarity_matrix_csr(self, csr_pairs):
         """CSR-direct twin of :meth:`get_similarity_matrix` — the same
@@ -685,7 +729,119 @@ class VariantsPcaDriver:
             workers=self._block_builder_workers(),
             attempt=self._build_attempt,
         )
-        return self._blocks_to_gramian(blocks, prepacked=True)
+        return self._gramian_from_block_stream(blocks, prepacked=True)
+
+    def get_similarity_matrix_checkpointed(self):
+        """Shard-group ingest with incremental (G, cursor) snapshots.
+
+        Resume semantics (done better than the reference's all-or-nothing
+        objectFile): the deterministic manifest + idempotent per-shard
+        ingest make skipping completed shards exact. Single-dataset only
+        — N-way merge needs global identity state that cannot be cut at
+        shard boundaries. Single-process and meshless: the JAX package's
+        multi-process digests, pod and elastic routes wait for the mesh
+        layer. Groups of ``--checkpoint-every`` shards are ingested in
+        manifest order, whatever ``--ingest-order`` says.
+        """
+        from spark_examples_tpu_torch.genomics.shards import manifest_digest
+        from spark_examples_tpu_torch.utils.checkpoint import (
+            load_snapshot,
+            save_snapshot,
+        )
+
+        assert len(self.conf.variant_set_ids) == 1, (
+            "checkpointed ingest supports a single variantset"
+        )
+        vsid = self.conf.variant_set_ids[0]
+        shards = self._manifest()
+        checkpoint_dir = self.conf.checkpoint_dir
+        # The snapshot key covers everything that determines G: the
+        # manifest, the dataset and the AF filter.
+        digest = (
+            f"{manifest_digest(shards)}|{vsid}"
+            f"|af={self.conf.min_allele_frequency}"
+        )
+        n = self.index.size
+        ck = load_snapshot(checkpoint_dir, digest, n)
+        done = ck.shards_done if ck else 0
+        if ck:
+            print(f"Resuming from snapshot: {done}/{len(shards)} shards done.")
+        g = ck.g if ck else None
+
+        every = max(1, self.conf.checkpoint_every)
+        while done < len(shards):
+            # Between groups a snapshot is already on disk — the ideal
+            # soft-cancel point: exit here loses zero completed work.
+            softcancel.check("checkpoint group boundary")
+            group = shards[done : done + every]
+            g = self._ingest_shard_group(vsid, group, g)
+            done += len(group)
+            save_snapshot(checkpoint_dir, g, done, digest)
+        if g is None:
+            g = self._blocks_to_gramian(iter(()))
+        elif not isinstance(g, torch.Tensor):
+            # Every shard was done before this run: the snapshot's G.
+            g = torch.from_numpy(np.array(g, copy=True)).to(self.device)
+        return g
+
+    def _ingest_shard_group(self, vsid: str, group, g):
+        """Stream one shard group through filter → calls → Gramian blocks,
+        accumulating onto g. Prefers the CSR-direct tier (bit-identical
+        blocks, so snapshots and resume digests are unaffected): the same
+        builder threads as the uncheckpointed route, each shard under
+        :meth:`_shard_attempt`; else the fused carrier lists; else the
+        staged Variant path, materialized per shard so a retry re-runs
+        only the failed shard."""
+        if self._fused_csr_possible():
+            pairs = (
+                self._shard_attempt(
+                    shard,
+                    lambda shard=shard: self.source.stream_carrying_csr(
+                        vsid,
+                        shard,
+                        self.index.indexes,
+                        self.conf.min_allele_frequency,
+                    ),
+                )
+                for shard in group
+            )
+            # Snapshots cut at GROUP boundaries, and within a group G is
+            # bit-identical under any block completion order.
+            blocks = packed_blocks_from_csr(
+                pairs,
+                self.index.size,
+                self.conf.block_variants,
+                workers=self._block_builder_workers(),
+                attempt=self._build_attempt,
+            )
+            return self._blocks_to_gramian(blocks, g_init=g, prepacked=True)
+        fused = self._fused_ingest_possible()
+
+        def group_calls():
+            if fused:
+                yield from self._parallel_shard_calls(vsid, group)
+                return
+            for shard in group:
+                yield from self._shard_attempt(
+                    shard,
+                    lambda shard=shard: list(
+                        calls_stream(
+                            [
+                                self.filter_dataset(
+                                    self.source.stream_variants(
+                                        vsid, shard
+                                    )
+                                )
+                            ],
+                            self.index.indexes,
+                        )
+                    ),
+                )
+
+        blocks = blocks_from_calls(
+            group_calls(), self.index.size, self.conf.block_variants
+        )
+        return self._blocks_to_gramian(blocks, g_init=g)
 
     def _sparse_selected(self) -> bool:
         """Route the Gramian through the sparse-aware engine?
@@ -724,9 +880,16 @@ class VariantsPcaDriver:
 
     def _windows_to_gramian(self, windows):
         """CSR carrier windows → finished (N, N) G on the device, each
-        window routed by density inside the sparse engine."""
+        window routed by density inside the sparse engine, cancellable at
+        every window boundary."""
+
+        def cancellable():
+            for window in windows:
+                softcancel.check("sparse gramian window boundary")
+                yield window
+
         return sparse_gramian_blockwise(
-            windows,
+            cancellable(),
             self.cohort.size,
             density_threshold=self.conf.sparse_density_threshold,
             block_variants=self.conf.block_variants,
@@ -817,24 +980,33 @@ class VariantsPcaDriver:
     def _sketch_selected(self) -> bool:
         """Route ingest through the sketch engine?
 
-        ``--pca-mode sketch`` forces it; ``auto`` selects it only where the
-        float32 G would exceed :attr:`SKETCH_AUTO_G_BYTES`. (The JAX
-        package also requires an uncheckpointed run; here
-        ``--checkpoint-dir`` raises in ``__init__``.)
+        ``--pca-mode sketch`` forces it; ``auto`` selects it only on an
+        uncheckpointed run whose float32 G would exceed
+        :attr:`SKETCH_AUTO_G_BYTES`.
         """
         mode = self.conf.pca_mode
         if mode == "sketch":
             return True
         if mode != "auto":
             return False
-        return self._sparse_host_g_bytes() > self.SKETCH_AUTO_G_BYTES
+        return (
+            not self.conf.checkpoint_dir
+            and self._sparse_host_g_bytes() > self.SKETCH_AUTO_G_BYTES
+        )
 
     def _sketch_panel(self) -> SketchPanel:
         """Sketch-engine ingest: the cohort's CSR windows into an
         (N, k+p) randomized panel. The factory returns fresh windows on
-        each call, because each power iteration re-streams the source."""
+        each call, because each power iteration re-streams the source;
+        each window boundary is a soft-cancel check."""
+
+        def windows_factory():
+            for window in self._cohort_windows():
+                softcancel.check("sketch panel window boundary")
+                yield window
+
         return sketch_panel_blockwise(
-            self._cohort_windows,
+            windows_factory,
             self.cohort.size,
             self.conf.num_pc,
             oversample=self.conf.sketch_oversample,
@@ -848,12 +1020,15 @@ class VariantsPcaDriver:
     def ingest_gramian(self):
         """Stages 1-4 as one call: route the configured ingest tier, in
         the JAX driver's order, and return the finished (N, N) float32 G
-        tensor — or, under the sketch engine, a host
+        tensor: checkpointed ingest first (``--checkpoint-dir`` on a single
+        dataset); else, under the sketch engine, a host
         :class:`~spark_examples_tpu_torch.ops.sketch.SketchPanel` and no G
         at all; else the sparse engine; else the CSR-direct sidecar tier,
         the fused carrier lists, the keyed multi-dataset join/merge or the
         staged Variant path, all through the dense-blockwise
         accumulator."""
+        if self.conf.checkpoint_dir and len(self.conf.variant_set_ids) == 1:
+            return self.get_similarity_matrix_checkpointed()
         if self._sketch_selected():
             return self._sketch_panel()
         if self._sparse_selected():
@@ -1015,15 +1190,17 @@ class VariantsPcaDriver:
         """main() stage order — VariantsPca.scala:38-50. Keeps the
         finished Gramian (``self.g``: a tensor, or a host ``SketchPanel``
         under the sketch engine) and the stage timer (``self.timer``) for
-        callers that verify the run."""
+        callers that verify the run. With ``--trace-dir`` the stages run
+        under a ``torch.profiler`` trace written there."""
         self.timer = timer = StageTimer()
-        with timer.stage("ingest+gramian"):
-            self.g = self.ingest_gramian()
-            self._sync()
-        with timer.stage("pca"):
-            result = self.compute_pca(self.g, timer=timer)
-        with timer.stage("emit"):
-            self.emit_result(result)
+        with profiler_trace(self.conf.trace_dir, self.device):
+            with timer.stage("ingest+gramian"):
+                self.g = self.ingest_gramian()
+                self._sync()
+            with timer.stage("pca"):
+                result = self.compute_pca(self.g, timer=timer)
+            with timer.stage("emit"):
+                self.emit_result(result)
         self.report_io_stats()
         print(timer.report())
         return result

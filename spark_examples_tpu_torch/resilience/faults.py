@@ -66,6 +66,10 @@ Sites wired in the port (glob-matched, so ``transport.*`` works):
                              ``.tmp-`` partial the next load sweeps)
 ``flightrec.write``          flight-recorder dump commit (torn = kill
                              mid-dump; the previous dump survives)
+``checkpoint.snapshot_write`` Gramian snapshot commit, keyed by its path
+                             (torn = the committed file truncated to half,
+                             a filesystem without atomic rename: the
+                             loader discards it with a warning)
 ===========================  ===============================================
 """
 

@@ -31,6 +31,7 @@ carries neither ``jit_retraces`` nor ``compile_cache``.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -343,14 +344,18 @@ class AnalysisEngine:
         key: str,
         samples: Tuple[str, ...],
     ) -> Any:
-        """From-scratch Gramian + cache warm-up: the run rides the window
-        route so the full-frame windows are captured for future
-        corrections. (The JAX package keeps a checkpointed job on
-        ``ingest_gramian``; the port's jobs never checkpoint yet.)"""
+        """From-scratch Gramian + cache warm-up: uncheckpointed runs ride
+        the window route so the full-frame windows are captured for
+        future corrections; checkpointed runs keep their snapshot/resume
+        semantics (no capture — the first delta against them re-streams
+        once and captures then)."""
         assert self._deltas is not None
-        sink: list = []
-        g = driver.ingest_gramian_windows(window_sink=sink)
-        self._deltas.put_windows(key, sink)
+        if driver.conf.checkpoint_dir:
+            g = driver.ingest_gramian()
+        else:
+            sink: list = []
+            g = driver.ingest_gramian_windows(window_sink=sink)
+            self._deltas.put_windows(key, sink)
         self._deltas.put(key, samples, g)
         return g
 
@@ -381,6 +386,11 @@ class AnalysisEngine:
                 f"{sorted(keys)}"
             )
         key = keys.pop()
+        # Gang members never checkpoint (small cohorts; replay re-runs
+        # them bit-identically).
+        confs = [
+            dataclasses.replace(c, checkpoint_dir=None) for c in confs
+        ]
         drivers = [self._driver(c) for c in confs]
         sizes = [int(d.cohort.size) for d in drivers]
         n_max = max(sizes)

@@ -385,14 +385,16 @@ def cohort_key(spec: JobSpec, base: Any) -> str:
     return murmur3_x64_128(payload).hex()
 
 
-def job_config(spec: JobSpec, base: Any) -> Any:
+def job_config(
+    spec: JobSpec, base: Any, checkpoint_dir: Optional[str] = None
+) -> Any:
     """Per-job PcaConfig: the server template with the spec's analysis
     parameters applied and every emission output stripped (jobs return
     rows; they never write the operator's artifacts). The port's
-    PcaConfig carries no telemetry paths (the CLI holds them), so only
-    ``output_path`` is stripped here; jobs never checkpoint (the JAX
-    package's ``checkpoint_dir`` argument waits for ROADMAP.md Queue 1,
-    item 8)."""
+    PcaConfig carries no telemetry paths (the CLI holds them), so
+    ``output_path`` and ``trace_dir`` are stripped here. ``checkpoint_dir``
+    is the job's snapshot directory (the tier's ``_ckpt_dir``); sketch
+    and pairhmm jobs never get one."""
     import dataclasses
 
     resolved = resolve_spec(spec, base)
@@ -402,13 +404,19 @@ def job_config(spec: JobSpec, base: Any) -> Any:
             references=resolved["references"],
             read_group_set_id=resolved["read_group_set_id"],
             checkpoint_dir=None,
+            elastic_checkpoint=False,
             output_path=None,
+            trace_dir=None,
         )
     pca_mode = (
         spec.pca_mode
         if spec.pca_mode is not None
         else getattr(base, "pca_mode", "auto")
     )
+    if pca_mode == "sketch":
+        # The sketch driver refuses checkpointed ingest (no snapshot
+        # grid for a partial panel) — never hand it one.
+        checkpoint_dir = None
     return dataclasses.replace(
         base,
         variant_set_ids=resolved["variant_set_ids"],
@@ -419,8 +427,10 @@ def job_config(spec: JobSpec, base: Any) -> Any:
         samples=resolved["samples"],
         exclude_samples=resolved["exclude_samples"],
         pca_mode=pca_mode,
-        checkpoint_dir=None,
+        checkpoint_dir=checkpoint_dir,
+        elastic_checkpoint=False,
         output_path=None,
+        trace_dir=None,
     )
 
 

@@ -21,17 +21,17 @@ with ``POST /analyze`` + ``GET /jobs/<id>``:
   re-queue in original order, and a re-run produces bit-identical
   coordinates (deterministic manifest + integer-exact accumulation,
   the same invariant the chaos harness pins for ingest);
-- **replayable gramians**: a job killed mid-Gramian re-runs from the
-  start on replay, bit-identically (the JAX package's per-job Gramian
-  checkpoint, ``_ckpt_dir``, which resumes it mid-ingest, waits for the
-  port's checkpointed ingest: ROADMAP.md Queue 1, item 8).
+- **resumable gramians**: with a journal directory, each single-dataset
+  job also gets a per-job checkpoint dir, so a job killed mid-Gramian
+  resumes from its last shard-group snapshot instead of from zero.
 
 Since the replica round the tier also has a **replicated mode**: give
 it a :class:`~spark_examples_tpu_torch.serving.replica.LeaseManager` over a
 shared :class:`~spark_examples_tpu_torch.store.DurableStore` and the journal
 moves to a per-replica directory on the store, every submission and
 terminal transition is mirrored into a shared job index
-(``jobs/<id>``, fenced puts), and expired peers' journals are
+(``jobs/<id>``, fenced puts), per-job Gramian checkpoints live on the
+store so ANY replica can resume them, and expired peers' journals are
 adopted (:meth:`AnalysisJobTier.adopt_expired_peers`): their in-flight
 jobs re-queue here in original submission order. A replica that lost
 its lease is a zombie — every journal/index/result write it attempts is
@@ -51,6 +51,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import shutil
 import sys
 import threading
 import time
@@ -67,6 +68,7 @@ from spark_examples_tpu_torch.serving.jobs import (
     JobSpec,
     cohort_key,
     job_config,
+    resolve_spec,
 )
 from spark_examples_tpu_torch.serving.queue import (
     AdmissionQueue,
@@ -799,6 +801,37 @@ class AnalysisJobTier:
                     file=sys.stderr,
                 )
 
+    def _ckpt_dir(self, job: Job) -> Optional[str]:
+        # Per-job Gramian snapshots make a killed job RESUME mid-ingest
+        # instead of restarting; the checkpointed route is single-
+        # variantset only, so multi-set jobs simply re-run (still
+        # bit-identical — the manifest is deterministic).
+        if job.spec.kind != "pca":
+            # Read-scoring jobs have no Gramian to snapshot; replay
+            # just re-runs them (per-pair results are deterministic).
+            return None
+        spec_vsids = job.spec.variant_set_ids or tuple(
+            self._base.variant_set_ids
+        )
+        if self._journal_dir is None or len(spec_vsids) != 1:
+            return None
+        resolved = resolve_spec(job.spec, self._base)
+        if resolved["samples"] or resolved["exclude_samples"]:
+            # Sample-restricted cohorts don't compose with checkpointed
+            # ingest (snapshot digests are full-frame); these jobs are
+            # the small delta-tier queries — replay just re-runs them.
+            return None
+        # Replicated mode: checkpoints are SHARED (keyed by job id,
+        # which adoption preserves), so a survivor resumes a dead
+        # peer's Gramian from its last shard-group snapshot instead of
+        # from zero.
+        base = (
+            self._store_root
+            if self._store_root is not None
+            else self._journal_dir
+        )
+        return os.path.join(base, "ckpt", job.id)
+
     def _journal_append_safe(self, event: Dict) -> None:
         """Append a TRANSITION event (start/done/fail), degrading loudly
         on failure instead of killing the worker: losing a transition
@@ -845,6 +878,7 @@ class AnalysisJobTier:
         # Disk I/O outside the tier lock (submit() reasoning).
         self._journal_append_safe({"e": "start", "id": job.id})
         self._note_queue_age(job)
+        ckpt: Optional[str] = None
         try:
             with obs.trace_context(job.trace_id):
                 obs.instant(
@@ -858,6 +892,7 @@ class AnalysisJobTier:
                     # would: start recorded, no terminal event — and
                     # kill this worker.
                     raise SimulatedCrash(str(e)) from e
+                ckpt = self._ckpt_dir(job)
                 with obs.span(
                     "job.run",
                     job_id=job.id,
@@ -866,7 +901,9 @@ class AnalysisJobTier:
                 ):
                     faults.inject("serving.job.run", key=job.id)
                     rows = self._engine.run(
-                        job_config(job.spec, self._base),
+                        job_config(
+                            job.spec, self._base, checkpoint_dir=ckpt
+                        ),
                         kind=job.spec.kind,
                     )
         except SimulatedCrash:
@@ -883,6 +920,13 @@ class AnalysisJobTier:
         else:
             self._finish(job, rows=rows)
             self._breaker.record_success()
+        # Snapshots belong to IN-FLIGHT work: any terminal outcome
+        # reclaims the job's checkpoint dir (a failed id is never
+        # reused — a resubmission gets a fresh seq and dir — so keeping
+        # it would only leak disk). A crash skips this on purpose: the
+        # re-queued same-id job resumes from these snapshots.
+        if ckpt is not None:
+            shutil.rmtree(ckpt, ignore_errors=True)
 
     def _finish(
         self,

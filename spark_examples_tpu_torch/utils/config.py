@@ -4,8 +4,9 @@ The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default, and
 :func:`add_analyze_flags` is the analysis tier's surface. Options of routes
-not ported yet (meshes, checkpoints) are accepted and then refused with ``NotImplementedError`` naming
-the ROADMAP.md item that ports them, never silently ignored. ``--device``
+not ported yet (meshes, elastic checkpoints) are accepted and then refused
+with ``NotImplementedError`` naming the ROADMAP.md item that ports them,
+never silently ignored. ``--device``
 is the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
 
@@ -112,6 +113,11 @@ class PcaConfig:
     # density is strictly below this scatters, at or above it goes dense.
     sparse_density_threshold: float = DEFAULT_SPARSE_DENSITY_THRESHOLD
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 64  # shards per Gramian snapshot
+    # World-size-independent checkpointing (the JAX package's
+    # utils/elastic.py): refused until the mesh layer is ported.
+    elastic_checkpoint: bool = False
+    trace_dir: Optional[str] = None  # torch.profiler trace output
     # N above which the finish uses dense eigh instead of the fused
     # subspace iteration.
     dense_eigh_limit: int = 8192
@@ -285,7 +291,14 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--checkpoint-dir",
         default=None,
-        help="Gramian snapshots (not ported yet)",
+        help="Directory for incremental Gramian snapshots (resume support)",
+    )
+    p.add_argument("--checkpoint-every", type=int, default=64)
+    p.add_argument(
+        "--elastic-checkpoint",
+        action="store_true",
+        help="World-size-independent checkpointing (not ported yet: it "
+        "needs the mesh layer's process group)",
     )
     p.add_argument(
         "--dense-eigh-limit",
@@ -502,6 +515,13 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="Activate the deterministic fault-injection plane: a JSON "
         "fault plan, inline ('{\"seed\":1,\"rules\":[...]}') or a path "
         "to a file holding one",
+    )
+    p.add_argument(
+        "--trace-dir",
+        default=None,
+        help="Write a torch.profiler trace of the run here (host and, on "
+        "the card, CUDA activity; open the *.pt.trace.json in Perfetto "
+        "or chrome://tracing)",
     )
     p.add_argument(
         "--trace-out",

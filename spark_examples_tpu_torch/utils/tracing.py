@@ -29,9 +29,10 @@ block, in a builder thread); and a source's per-shard extraction is an
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 from spark_examples_tpu_torch import obs
 
@@ -46,6 +47,7 @@ __all__ = [
     "SKETCH_FINISH",
     "SKETCH_WINDOW",
     "StageTimer",
+    "profiler_trace",
     "rpc_range",
 ]
 
@@ -67,6 +69,40 @@ def rpc_range(transport: str, method: str) -> Iterator[None]:
     ``genomics_rpc_latency_seconds`` sample (``obs.rpc_timer``)."""
     with obs.span(f"{transport}.{method}"), obs.rpc_timer(
         transport, method
+    ):
+        yield
+
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the block when a directory is given
+    (``--trace-dir``), no-op otherwise: CPU activity on every thread (the
+    feed's producer and the block builders too), and CUDA activity when
+    ``device`` is the card. The trace is written into ``trace_dir`` as
+    ``<host>_<pid>.<ns>.pt.trace.json`` (Chrome trace events, read by
+    Perfetto) by ``tensorboard_trace_handler``, which needs no tensorboard
+    package. Every obs span is a ``record_function`` range, so the trace
+    splits each stage's host and device time by name."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(
+        activities=activities,
+        on_trace_ready=tensorboard_trace_handler(trace_dir),
+        experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True
+        ),
     ):
         yield
 

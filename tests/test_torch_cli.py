@@ -328,7 +328,8 @@ _SERVED = {
              ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2"],
              "item 7"),
             ("checkpoint",
-             ["pca", "--fixture-samples", "4", "--checkpoint-dir", "c"],
+             ["pca", "--fixture-samples", "4", "--checkpoint-dir", "c",
+              "--elastic-checkpoint"],
              "item 8"),
         ]
     ],
@@ -337,7 +338,9 @@ def test_unserved_options_name_their_roadmap_item(
         case, argv, item, request, tmp_path, capsys, monkeypatch):
     """Options of later items raise naming their item. The item-2 options
     (gRPC and the cohort mirror) and item 6's ``serve-cohort --analyze``
-    are served now: each case runs them and holds them to the JAX CLI."""
+    are served now: each case runs them and holds them to the JAX CLI. Of
+    item 8 only ``--elastic-checkpoint`` is refused; ``--checkpoint-dir``
+    runs (``test_checkpointed_pca_prints_the_jax_clis_rows``)."""
     if item is None:
         _SERVED[case](tmp_path, capsys, monkeypatch, request)
         return
@@ -369,3 +372,114 @@ def test_a_fault_plan_flag_scopes_to_the_command(tmp_path, capsys):
                      "--fault-plan", plan]) == 0
     capsys.readouterr()
     assert faults.current_plan() is None
+
+
+_CK_ARGS = ["pca", "--fixture-samples", "24", "--fixture-variants", "300",
+            "--fixture-seed", "5", "--bases-per-partition", "20000",
+            "--block-variants", "32"]
+
+
+def _tsv_rows(out):
+    return [line.split("\t") for line in out.splitlines()
+            if line.count("\t") == 3]
+
+
+def test_checkpointed_pca_prints_the_jax_clis_rows(tmp_path, capsys):
+    """``pca --checkpoint-dir --checkpoint-every`` runs on the port: the
+    rows equal the uncheckpointed run's within 1e-4 and the JAX CLI's; a
+    rerun resumes from the snapshot (every shard done) and prints the JAX
+    CLI's resume line."""
+    ck = ["--checkpoint-dir", str(tmp_path / "p"), "--checkpoint-every", "2"]
+    assert cli.main([*_CK_ARGS, *ck, "--device", "cpu"]) == 0
+    port_out = capsys.readouterr().out
+    assert cli.main([*_CK_ARGS, "--device", "cpu"]) == 0
+    plain_out = capsys.readouterr().out
+    assert jax_cli.main([*_CK_ARGS, "--checkpoint-dir", str(tmp_path / "j"),
+                         "--checkpoint-every", "2"]) == 0
+    jax_out = capsys.readouterr().out
+    port, plain, jax = (_tsv_rows(o) for o in (port_out, plain_out, jax_out))
+    assert len(port) == 24
+    for other in (plain, jax):
+        assert [(r[0], r[1]) for r in port] == [(r[0], r[1]) for r in other]
+        for a, b in zip(port, other):
+            assert abs(float(a[2]) - float(b[2])) <= 1e-4
+            assert abs(float(a[3]) - float(b[3])) <= 1e-4
+    assert os.path.exists(tmp_path / "p" / "gramian_snapshot.npz")
+    assert cli.main([*_CK_ARGS, *ck, "--device", "cpu"]) == 0
+    again = capsys.readouterr().out
+    assert "Resuming from snapshot: 5/5 shards done." in again
+    assert _tsv_rows(again) == port
+
+
+def test_the_new_flags_have_the_jax_clis_defaults():
+    for argv in (["pca"], ["serve-cohort"], ["pca-bridge"]):
+        port = cli.build_parser().parse_args(argv)
+        jax = jax_cli.build_parser().parse_args(argv)
+        for name in ("checkpoint_dir", "checkpoint_every",
+                     "elastic_checkpoint", "trace_dir"):
+            assert getattr(port, name) == getattr(jax, name), (argv, name)
+    port = cli.build_parser().parse_args(["pca-bridge"]).port
+    assert port == jax_cli.build_parser().parse_args(["pca-bridge"]).port
+    assert port == 18717
+
+
+def test_trace_dir_writes_a_profiler_trace(tmp_path, capsys):
+    """``pca --trace-dir d --device cpu`` writes a ``*.pt.trace.json``
+    holding the ``ingest+gramian`` stage's range and the ranges of the
+    dense route's ingest spans inside it."""
+    trace_dir = tmp_path / "trace"
+    assert cli.main([*_CK_ARGS, "--device", "cpu", "--trace-dir",
+                     str(trace_dir)]) == 0
+    capsys.readouterr()
+    traces = [f for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(trace_dir / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"ingest+gramian", "pca", "emit", "ingest.pack",
+            "gramian.accumulate"} <= names
+    stage = next(e for e in events if e.get("name") == "ingest+gramian")
+    inside = [e for e in events if e.get("name") == "gramian.accumulate"
+              and stage["ts"] <= e["ts"] <= stage["ts"] + stage["dur"]]
+    assert inside
+
+
+def test_pca_bridge_serves_the_c_plus_plus_client(tmp_path):
+    """``pca-bridge --device cpu`` in a subprocess answers the JAX repo's
+    C++ example client unchanged."""
+    import shutil
+    import socket
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not available")
+    binary = tmp_path / "pca_bridge_client"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-o", str(binary),
+         os.path.join(ROOT, "examples", "pca_bridge_client.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+         "pca-bridge", "--port", str(port), "--device", "cpu"],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert f"PcaBackend bridge listening on 127.0.0.1:{port}" in line
+        out = subprocess.run([str(binary), str(port)], capture_output=True,
+                             timeout=120, text=True)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "bridge ok" in out.stdout
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()

@@ -475,14 +475,52 @@ def test_stream_reads_over_a_cohort_without_reads(servers):
                 assert src.stats.reads_read == 0
 
 
-def test_compute_pca_names_item_8(servers):
-    with _open("port", servers["port"]) as src:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            src.compute_pca(iter([[0, 1]]), 4, 2)
-    # The port's server registers no ComputePca method.
-    with _open("jax", servers["port"]) as src:
-        with pytest.raises(IOError, match="UNIMPLEMENTED"):
-            src.compute_pca(iter([[0, 1]]), 4, 2)
+def test_compute_pca_names_item_8(servers, cohort_dir, request):
+    """``ComputePca`` is served (item 8's meshless half): a server given a
+    backend answers both packages' clients with the JAX backend's
+    coordinates, and ``compute_pca`` works in both packages' clients; a
+    server without one still registers no ``ComputePca``, as the JAX
+    package's. The item-8 refusal that remains, ``--elastic-checkpoint``,
+    is refused over ``grpc://`` too."""
+    from spark_examples_tpu.bridge import TpuPcaBackend
+    from spark_examples_tpu_torch.bridge import TorchPcaBackend
+
+    rng = np.random.default_rng(4)
+    calls = [sorted(rng.choice(13, size=rng.integers(1, 13),
+                               replace=False).tolist()) for _ in range(90)]
+    want, _ = TpuPcaBackend(block_variants=16).compute(iter(calls), 13, 2)
+    backends = {
+        "port": (grpc_transport.GrpcGenomicsServer,
+                 TorchPcaBackend(block_variants=16, device="cpu")),
+        "jax": (jax_grpc.GrpcGenomicsServer,
+                TpuPcaBackend(block_variants=16)),
+    }
+    for server_pkg, (server_cls, backend) in backends.items():
+        server = server_cls(JsonlSource(cohort_dir), port=0, token=TOKEN,
+                            pca_backend=backend).start()
+        request.addfinalizer(server.stop)
+        url = f"grpc://127.0.0.1:{server.port}"
+        for client_pkg in ("port", "jax"):
+            with _open(client_pkg, url) as src:
+                coords, eigvals = src.compute_pca(iter(calls), 13, 2,
+                                                  batch_size=7)
+                assert src.stats.requests >= 1
+            assert eigvals.shape == (2,)
+            np.testing.assert_allclose(coords, want, atol=1e-4,
+                                       err_msg=f"{server_pkg}/{client_pkg}")
+        with _open("port", url) as src:
+            with pytest.raises(IOError, match="INVALID_ARGUMENT"):
+                src.compute_pca(iter([[0]]), 3, 0)
+    for client_pkg in ("port", "jax"):
+        with _open(client_pkg, servers["port"]) as src:
+            with pytest.raises(IOError, match="UNIMPLEMENTED"):
+                src.compute_pca(iter([[0, 1]]), 4, 2)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        VariantsPcaDriver(
+            PcaConfig(device="cpu", elastic_checkpoint=True,
+                      checkpoint_dir="ck", **SETTINGS),
+            None,
+        )
 
 
 def test_a_taken_port_is_a_loud_bind_error():

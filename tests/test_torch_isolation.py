@@ -6,7 +6,8 @@ load. The sources (and ``chip_smoke.py``) are also searched for imports of
 either, so a lazy import inside a function cannot slip past. Every source
 of the port, its ``csrc/`` too, is searched for the JAX package's native
 library and its environment switches: the port builds and loads its own
-host core and reads no environment variable for it.
+host core and reads no environment variable for it. No source names the
+JAX package's soft-deadline variable: the port reads its own.
 """
 
 import os
@@ -47,6 +48,8 @@ def test_every_module_imports_without_jax():
     for name in (
         "arrays.blocks",
         "arrays.feed",
+        "bridge",
+        "bridge.backend",
         "cli.main",
         "genomics.auth",
         "genomics.datasets",
@@ -91,15 +94,19 @@ def test_every_module_imports_without_jax():
         "store",
         "store.local",
         "tools.ingest_workers",
+        "utils.checkpoint",
         "utils.concurrency",
         "utils.lockcheck",
+        "utils.softcancel",
         "utils.stats",
         "utils.tracing",
         "utils.watchdog",
     ):
         assert f"spark_examples_tpu_torch.{name}" in modules
     for path in ("genomics/grpc_transport.py", "genomics/mirror.py",
-                 "native/__init__.py"):
+                 "native/__init__.py", "bridge/__init__.py",
+                 "bridge/backend.py", "utils/checkpoint.py",
+                 "utils/softcancel.py"):
         assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
     assert os.path.join(PKG_DIR, "csrc", "genomics_native.cpp") in (
         _port_sources(_CSRC_EXTS)
@@ -181,3 +188,40 @@ def test_source_names_neither_jax_nor_the_jax_package(path):
         text = f.read()
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M), path
     assert "spark_examples_tpu." not in text, path
+
+
+# The JAX package's run-deadline variable (its utils/softcancel.py): a
+# deadline exported for a JAX run must never cancel a port run.
+_JAX_SOFT_DEADLINE = "SPARK_EXAMPLES_TPU" + "_SOFT_DEADLINE"
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_no_source_names_the_jax_packages_soft_deadline(path):
+    with open(path, encoding="utf-8") as f:
+        assert _JAX_SOFT_DEADLINE not in f.read(), path
+
+
+def test_the_soft_deadline_modules_import_with_jax_blocked():
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spark_examples_tpu_torch.utils import checkpoint, softcancel\n"
+        "from spark_examples_tpu_torch import bridge\n"
+        "assert softcancel.SOFT_DEADLINE_ENV == "
+        "'SPARK_EXAMPLES_TPU_TORCH_SOFT_DEADLINE'\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'spark_examples_tpu'\n"
+        "             or m.startswith('spark_examples_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout

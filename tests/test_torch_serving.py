@@ -2143,3 +2143,256 @@ class TestServeCohortCli:
         src, _, _ = served_source
         with pytest.raises(NotImplementedError, match="item 7"):
             _analysis_tier(self._args("--mesh-shape", "data:1"), src)
+
+
+class TestJobCheckpoints:
+    """The job tier's mid-ingest resume (the JAX tier's ``_ckpt_dir``):
+    with a journal, a full-cohort single-set pca job ingests through the
+    checkpointed route into ``<journal>/ckpt/<id>``, reclaimed on any
+    terminal outcome and kept across a crash, so a killed job resumes from
+    its last shard group."""
+
+    def test_job_config_hands_the_checkpoint_dir_as_the_jax_one(self):
+        from spark_examples_tpu.serving import job_config as jax_job_config
+        from spark_examples_tpu.utils.config import PcaConfig as JaxConfig
+
+        base = _base_conf(trace_dir="t")
+        jbase = JaxConfig(
+            variant_set_ids=[DEFAULT_VARIANT_SET_ID], references=REFS,
+            bases_per_partition=20_000, block_variants=16, trace_dir="t",
+        )
+        for spec, want in (
+            (JobSpec(), "ck"),
+            (JobSpec(pca_mode="sketch"), None),
+            (JobSpec(kind="pairhmm"), None),
+        ):
+            conf = job_config(spec, base, checkpoint_dir="ck")
+            ref = jax_job_config(spec, jbase, checkpoint_dir="ck")
+            for name in ("checkpoint_dir", "trace_dir",
+                         "elastic_checkpoint", "output_path"):
+                assert getattr(conf, name) == getattr(ref, name), name
+            assert conf.checkpoint_dir == want
+            assert conf.trace_dir is None
+        assert job_config(JobSpec(), base).checkpoint_dir is None
+
+    def test_ckpt_dir_rules_are_the_jax_tiers(self, served_source, tmp_path):
+        from spark_examples_tpu.serving import (
+            AnalysisEngine as JaxEngine,
+            AnalysisJobTier as JaxTier,
+        )
+        from spark_examples_tpu.utils.config import PcaConfig as JaxConfig
+
+        src, base, _ = served_source
+        jbase = JaxConfig(
+            variant_set_ids=[DEFAULT_VARIANT_SET_ID], references=REFS,
+            bases_per_partition=20_000, block_variants=16,
+        )
+        ids = _sample_ids(8)
+        specs = [
+            JobSpec(),
+            JobSpec(exclude_samples=(ids[0],)),
+            JobSpec(samples=tuple(ids[:4])),
+            JobSpec(variant_set_ids=("a", "b")),
+            JobSpec(kind="pairhmm"),
+            JobSpec(pca_mode="sketch"),
+        ]
+        for journal in (None, "j"):
+            kw = {} if journal is None else {
+                "journal_dir": str(tmp_path / f"{journal}-port")}
+            port = AnalysisJobTier(AnalysisEngine(src), base, workers=0,
+                                   **kw)
+            jkw = {} if journal is None else {
+                "journal_dir": str(tmp_path / f"{journal}-jax")}
+            ref = JaxTier(JaxEngine(src), jbase, workers=0, **jkw)
+            try:
+                for spec in specs:
+                    job = _queued_job(spec)
+                    got, want = port._ckpt_dir(job), ref._ckpt_dir(job)
+                    assert (got is None) == (want is None), spec
+                    if got is not None:
+                        assert got == os.path.join(
+                            kw["journal_dir"], "ckpt", job.id)
+            finally:
+                port.close()
+                ref.close()
+
+    def test_done_job_took_the_checkpointed_route_and_reclaimed_it(
+            self, served_source, tmp_path, monkeypatch):
+        from spark_examples_tpu_torch.serving import gramian_base_key
+        from spark_examples_tpu_torch.utils import checkpoint
+
+        src, base, baseline = served_source
+        saved = []
+        real = checkpoint.save_snapshot
+
+        def recording(directory, g, shards_done, digest):
+            saved.append((directory, shards_done))
+            real(directory, g, shards_done, digest)
+
+        monkeypatch.setattr(checkpoint, "save_snapshot", recording)
+        journal = str(tmp_path / "journal")
+        tier = AnalysisJobTier(
+            AnalysisEngine(src, delta_max_samples=16), base, workers=0,
+            journal_dir=journal,
+        )
+        try:
+            job, _ = tier.submit(JobSpec(tenant="t"))
+            tier.step(timeout=1.0)
+            assert job.state == "done", job.error
+            assert job.result == baseline
+            ckpt = os.path.join(journal, "ckpt", job.id)
+            assert saved and {d for d, _ in saved} == {ckpt}
+            assert saved[-1][1] == 5  # every shard of the manifest
+            assert not os.path.exists(ckpt)
+            # A checkpointed cold run captures no windows: the first
+            # delta re-streams once.
+            deltas = tier._engine._deltas
+            key = gramian_base_key(job_config(JobSpec(), base))
+            assert deltas.windows(key) is None
+        finally:
+            tier.close()
+
+    def test_sparse_base_under_a_journal_fails_as_the_jax_tier(
+            self, served_source, tmp_path):
+        """A fact of the reference: the JAX tier hands every full-cohort
+        pca job a checkpoint directory, and its driver refuses ``sparse``
+        with one — so a ``--pca-mode sparse`` base under a journal fails
+        its full-cohort jobs. The port does the same."""
+        from spark_examples_tpu.serving import (
+            AnalysisEngine as JaxEngine,
+            AnalysisJobTier as JaxTier,
+        )
+        from spark_examples_tpu.utils.config import PcaConfig as JaxConfig
+
+        src, _, _ = served_source
+        base = _base_conf(pca_mode="sparse")
+        jbase = JaxConfig(
+            variant_set_ids=[DEFAULT_VARIANT_SET_ID], references=REFS,
+            bases_per_partition=20_000, block_variants=16,
+            pca_mode="sparse",
+        )
+        port = AnalysisJobTier(AnalysisEngine(src), base, workers=0,
+                               journal_dir=str(tmp_path / "p"))
+        ref = JaxTier(JaxEngine(src), jbase, workers=0,
+                      journal_dir=str(tmp_path / "j"))
+        try:
+            jobs = []
+            for tier in (port, ref):
+                job, _ = tier.submit(JobSpec())
+                tier.step(timeout=1.0)
+                restricted, _ = tier.submit(
+                    JobSpec(exclude_samples=(_sample_ids(8)[0],)))
+                tier.step(timeout=1.0)
+                jobs.append((job, restricted))
+            (pjob, prest), (jjob, jrest) = jobs
+            assert pjob.state == jjob.state == "failed"
+            assert pjob.error == jjob.error
+            assert "--pca-mode sparse does not compose" in pjob.error
+            # A restricted job gets no checkpoint and runs.
+            assert prest.state == jrest.state == "done"
+        finally:
+            port.close()
+            ref.close()
+
+    def test_killed_job_resumes_from_its_last_group(self, tmp_path):
+        """``serve-cohort --analyze --analyze-journal-dir`` in a
+        subprocess, its ingest stalled after the first group's snapshot;
+        SIGKILL once ``ckpt/<id>/gramian_snapshot.npz`` appears, restart
+        on the journal (no stall): the job resumes from 2/5 shards and its
+        rows equal the driver's."""
+        import signal
+        import subprocess
+        import sys
+
+        from spark_examples_tpu_torch.genomics.sources import JsonlSource
+        from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+
+        root = str(tmp_path / "cohort")
+        synthetic_cohort(12, 200, seed=7).dump(root)
+        journal = str(tmp_path / "journal")
+        plan = {"rules": [{"site": "ingest.shard", "kind": "stall",
+                           "stall_s": 60, "after": 2, "times": 1}]}
+
+        def serve(*extra):
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+                 "serve-cohort", "--input-path", root, "--references",
+                 REFS, "--bases-per-partition", "20000",
+                 "--block-variants", "16", "--port", "0", "--analyze",
+                 "--analyze-journal-dir", journal, "--device", "cpu",
+                 "--ingest-workers", "1", "--checkpoint-every", "2",
+                 *extra],
+                cwd=_REPO_ROOT, stdout=subprocess.PIPE,
+                stderr=stderr, text=True,
+            )
+            seen = []
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                line = proc.stdout.readline()
+                assert line, f"server exited: {seen}"
+                seen.append(line)
+                if "listening on http://" in line:
+                    port = int(line.rsplit(":", 1)[1].split()[0])
+                    return proc, port, seen
+            proc.kill()
+            raise TimeoutError(seen)
+
+        stderr = open(tmp_path / "server.err", "w")
+        proc, port, _ = serve("--fault-plan", json.dumps(plan))
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            status, _, rec = _post(conn, "/analyze", {"tenant": "t"})
+            assert status == 202
+            snap = os.path.join(journal, "ckpt", rec["id"],
+                                "gramian_snapshot.npz")
+            deadline = time.time() + 120
+            while not os.path.exists(snap):
+                assert time.time() < deadline, "no snapshot appeared"
+                time.sleep(0.02)
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=30)
+            proc.stdout.close()
+        proc, port, seen = serve()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            deadline = time.time() + 120
+            while True:
+                try:
+                    status, job = _get(conn, f"/jobs/{rec['id']}")
+                except OSError as e:
+                    stderr.flush()
+                    raise AssertionError(
+                        f"the restarted server is gone ({e}; exit "
+                        f"{proc.poll()}): {seen} "
+                        f"{(tmp_path / 'server.err').read_text()[-3000:]}"
+                    ) from e
+                assert status == 200 and job["state"] != "failed", job
+                if job["state"] == "done":
+                    break
+                assert time.time() < deadline, job
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGINT)
+            out, _ = proc.communicate(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        stderr.close()
+        assert "Resuming from snapshot: 2/5 shards done." in (
+            "".join(seen) + out)
+        assert not os.path.exists(os.path.dirname(snap))
+        conf = job_config(JobSpec(tenant="t"), _base_conf(
+            ingest_workers=1, checkpoint_every=2))
+        driver = VariantsPcaDriver(conf, JsonlSource(root))
+        want = driver.collect_result(
+            driver.compute_pca(driver.ingest_gramian()))
+        assert [tuple(r) for r in job["result"]] == want
+
+
+def _queued_job(spec):
+    """A queued job of ``spec`` (the tier's probes read only its spec and
+    id)."""
+    from spark_examples_tpu_torch.serving.jobs import Job
+
+    return Job(id="job-0001", spec=spec, key="k", seq=1)
