@@ -11,8 +11,10 @@ sidecar) and from the same directory served over HTTP (``--api-url``), and
 the default ``pca`` (``--pca-mode auto``: dense-blockwise
 ingest through the bit-packed pinned feed, then the fused finish); the
 sketch engine at the biobank width (N = 2^20), alone and through the
-driver over an on-disk cohort; and holds every hand-written kernel against
-its plain PyTorch version on the card. Phases, each of which exits non-zero
+driver over an on-disk cohort; the same cohort on one-card meshes, with the
+kernel's tile path on rebased operands, and under a one-rank process
+group; and holds every hand-written kernel against its plain PyTorch
+version on the card. Phases, each of which exits non-zero
 on failure:
 
 1. device: the card's name, CUDA version, name and power limit;
@@ -221,6 +223,25 @@ on failure:
     phase 4's carrier lists, coordinates within 1e-4 of the f64 oracle,
     seconds per call and bytes sent; (f) a CLI ``pca --trace-dir`` run: the
     trace's size and its CUDA kernel events.
+20. the mesh layer's single-controller half and the process group over
+    phase 12's directory (N = 2504, V = 65536): (a) the driver on one-card
+    meshes ``data:1`` and ``data:1,model:1``, ``sparse`` and ``auto`` with
+    ``--sample-sharded`` (auto routes sparse: phase 4's scatter launches,
+    through the tile scatter) and ``stream`` with ``--no-sample-sharded``
+    (0 launches): G a tile grid, phase 4's bit for bit, coordinates within
+    1e-4 of the f64 oracle; (b) phase 4's first scatter window re-based
+    onto a 2x2 and a 1x3 grid of rectangular tiles, the kernel launched
+    tile by tile: each tile equal to its plain version and to the full
+    G's block, each timed against its bound; (c) ``sharded_pcoa`` below
+    ``dense_eigh_limit``: the randomized eig, fixed and with ``eig_tol``
+    (the JAX package's cap of 30 iterations), iterations, seconds and the
+    distance to dense eigh, and the same eig with a cap of 100 held within
+    1e-4 of dense eigh; (d) a
+    cold ``AnalysisEngine`` job on a ``data:1`` mesh and a meshed
+    ``TorchPcaBackend`` call, rows within 1e-4 of the meshless ones; (e) a
+    CLI ``pca --mesh-shape data:1`` under a one-rank NCCL group
+    (``MASTER_ADDR``/``WORLD_SIZE=1``), started first: the group is up and
+    its rows are (a)'s.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -3931,6 +3952,301 @@ def checkpointed_ingest(torch, root, g_ref, want, windows, phase4_launches,
     return by_leg
 
 
+def mesh_and_process_group(torch, root, g_ref, want, windows, device="cuda"):
+    """Phase 20: the mesh layer's single-controller half and the process
+    group over phase 12's directory. The CLI run under a one-rank process
+    group starts first and runs beside the in-process legs. Returns the
+    scatter launches of each meshed run. ``device`` is every run's device
+    (``cpu`` only to try the phase at a small size without a card: the
+    group is then gloo's and no kernel launches)."""
+    from spark_examples_tpu_torch.bridge import TorchPcaBackend
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.sparse import (
+        _pad_rows_for_scan,
+        padded_carrier_matrix,
+        window_route,
+    )
+    from spark_examples_tpu_torch.parallel import (
+        ShardedGramian,
+        make_mesh,
+        sharded_pcoa,
+    )
+    from spark_examples_tpu_torch.parallel.sharded import (
+        _tile_operands,
+        double_center_tiles,
+        topk_eig_randomized,
+    )
+    from spark_examples_tpu_torch.serving import AnalysisEngine
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+    from spark_examples_tpu_torch.utils.tracing import StageTimer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = g_ref.shape[0]
+    vsid = DEFAULT_VARIANT_SET_ID
+    on_card = device == "cuda"
+    times, by_leg = {}, {}
+    routes = [window_route(lens, n, PcaConfig.sparse_density_threshold)
+              for _, lens in windows]
+    n_scatter = routes.count("scatter")
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (e) starts first: the CLI under a one-rank process group ------------
+    group_script = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "from spark_examples_tpu_torch.cli import main as cli\n"
+        "rc = cli.main(sys.argv[1:])\n"
+        "up = dist.is_initialized()\n"
+        "print('GROUP', up and dist.get_backend(), "
+        "up and dist.get_world_size(), flush=True)\n"
+        "if up:\n"
+        "    dist.destroy_process_group()\n"
+        "sys.exit(rc)\n"
+    )
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0"}
+    t_group = time.perf_counter()
+    group = subprocess.Popen(
+        [sys.executable, "-c", group_script, "pca", "--input-path", root,
+         "--mesh-shape", "data:1", "--pca-mode", "stream",
+         "--no-sample-sharded", "--device", device],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(group.kill)
+
+    # (a) one-card meshes through the driver -------------------------------
+    source = JsonlSource(root)
+    legs = [(spec, mode, sharded)
+            for spec in ("data:1", "data:1,model:1")
+            for mode, sharded in (("sparse", True), ("auto", True),
+                                  ("stream", False))]
+    stream_tsv = stream_coords = stream_g = None
+    for spec, mode, sharded in legs:
+        flag = "--sample-sharded" if sharded else "--no-sample-sharded"
+        name = f"--mesh-shape {spec} --pca-mode {mode} {flag}"
+        conf = PcaConfig(variant_set_ids=[vsid], pca_mode=mode,
+                         sample_sharded=sharded, device=device)
+        mesh = make_mesh(spec, device=device)
+        out = io.StringIO()
+        sk.SCATTER_KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            driver = VariantsPcaDriver(conf, source, mesh=mesh)
+            result = driver.run()
+        run_s = time.perf_counter() - t0
+        launches = sk.SCATTER_KERNEL_LAUNCHES
+        check(isinstance(driver.g, ShardedGramian),
+              f"(a) {name}: G is not a tile grid")
+        g = driver.g.full().cpu().numpy()
+        check(same_g(g, g_ref), f"(a) {name}: G is not phase 4's")
+        coords = np.array([[p1, p2] for _, p1, p2 in result])
+        err = float(np.abs(coords - want).max())
+        check(np.isfinite(coords).all() and err <= COORD_TOL,
+              f"(a) {name}: coordinates {err:.3e} from the f64 oracle")
+        sparse = driver._sparse_selected()
+        check(sparse == (mode != "stream"),
+              f"(a) {name}: routed {'sparse' if sparse else 'dense'}")
+        want_launches = n_scatter if sparse and on_card else 0
+        check(launches == want_launches,
+              f"(a) {name}: {launches} scatter launches, want "
+              f"{want_launches}")
+        tsv = [ln for ln in out.getvalue().splitlines()
+               if ln.count("\t") == 3]
+        check(len(tsv) == n, f"(a) {name}: {len(tsv)} result lines")
+        by_leg[f"mesh {spec} {mode} (phase 20a)"] = launches
+        times[f"{spec} {mode}"] = run_s
+        print(f"  (a) {name}: {'sparse' if sparse else 'dense'} route, "
+              f"tiles {driver.g.tiles.shape}, {launches} scatter launches, "
+              f"G phase 4's bit for bit, coordinates {err:.3e} from the f64 "
+              f"oracle, run() {run_s:.3f} s, stage seconds "
+              f"{json.dumps({k: round(v, 6) for k, v in driver.timer.seconds.items()})}",
+              flush=True)
+        if spec == "data:1" and mode == "stream":
+            stream_tsv, stream_coords, stream_g = tsv, coords, driver.g
+
+    # (b) the tile path on the card ----------------------------------------
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    w0 = routes.index("scatter")
+    idx0, lens0 = windows[w0]
+    tile_path = {}
+    for label, (rows, cols) in (("2x2", (2, 2)), ("1x3", (1, 3))):
+        n_padded = -(-n // (rows * cols)) * rows * cols
+        t_r, t_c = n_padded // rows, n_padded // cols
+        idx = torch.from_numpy(padded_carrier_matrix(
+            idx0, lens0, sentinel=n_padded,
+            n_rows=_pad_rows_for_scan(lens0.size))).to(device)
+        full = torch.zeros((n_padded, n_padded), device=device)
+        sk.scatter_pairs_chunked(full, idx, idx)
+        kernel_ms = plain_ms = bound_ms = 0.0
+        total_pairs = 0
+        for i in range(rows):
+            for j in range(cols):
+                r0, c0 = i * t_r, j * t_c
+                li, lj = _tile_operands(idx, r0, t_r, c0, t_c)
+                tile_k = torch.zeros((t_r, t_c), device=device)
+                tile_p = torch.zeros_like(tile_k)
+                sk.scatter_pairs(tile_k, li, lj)
+                sk.scatter_pairs_chunked(tile_p, li, lj)
+                check(torch.equal(tile_k, tile_p),
+                      f"(b) {label} tile ({i}, {j}): kernel != plain")
+                check(torch.equal(tile_k, full[r0:r0 + t_r, c0:c0 + t_c]),
+                      f"(b) {label} tile ({i}, {j}): not the full G's block")
+                pairs = valid_pairs(torch, li, lj, t_r, t_c).numel()
+                moved = 2 * li.numel() * 4 + 2 * t_r * t_c * 4
+                bound = max(moved / PEAK_BYTES_PER_S,
+                            pairs / PEAK_F32_PER_S) * 1e3
+                if on_card:
+                    scratch = torch.zeros_like(tile_k)
+                    ms = time_cuda(
+                        lambda: sk.scatter_pairs(scratch, li, lj), 20, flush)
+                    p_ms = time_cuda(
+                        lambda: sk.scatter_pairs_chunked(scratch, li, lj), 3,
+                        flush)
+                else:
+                    ms = p_ms = float("nan")
+                kernel_ms += ms
+                plain_ms += p_ms
+                bound_ms += bound
+                total_pairs += pairs
+                print(f"  (b) {label} tile ({i}, {j}) of {t_r}x{t_c} at "
+                      f"({r0}, {c0}): {pairs} pairs, {moved} bytes; kernel "
+                      f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms; equal to its plain version and to "
+                      f"the full G's block", flush=True)
+        check(total_pairs == valid_pairs(torch, idx, idx, n, n).numel(),
+              f"(b) {label}: the tiles do not partition the window's pairs")
+        tile_path[label] = {"tiles": rows * cols, "ms": kernel_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "pairs": total_pairs}
+        print(f"  (b) {label} grid, window {w0} (V_pad={idx.shape[0]}, "
+              f"K={idx.shape[1]}): {rows * cols} launches, kernel "
+              f"{kernel_ms:.4f} ms in all against a {bound_ms:.4f} ms bound "
+              f"(share {bound_ms / kernel_ms:.3f}), plain {plain_ms:.4f} ms",
+              flush=True)
+
+    # (c) the randomized eig on the tile grid -------------------------------
+    # sharded_pcoa runs it at the JAX package's cap of 30 iterations; this
+    # cohort's spectrum is flat past λ2 (the ratios printed below), so the
+    # last leg runs the same iteration with a cap of 100, held to the bar.
+    mesh1 = stream_g.mesh
+    centered = double_center_tiles(stream_g)
+    lam = torch.linalg.eigvalsh(centered.full().double()).abs()
+    lam = lam.sort(descending=True).values.cpu().numpy()
+    print(f"  (c) the centered G's spectrum: |λ3/λ2| = {lam[2] / lam[1]:.4f}, "
+          f"|λ11/λ2| = {lam[10] / lam[1]:.4f} (the panel holds k + 8 = 10 "
+          f"vectors, so an iteration shrinks the error by about the "
+          f"latter)", flush=True)
+    eig_legs = (
+        ("sharded_pcoa, fixed", lambda timer: sharded_pcoa(
+            stream_g, 2, mesh1, dense_eigh_limit=n - 1, timer=timer)[0]),
+        ("sharded_pcoa, eig_tol=1e-6", lambda timer: sharded_pcoa(
+            stream_g, 2, mesh1, dense_eigh_limit=n - 1, timer=timer,
+            eig_tol=1e-6)[0]),
+        ("topk_eig_randomized, iters=100, tol=1e-6", lambda timer:
+            topk_eig_randomized(centered, 2, iters=100, tol=1e-6,
+                                timer=timer)[0].cpu().numpy()),
+    )
+    for label, run_eig in eig_legs:
+        timer = StageTimer()
+        sync()
+        t0 = time.perf_counter()
+        coords = run_eig(timer)
+        sync()
+        secs = time.perf_counter() - t0
+        notes = [x for xs in timer.notes.values() for x in xs
+                 if "randomized eig" in x]
+        used = notes[0].split(": ")[1] if notes else "30/30 iterations"
+        err = float(np.abs(coords - stream_coords).max())
+        oracle = float(np.abs(coords - want).max())
+        check(coords.shape == (n, 2) and np.isfinite(coords).all(),
+              f"(c) {label}: coordinates not finite")
+        if "iters=100" in label:
+            check(err <= COORD_TOL,
+                  f"(c) {label}: {err:.3e} from dense eigh")
+        times[f"randomized eig, {label}"] = secs
+        print(f"  (c) {label} (N = {n} above the dense limit): {used}, "
+              f"{secs:.3f} s; coordinates {err:.3e} from dense eigh, "
+              f"{oracle:.3e} from the f64 oracle", flush=True)
+
+    # (d) a meshed engine job and a meshed bridge call ----------------------
+    conf = PcaConfig(variant_set_ids=[vsid], device=device)
+    rows_by = {}
+    for label, mesh in (("data:1 mesh", mesh1), ("meshless", None)):
+        engine = AnalysisEngine(source, mesh=mesh, device=device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows_by[label] = engine.run(conf)
+        times[f"engine job, {label}"] = time.perf_counter() - t0
+    err = rows_err(rows_by["data:1 mesh"], rows_by["meshless"])
+    check(err <= COORD_TOL, f"(d) the meshed job's rows {err:.3e} off")
+    print(f"  (d) a cold AnalysisEngine job on a data:1 mesh "
+          f"({times['engine job, data:1 mesh']:.3f} s) against a meshless "
+          f"one ({times['engine job, meshless']:.3f} s): rows {err:.3e} "
+          f"apart", flush=True)
+    calls = []
+    for idx, lens in windows:
+        calls.extend(np.split(np.asarray(idx), np.cumsum(lens)[:-1]))
+    calls = [c.tolist() for c in calls]
+    coords_by = {}
+    for label, mesh in (("data:1 mesh", mesh1), ("meshless", None)):
+        t0 = time.perf_counter()
+        coords_by[label], _ = TorchPcaBackend(
+            mesh=mesh, device=device).compute(calls, n, 2)
+        times[f"bridge call, {label}"] = time.perf_counter() - t0
+    err = float(np.abs(coords_by["data:1 mesh"]
+                       - coords_by["meshless"]).max())
+    oracle = float(np.abs(coords_by["data:1 mesh"] - want).max())
+    check(err <= COORD_TOL and oracle <= COORD_TOL,
+          f"(d) the meshed bridge call: {err:.3e} from the meshless one, "
+          f"{oracle:.3e} from the oracle")
+    print(f"  (d) TorchPcaBackend(mesh=data:1).compute over phase 4's "
+          f"{len(calls)} carrier lists "
+          f"({times['bridge call, data:1 mesh']:.3f} s; meshless "
+          f"{times['bridge call, meshless']:.3f} s): {err:.3e} from the "
+          f"meshless call, {oracle:.3e} from the f64 oracle", flush=True)
+
+    # (e), continued: the one-rank process group's CLI run ends ------------
+    try:
+        out, err_text = group.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("(e) the CLI under a process group never ended")
+    times["group CLI run"] = time.perf_counter() - t_group
+    check(group.returncode == 0,
+          f"(e) the CLI exited {group.returncode}: {err_text[-2000:]}")
+    backend = "nccl" if on_card else "gloo"
+    check(f"GROUP {backend} 1" in out,
+          f"(e) the process group was not up: {out.splitlines()[-1:]}")
+    tsv = [ln for ln in out.splitlines() if ln.count("\t") == 3]
+    check([ln.split("\t")[:2] for ln in tsv]
+          == [ln.split("\t")[:2] for ln in stream_tsv],
+          "(e) the group run's rows name other samples")
+    got = np.array([[float(x) for x in ln.split("\t")[2:]] for ln in tsv])
+    ref = np.array([[float(x) for x in ln.split("\t")[2:]]
+                    for ln in stream_tsv])
+    err = float(np.abs(got - ref).max())
+    check(err <= COORD_TOL, f"(e) the group run's rows {err:.3e} off")
+    print(f"  (e) CLI pca --mesh-shape data:1 under a one-rank {backend} "
+          f"group (MASTER_ADDR=127.0.0.1, WORLD_SIZE=1): initialize_from_env "
+          f"joined it, {len(tsv)} rows, {err:.3e} from (a)'s data:1 stream "
+          f"rows (byte-identical: {tsv == stream_tsv}), "
+          f"{times['group CLI run']:.1f} s from its launch", flush=True)
+
+    print("  phase 20 wall-clock, s: " + json.dumps(times))
+    print("  phase 20 tile path: " + json.dumps(tile_path))
+    print(f"  phase 20 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg, tile_path
+
+
 def main() -> int:
     import torch
 
@@ -4219,6 +4535,17 @@ def main() -> int:
     print(f"  phase 19 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
+    print("== 20. the mesh layer's single-controller half and the process "
+          "group: --mesh-shape, the tile scatter, the randomized eig, a "
+          "meshed job and bridge call, pca under a one-rank NCCL group "
+          "(N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    mesh_legs, tile_path = mesh_and_process_group(
+        torch, cohort_dir, g_ref, want, windows)
+    by_leg.update(mesh_legs)
+    print(f"  phase 20 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",
         "route": "cuda",
@@ -4226,6 +4553,7 @@ def main() -> int:
         "replaces": "spark_examples_tpu/ops/scatter_kernel.py:205",
         "launches": sum(by_leg.values()),
         "launches_by_path": by_leg,
+        "tile_path": tile_path,
         "max_abs_err": max_abs_err,
         "equal_to_plain": True,
         **first,

@@ -43,6 +43,7 @@ __all__ = [
     "densify_calls",
     "packed_block_from_csr",
     "packed_blocks_from_csr",
+    "restrict_window_to_sample_range",
     "round_up_multiple",
     "windows_from_calls",
 ]
@@ -179,6 +180,35 @@ def _densify_window(
     x = np.zeros((n_samples, block_variants), dtype=np.int8)
     x[window_idx, cols] = 1
     return x
+
+
+def restrict_window_to_sample_range(
+    window_idx: np.ndarray,
+    lens: np.ndarray,
+    lo: int,
+    hi: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Drop a window's carriers outside sample range ``[lo, hi)``.
+
+    The per-host sample-range ingest contract: a mesh whose Gramian tiles
+    cover sample rows/columns ``[lo, hi)`` never needs carriers outside
+    them — every pair with an endpoint outside lands in a tile another
+    host owns. Indices stay global (the tile scatter re-bases them);
+    ``lens`` is recomputed per variant so the window stays a valid CSR
+    window. The full range is a no-op (the single-controller case).
+    """
+    window_idx = np.asarray(window_idx, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    if window_idx.size == 0 or (lo <= 0 and hi > window_idx.max()):
+        return window_idx, lens
+    keep = (window_idx >= lo) & (window_idx < hi)
+    if bool(keep.all()):
+        return window_idx, lens
+    row_of = np.repeat(np.arange(lens.size, dtype=np.int64), lens)
+    new_lens = np.bincount(
+        row_of[keep], minlength=lens.size
+    ).astype(np.int64)
+    return window_idx[keep], new_lens
 
 
 def densify_calls(

@@ -72,12 +72,19 @@ class TorchPcaBackend:
     accumulated as int8 products
     (:func:`~spark_examples_tpu_torch.ops.gramian.gramian_blockwise`) and
     finished by dense PCoA (:func:`~spark_examples_tpu_torch.ops.pcoa.
-    pcoa`). The device is resolved at the first call, so a server can hold
-    a backend before a request needs the card; without CUDA the default
-    ``"cuda"`` raises then.
+    pcoa`). With a ``mesh`` the blocks accumulate into a tile grid
+    (:func:`~spark_examples_tpu_torch.parallel.sharded.
+    sharded_gramian_blockwise`) finished by :func:`~spark_examples_tpu_
+    torch.parallel.sharded.sharded_pcoa`, on the mesh's devices. The
+    device is resolved at the first call, so a server can hold a backend
+    before a request needs the card; without CUDA the default ``"cuda"``
+    raises then.
     """
 
-    def __init__(self, block_variants: int = 8192, device=DEFAULT_DEVICE):
+    def __init__(
+        self, mesh=None, block_variants: int = 8192, device=DEFAULT_DEVICE
+    ):
+        self.mesh = mesh
         self.block_variants = block_variants
         self.device = device
 
@@ -94,8 +101,16 @@ class TorchPcaBackend:
         from spark_examples_tpu_torch.ops.gramian import gramian_blockwise
         from spark_examples_tpu_torch.ops.pcoa import pcoa
 
-        dev = resolve_device(self.device)
         blocks = blocks_from_calls(calls, n_samples, self.block_variants)
+        if self.mesh is not None:
+            from spark_examples_tpu_torch.parallel.sharded import (
+                sharded_gramian_blockwise,
+                sharded_pcoa,
+            )
+
+            g = sharded_gramian_blockwise(blocks, n_samples, self.mesh)
+            return sharded_pcoa(g, num_pc, self.mesh)
+        dev = resolve_device(self.device)
         g = gramian_blockwise(blocks, n_samples, device=dev)
         coords, eigvals = pcoa(g, num_pc)
         return coords.cpu().numpy(), eigvals.cpu().numpy()

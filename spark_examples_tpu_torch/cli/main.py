@@ -7,7 +7,9 @@ The JAX package's CLI on PyTorch, for the commands the port serves so far:
   cohort (``--input-path <dir>``: the same directory and CSR
   sidecar the JAX package's CLI reads) or the hermetic synthetic cohort
   (``--fixture-*`` flags). Computes on the card by default; ``--device
-  cpu`` runs on the CPU;
+  cpu`` runs on the CPU; ``--mesh-shape`` lays G out over this
+  process's devices, and the launcher's ``MASTER_ADDR``/``RANK``
+  variables (``torchrun``) make the run data-parallel across processes;
 - ``serve-cohort``: host a cohort as a Genomics-compatible HTTP service,
   and with ``--grpc-port`` as a gRPC service beside it (either package's
   client reads either); with ``--analyze``, the analysis job tier
@@ -58,7 +60,6 @@ from spark_examples_tpu_torch.utils.config import (
     add_analyze_flags,
     add_pca_flags,
     pca_config_from_args,
-    unported,
 )
 
 __all__ = ["build_parser", "main"]
@@ -187,9 +188,24 @@ def _resolve_source(args, references: str):
     return source
 
 
+def _mesh(args):
+    """The mesh ``--mesh-shape`` names, on ``--device`` (None without
+    one)."""
+    if not args.mesh_shape:
+        return None
+    from spark_examples_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(args.mesh_shape, device=args.device)
+
+
 def _cmd_pca(args) -> int:
     from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.parallel.distributed import (
+        initialize_from_env,
+    )
 
+    # Joins the process group when the launcher's variables are set.
+    initialize_from_env(args.device)
     conf = pca_config_from_args(args)
     if not args.variant_set_ids:
         conf.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
@@ -198,7 +214,7 @@ def _cmd_pca(args) -> int:
         # Cover exactly what an --all-references manifest queries.
         references_for_all() if conf.all_references else conf.references,
     )
-    VariantsPcaDriver(conf, source).run()
+    VariantsPcaDriver(conf, source, mesh=_mesh(args)).run()
     return 0
 
 
@@ -376,11 +392,11 @@ def _cmd_pca_bridge(args) -> int:
         TorchPcaBackend,
     )
 
-    if args.mesh_shape:
-        raise unported("--mesh-shape", "item 7, the mesh layer")
     server = PcaBridgeServer(
         TorchPcaBackend(
-            block_variants=args.block_variants, device=args.device
+            mesh=_mesh(args),
+            block_variants=args.block_variants,
+            device=args.device,
         ),
         port=args.port,
     ).start()
@@ -458,9 +474,7 @@ def _analysis_tier(args, source):
                 f"lease ttl ({args.replica_lease_ttl}), got "
                 f"{args.replica_heartbeat}"
             )
-    if args.mesh_shape:
-        # The engine is meshless until the mesh layer is ported.
-        raise unported("--mesh-shape", "item 7, the mesh layer")
+    mesh = _mesh(args)
     base = pca_config_from_args(args)
     if not args.variant_set_ids:
         base.variant_set_ids = [DEFAULT_VARIANT_SET_ID]
@@ -509,6 +523,7 @@ def _analysis_tier(args, source):
     tier = AnalysisJobTier(
         AnalysisEngine(
             source,
+            mesh=mesh,
             delta_max_samples=args.delta_max_samples,
             delta_persist_dir=delta_persist,
             delta_fence=delta_fence,
@@ -574,13 +589,13 @@ def _cmd_serve_cohort(args) -> int:
             # same block flag pca-bridge takes. The backend resolves its
             # device at the first ComputePca call, so serving stays
             # host-only until one arrives.
-            if args.mesh_shape:
-                raise unported("--mesh-shape", "item 7, the mesh layer")
             grpc_server = GrpcGenomicsServer(
                 source, port=args.grpc_port, token=args.token,
                 host=args.host,
                 pca_backend=TorchPcaBackend(
-                    block_variants=args.block_variants, device=args.device
+                    mesh=_mesh(args),
+                    block_variants=args.block_variants,
+                    device=args.device,
                 ),
             ).start()
             print(

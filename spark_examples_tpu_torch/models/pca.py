@@ -1,10 +1,11 @@
-"""The PCoA pipeline driver on PyTorch: meshless ``--pca-mode
-auto|fused|stream|sparse|sketch``.
+"""The PCoA pipeline driver on PyTorch: ``--pca-mode
+auto|fused|stream|sparse|sketch``, meshless or on a single-controller mesh,
+in one process or data-parallel across a process group.
 
 The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 ``VariantsPca.scala:36-246``) with the same stage surface — get_data /
 filter_dataset / get_calls / ingest_gramian / compute_pca / emit_result /
-report_io_stats — for a single-process, meshless run:
+report_io_stats:
 
 - ingest, routed as the JAX driver routes it: per-shard ``(indices,
   offsets)`` CSR pairs straight off an on-disk cohort's sidecar (the
@@ -51,6 +52,18 @@ report_io_stats — for a single-process, meshless run:
   ``auto`` and ``sparse`` for N ≤ ``--dense-eigh-limit``, with dense
   ``eigh`` when it collapses on a degenerate G), dense ``eigh``
   (``stream``, or above the limit), or host float64 with ``--precise``;
+- a mesh (``--mesh-shape``, :mod:`spark_examples_tpu_torch.parallel`): G
+  as a tile grid laid out ``P(data, model)`` over one process's devices,
+  dense blocks through :func:`~spark_examples_tpu_torch.parallel.sharded.
+  sharded_gramian_blockwise`, CSR windows through the tile scatter of
+  :func:`~spark_examples_tpu_torch.parallel.sharded.
+  sparse_sharded_gramian_blockwise` (``sparse``, and ``auto`` on a
+  sample-sharded mesh), finished by :func:`~spark_examples_tpu_torch.
+  parallel.sharded.sharded_pcoa`;
+- data-parallel (a ``torch.distributed`` group from the launcher's
+  variables): rank r ingests ``shards[r::P]`` of the manifest, the partial
+  G (or sketch panel) is summed over the group, and rank 0 alone emits
+  and reports the merged IoStats;
 - serving entry points for the analysis engine
   (:mod:`spark_examples_tpu_torch.serving`): ``ingest_gramian_windows``
   (the sparse engine's window route whatever the mode, capturing the
@@ -81,6 +94,7 @@ from spark_examples_tpu_torch.arrays.blocks import (
     blocks_from_calls,
     csr_windows,
     packed_blocks_from_csr,
+    round_up_multiple,
     windows_from_calls,
 )
 from spark_examples_tpu_torch.device import resolve_device
@@ -109,6 +123,19 @@ from spark_examples_tpu_torch.ops.sparse import (
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
     sparse_gramian_blockwise,
 )
+from spark_examples_tpu_torch.parallel import distributed
+from spark_examples_tpu_torch.parallel.mesh import (
+    make_mesh,
+    mesh_spans_processes,
+)
+from spark_examples_tpu_torch.parallel.sharded import (
+    ShardedGramian,
+    _axis_product,
+    _mesh_axes,
+    sharded_gramian_blockwise,
+    sharded_pcoa,
+    sparse_sharded_gramian_blockwise,
+)
 from spark_examples_tpu_torch.resilience import faults
 from spark_examples_tpu_torch.utils import softcancel
 from spark_examples_tpu_torch.utils.config import (
@@ -121,12 +148,14 @@ from spark_examples_tpu_torch.utils.concurrency import (
     completion_parallel_map,
     ordered_parallel_map,
 )
+from spark_examples_tpu_torch.utils.stats import COUNTER_FIELDS
 from spark_examples_tpu_torch.utils.tracing import (
     INGEST_FETCH,
     INGEST_STREAM,
     StageTimer,
     profiler_trace,
 )
+from spark_examples_tpu_torch.utils.watchdog import CollectiveWatchdog
 
 __all__ = ["VariantsPcaDriver"]
 
@@ -146,7 +175,7 @@ def _contig_runs_unique(shards) -> bool:
 
 
 class VariantsPcaDriver:
-    def __init__(self, conf: PcaConfig, source, index=None):
+    def __init__(self, conf: PcaConfig, source, mesh=None, index=None):
         if conf.num_pc < 1:
             raise ValueError(f"--num-pc must be >= 1, got {conf.num_pc}")
         if conf.ingest_order not in INGEST_ORDERS:
@@ -211,9 +240,13 @@ class VariantsPcaDriver:
                 "--sparse-density-threshold must be >= 0, got "
                 f"{conf.sparse_density_threshold}"
             )
-        if conf.pca_mode == "fused" and conf.precise:
-            # Fail before ingest, not after the Gramian: --precise is
-            # definitionally the host-f64 route.
+        meshed = mesh is not None or bool(conf.mesh_shape)
+        if conf.pca_mode == "fused" and (
+            conf.precise or meshed or distributed.process_count() > 1
+        ):
+            # Fail before ingest, not after the Gramian: the fused finish
+            # is a one-device program and --precise is definitionally the
+            # host-f64 route.
             raise ValueError(
                 "--pca-mode fused requires a single-process, meshless, "
                 "non---precise run (use --pca-mode auto to fall back "
@@ -230,13 +263,21 @@ class VariantsPcaDriver:
                 "--samples/--exclude-samples do not compose with "
                 "checkpointed ingest; drop --checkpoint-dir"
             )
-        if restricted and conf.mesh_shape:
+        if restricted and meshed:
             raise ValueError(
                 "--samples/--exclude-samples require a meshless run "
                 "(drop --mesh-shape)"
             )
-        if conf.mesh_shape:
-            raise unported("--mesh-shape", "item 7, the mesh layer")
+        if meshed and conf.pca_mode == "sketch":
+            raise unported(
+                "--pca-mode sketch under --mesh-shape (sharded_sketch_panel)",
+                "item 7, the pod protocol and the sketch's mesh half",
+            )
+        if conf.checkpoint_dir and distributed.process_count() > 1:
+            raise unported(
+                "--checkpoint-dir in a multi-process run",
+                "item 8, elastic and pod checkpoints",
+            )
         if conf.elastic_checkpoint:
             raise unported(
                 "--elastic-checkpoint", "item 8, elastic and pod checkpoints"
@@ -244,6 +285,11 @@ class VariantsPcaDriver:
         self.conf = conf
         self.source = source
         self.device = resolve_device(conf.device)
+        # The CLI builds the mesh (JAX cli/main.py:170-187); a config
+        # that names one and no mesh passed builds it here.
+        if mesh is None and conf.mesh_shape:
+            mesh = make_mesh(conf.mesh_shape, device=conf.device)
+        self.mesh = mesh
         self.index = (
             index
             if index is not None
@@ -267,15 +313,37 @@ class VariantsPcaDriver:
         self.timer = None
         self._speculated_shards = 0  # straggler duplicates launched
 
+    def _watchdog(self) -> CollectiveWatchdog:
+        """Collective fail-stop guard, armed only in a multi-process run
+        with ``--collective-timeout``: a lone process has no peer to lose
+        and must never be shot by a timer."""
+        timeout = self.conf.collective_timeout
+        return CollectiveWatchdog(
+            timeout if distributed.process_count() > 1 else None
+        )
+
     # -- stage 1: ingest -----------------------------------------------------
 
-    def _manifest(self):
-        """The shard manifest — the one place the partitioner parameters
-        live."""
+    @staticmethod
+    def _host_shards(shards):
+        """Round-robin manifest slice for this process (data-parallel
+        ingest across a process group)."""
+        count = distributed.process_count()
+        if count > 1:
+            return shards[distributed.process_index() :: count]
+        return shards
+
+    def _global_manifest(self):
+        """The full, unsliced shard manifest — the one place the
+        partitioner parameters live."""
         return self.conf.shards(
             all_references=self.conf.all_references,
             sex_filter=SexChromosomeFilter.EXCLUDE_XY,
         )
+
+    def _manifest(self):
+        """This process's shard manifest slice."""
+        return self._host_shards(self._global_manifest())
 
     def get_data(self) -> List[Iterator[Variant]]:
         """One lazy variant stream per configured variantset (the analog
@@ -667,13 +735,36 @@ class VariantsPcaDriver:
 
     # -- stage 4: the Gramian ------------------------------------------------
 
+    def _mesh_spans_processes(self) -> bool:
+        return self.mesh is not None and mesh_spans_processes(self.mesh)
+
+    def _sample_sharded(self) -> bool:
+        """Shard the N×N Gramian over the mesh instead of replicating it:
+        explicit via ``--sample-sharded``, auto when N exceeds
+        ``--sample-shard-threshold``."""
+        if self.conf.sample_sharded is not None:
+            return self.conf.sample_sharded
+        return self.cohort.size > self.conf.sample_shard_threshold
+
     def _blocks_to_gramian(self, blocks, g_init=None, prepacked=False):
         """Dense 0/1 blocks (or, with ``prepacked``, their bit-packed
-        bytes) → (N, N) G on the device, meshless: bit-packed (8× fewer
-        host→device bytes, bit-identical) through the double-buffered
-        feed at ``--prefetch-depth``. ``g_init`` (a snapshot's or an
+        bytes) → (N, N) G: bit-packed (8× fewer host→device bytes,
+        bit-identical) through the double-buffered feed at
+        ``--prefetch-depth`` — into one tensor on the device meshless, into
+        a :class:`~spark_examples_tpu_torch.parallel.sharded.
+        ShardedGramian` tile grid on a mesh. ``g_init`` (a snapshot's or an
         earlier group's G) is added on the device: exact, since every
         count stays below 2^24 in float32."""
+        if self.mesh is not None:
+            g = sharded_gramian_blockwise(
+                blocks,
+                self.cohort.size,
+                self.mesh,
+                packed=True,
+                prepacked=prepacked,
+                prefetch_depth=self.conf.prefetch_depth,
+            )
+            return g if g_init is None else g.add_(g_init)
         g = gramian_blockwise(
             blocks,
             self.cohort.size,
@@ -685,6 +776,16 @@ class VariantsPcaDriver:
         if g_init is not None:
             g = g + torch.as_tensor(g_init).to(g.device, g.dtype)
         return g
+
+    def _merge_partials(self, g):
+        """Data-parallel merge: each rank holds the partial G of its
+        manifest slice; sum them over the process group (identity on one
+        process). A host-local tile grid is gathered first."""
+        if distributed.process_count() == 1:
+            return g
+        if isinstance(g, ShardedGramian):
+            g = g.full()
+        return distributed.allreduce_gramian(g)
 
     @staticmethod
     def _cancellable_blocks(blocks):
@@ -698,10 +799,12 @@ class VariantsPcaDriver:
 
     def _gramian_from_block_stream(self, blocks, prepacked=False):
         """An uncheckpointed block stream → G, cancellable at every block
-        boundary."""
-        return self._blocks_to_gramian(
-            self._cancellable_blocks(blocks), prepacked=prepacked
-        )
+        boundary; in a process group, the partials merged."""
+        with self._watchdog().armed("ingest+gramian collectives"):
+            g = self._blocks_to_gramian(
+                self._cancellable_blocks(blocks), prepacked=prepacked
+            )
+            return self._merge_partials(g)
 
     def get_similarity_matrix(self, calls: Iterable[List[int]]):
         """Stream carrier lists as fixed-width blocks through the device
@@ -779,9 +882,11 @@ class VariantsPcaDriver:
             save_snapshot(checkpoint_dir, g, done, digest)
         if g is None:
             g = self._blocks_to_gramian(iter(()))
-        elif not isinstance(g, torch.Tensor):
+        elif not isinstance(g, (torch.Tensor, ShardedGramian)):
             # Every shard was done before this run: the snapshot's G.
             g = torch.from_numpy(np.array(g, copy=True)).to(self.device)
+            if self.mesh is not None:
+                g = ShardedGramian.from_full(g, self.mesh)
         return g
 
     def _ingest_shard_group(self, vsid: str, group, g):
@@ -846,12 +951,26 @@ class VariantsPcaDriver:
     def _sparse_selected(self) -> bool:
         """Route the Gramian through the sparse-aware engine?
 
-        ``--pca-mode sparse`` forces it. In the JAX package ``auto``
-        selects it only on a sample-sharded mesh, which the port does not
-        serve yet (``--mesh-shape`` raises), so a meshless ``auto`` — like
-        ``fused`` and ``stream`` — takes the dense-blockwise route.
+        ``--pca-mode sparse`` forces it; ``auto`` selects it for the
+        biobank shape — a sample-sharded mesh (G tiled) on an
+        uncheckpointed single-controller run. Everything else keeps the
+        dense-blockwise route; a host-local mesh on a multi-process
+        data-parallel run stays dense (each rank would tile the whole G).
         """
-        return self.conf.pca_mode == "sparse"
+        mode = self.conf.pca_mode
+        if mode == "sparse":
+            return True
+        if mode != "auto":
+            return False
+        return (
+            self.mesh is not None
+            and (
+                self._mesh_spans_processes()
+                or distributed.process_count() == 1
+            )
+            and not self.conf.checkpoint_dir
+            and self._sample_sharded()
+        )
 
     def _cohort_windows(self, restrict: bool = True):
         """Route the best available tier's output as CSR carrier windows
@@ -888,13 +1007,24 @@ class VariantsPcaDriver:
                 softcancel.check("sparse gramian window boundary")
                 yield window
 
-        return sparse_gramian_blockwise(
-            cancellable(),
-            self.cohort.size,
-            density_threshold=self.conf.sparse_density_threshold,
-            block_variants=self.conf.block_variants,
-            device=self.device,
-        )
+        with self._watchdog().armed("sparse ingest+gramian"):
+            if self.mesh is not None:
+                g = sparse_sharded_gramian_blockwise(
+                    cancellable(),
+                    self.cohort.size,
+                    self.mesh,
+                    density_threshold=self.conf.sparse_density_threshold,
+                    block_variants=self.conf.block_variants,
+                )
+            else:
+                g = sparse_gramian_blockwise(
+                    cancellable(),
+                    self.cohort.size,
+                    density_threshold=self.conf.sparse_density_threshold,
+                    block_variants=self.conf.block_variants,
+                    device=self.device,
+                )
+            return self._merge_partials(g)
 
     def _gramian_sparse(self):
         return self._windows_to_gramian(self._cohort_windows())
@@ -909,7 +1039,12 @@ class VariantsPcaDriver:
         FULL-frame windows can be captured into ``window_sink`` on the way
         (the delta index's per-base-key window cache) while the
         cohort-restricted view of each window accumulates. Rare windows
-        launch the scatter kernel."""
+        launch the scatter kernel. Meshless runs only."""
+        if self.mesh is not None:
+            raise ValueError(
+                "ingest_gramian_windows serves meshless runs; use "
+                "ingest_gramian"
+            )
 
         def stream():
             for window in self._cohort_windows(restrict=False):
@@ -967,9 +1102,19 @@ class VariantsPcaDriver:
     SKETCH_AUTO_G_BYTES = 4 << 30
 
     def _sparse_host_g_bytes(self) -> int:
-        """Bytes of the float32 (N, N) G a meshless exact run holds."""
+        """Bytes of float32 G this process holds: N² meshless; on a mesh,
+        the tile of every device (``(N/rows)·(N/cols)`` each, padded N),
+        replicas included."""
         n = self.cohort.size
-        return n * n * 4
+        if self.mesh is None:
+            return n * n * 4
+        d_axis, m_axis = _mesh_axes(self.mesh)
+        n_padded = round_up_multiple(
+            n, _axis_product(self.mesh, (d_axis, m_axis))
+        )
+        rows = n_padded // self.mesh.shape[d_axis]
+        cols = n_padded // (self.mesh.shape[m_axis] if m_axis else 1)
+        return self.mesh.size * rows * cols * 4
 
     def sketch_selected(self) -> bool:
         """Will :meth:`ingest_gramian` return a Gramian-free
@@ -998,24 +1143,32 @@ class VariantsPcaDriver:
         """Sketch-engine ingest: the cohort's CSR windows into an
         (N, k+p) randomized panel. The factory returns fresh windows on
         each call, because each power iteration re-streams the source;
-        each window boundary is a soft-cancel check."""
+        each window boundary is a soft-cancel check. A data-parallel run
+        sums the ranks' partial panels after each pass."""
+        if self.mesh is not None:
+            # auto flipped to the sketch past the 4 GiB G bound.
+            raise unported(
+                "the sketch engine under --mesh-shape (sharded_sketch_panel)",
+                "item 7, the pod protocol and the sketch's mesh half",
+            )
 
         def windows_factory():
             for window in self._cohort_windows():
                 softcancel.check("sketch panel window boundary")
                 yield window
 
-        return sketch_panel_blockwise(
-            windows_factory,
-            self.cohort.size,
-            self.conf.num_pc,
-            oversample=self.conf.sketch_oversample,
-            power_iters=self.conf.sketch_power_iters,
-            seed=self.conf.sketch_seed,
-            density_threshold=self.conf.sparse_density_threshold,
-            block_variants=self.conf.block_variants,
-            device=self.device,
-        )
+        with self._watchdog().armed("sketch ingest+panel"):
+            return sketch_panel_blockwise(
+                windows_factory,
+                self.cohort.size,
+                self.conf.num_pc,
+                oversample=self.conf.sketch_oversample,
+                power_iters=self.conf.sketch_power_iters,
+                seed=self.conf.sketch_seed,
+                density_threshold=self.conf.sparse_density_threshold,
+                block_variants=self.conf.block_variants,
+                device=self.device,
+            )
 
     def ingest_gramian(self):
         """Stages 1-4 as one call: route the configured ingest tier, in
@@ -1048,19 +1201,29 @@ class VariantsPcaDriver:
     def _pca_fused_eligible(self) -> bool:
         """Route the PCA stage through the fused finish?
 
-        ``stream`` never; ``--precise`` never (host float64 is its own
-        route); ``fused`` always (its config was checked in __init__,
+        ``stream`` never; ``--precise``, a mesh or a process group never
+        (the fused finish is a one-device program; host float64 is its
+        own route); ``fused`` always (its config was checked in __init__,
         before ingest); ``auto`` and ``sparse`` for N ≤
         ``--dense-eigh-limit``.
         """
         mode = self.conf.pca_mode
-        if mode == "stream" or self.conf.precise:
+        if (
+            mode == "stream"
+            or self.conf.precise
+            or self.mesh is not None
+            or distributed.process_count() > 1
+        ):
             return False
         if mode == "fused":
             return True
         return self.cohort.size <= self.conf.dense_eigh_limit
 
     def compute_pca(self, g, timer=None) -> List[Tuple[str, float, float]]:
+        with self._watchdog().armed("pca collectives"):
+            return self._compute_pca(g, timer)
+
+    def _compute_pca(self, g, timer=None) -> List[Tuple[str, float, float]]:
         if isinstance(g, SketchPanel):
             # Gramian-free finish: the row sums rode the panel's companion
             # column, so the parity print survives without G.
@@ -1099,15 +1262,26 @@ class VariantsPcaDriver:
             else:
                 self._print_nonzero_rows(row_sums)
                 return self._emit_tuples(coords)
-        self._print_nonzero_rows(g.sum(dim=1).cpu().numpy())
+        sharded = isinstance(g, ShardedGramian)
+        row_sums = g.row_sums() if sharded else g.sum(dim=1)
+        self._print_nonzero_rows(row_sums.cpu().numpy())
         if self.conf.precise:
-            gh = g.cpu().numpy()
+            gh = (g.full() if sharded else g).cpu().numpy()
             coords, _ = topk_with_gap_check(
                 lambda kk: mllib_principal_components_reference(gh, kk),
                 self.conf.num_pc,
                 self.cohort.size,
                 timer=timer,
                 vals_are_squared=True,  # covariance eigenvalues = λ(C)²/(n−1)
+            )
+        elif self.mesh is not None:
+            coords, _ = sharded_pcoa(
+                g,
+                self.conf.num_pc,
+                self.mesh,
+                dense_eigh_limit=self.conf.dense_eigh_limit,
+                timer=timer,
+                eig_tol=self.conf.eig_tol,
             )
         else:
 
@@ -1155,6 +1329,8 @@ class VariantsPcaDriver:
         )
 
     def emit_result(self, result: Sequence[Tuple[str, float, float]]) -> None:
+        if not distributed.is_coordinator():
+            return  # rank 0 alone emits (the driver role)
         with_names = self.collect_result(result)
         for name, pc1, pc2, dataset in with_names:
             print(f"{name}\t{dataset}\t{pc1}\t{pc2}")
@@ -1175,8 +1351,22 @@ class VariantsPcaDriver:
                 file=sys.stderr,
             )
         stats = getattr(self.source, "stats", None)
-        if stats is not None:
-            print(stats.report())
+        if stats is None:
+            return
+        if distributed.process_count() > 1:
+            stats = distributed.allreduce_host_stats(stats)
+            if not distributed.is_coordinator():
+                return
+        # The job-end merged totals, as registry gauges, so the run
+        # manifest carries them apart from the per-instance sums.
+        reg = obs.get_registry()
+        for name, value in zip(COUNTER_FIELDS, stats.as_vector()):
+            reg.gauge(
+                f"genomics_io_merged_{name}",
+                "Driver-merged job-end IoStats totals "
+                "(allreduce_host_stats across hosts)",
+            ).set(float(value))
+        print(stats.report())
 
     # -- orchestration -------------------------------------------------------
 
@@ -1188,8 +1378,8 @@ class VariantsPcaDriver:
 
     def run(self) -> List[Tuple[str, float, float]]:
         """main() stage order — VariantsPca.scala:38-50. Keeps the
-        finished Gramian (``self.g``: a tensor, or a host ``SketchPanel``
-        under the sketch engine) and the stage timer (``self.timer``) for
+        finished Gramian (``self.g``: a tensor, a ``ShardedGramian`` on a
+        mesh, or a host ``SketchPanel`` under the sketch engine) and the stage timer (``self.timer``) for
         callers that verify the run. With ``--trace-dir`` the stages run
         under a ``torch.profiler`` trace written there."""
         self.timer = timer = StageTimer()

@@ -319,7 +319,7 @@ def sketch_panel_blockwise(
                         )
                 SKETCH_WINDOWS[route] += 1
                 _note_sketch_window(route)
-        y_np = y.cpu().numpy().astype(np.float64)
+        y_np = _merge_partial_panels(y.cpu().numpy().astype(np.float64))
         if first:
             row_sums = y_np[:, -1].copy()
         y_host = _center_columns(y_np[:, :-1], n_samples)
@@ -342,6 +342,21 @@ def sketch_panel_blockwise(
         power_iters=power_iters,
         host_peak_bytes=sketch_host_bytes(n_samples, l),
     )
+
+
+def _merge_partial_panels(y_np: np.ndarray) -> np.ndarray:
+    """A data-parallel run's per-rank partial panels, summed over the
+    process group (each rank streamed its manifest slice). The JAX
+    package runs without 64-bit floats, so its merge is float32: the
+    port's is too. Identity on one process."""
+    from spark_examples_tpu_torch.parallel.distributed import (
+        allreduce_gramian,
+        process_count,
+    )
+
+    if process_count() == 1:
+        return y_np
+    return allreduce_gramian(y_np.astype(np.float32))
 
 
 def _nystrom_core(

@@ -65,13 +65,16 @@ class AnalysisEngine:
     from-scratch, with a checksum guard falling back to cold on any
     cache doubt. Default 0 runs every job cold.
 
-    The engine is meshless (the mesh layer is ROADMAP.md Queue 1, item
-    7): ``mesh`` is always None, kept as the attribute the tier probes.
+    ``mesh`` (a :class:`~spark_examples_tpu_torch.parallel.mesh.Mesh`)
+    runs every job's driver on that mesh, with G as a tile grid; the
+    delta tier is off under a mesh, and the tier runs no gangs there (it
+    probes ``mesh``).
     """
 
     def __init__(
         self,
         source: Any,
+        mesh: Any = None,
         delta_max_samples: int = 0,
         delta_persist_dir: Optional[str] = None,
         delta_fence: Optional[Callable[[], None]] = None,
@@ -80,7 +83,7 @@ class AnalysisEngine:
         from spark_examples_tpu_torch.device import resolve_device
 
         self.source = source
-        self.mesh = None
+        self.mesh = mesh
         # Resolved here, so an engine asked for the card raises at
         # construction on a host without one.
         self.device = resolve_device(device)
@@ -102,7 +105,7 @@ class AnalysisEngine:
                 persist_dir=delta_persist_dir,
                 fence=delta_fence,
             )
-            if delta_max_samples > 0
+            if delta_max_samples > 0 and mesh is None
             else None
         )
 
@@ -133,6 +136,7 @@ class AnalysisEngine:
         return VariantsPcaDriver(
             conf,
             self.source,
+            mesh=self.mesh,
             index=self.index_for(tuple(conf.variant_set_ids)),
         )
 

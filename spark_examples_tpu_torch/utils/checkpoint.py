@@ -107,9 +107,12 @@ def _apply_write_fault(site: str, path: str) -> None:
 
 def _host_array(g) -> np.ndarray:
     """A snapshot's G as a host array: a tensor is copied off its device
-    first (the JAX package's ``np.asarray`` of a device array)."""
+    first (the JAX package's ``np.asarray`` of a device array), a tile
+    grid gathered."""
     import torch
 
+    if hasattr(g, "tiles"):
+        g = g.full()
     if isinstance(g, torch.Tensor):
         return g.detach().cpu().numpy()
     return np.asarray(g)

@@ -4,9 +4,10 @@ The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
 serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default, and
 :func:`add_analyze_flags` is the analysis tier's surface. Options of routes
-not ported yet (meshes, elastic checkpoints) are accepted and then refused
-with ``NotImplementedError`` naming the ROADMAP.md item that ports them,
-never silently ignored. ``--device``
+not ported yet (the sketch under a mesh, checkpoints across processes,
+elastic checkpoints) are accepted and then refused with
+``NotImplementedError`` naming the ROADMAP.md item that ports them, never
+silently ignored. ``--device``
 is the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
 
@@ -86,7 +87,11 @@ class PcaConfig:
     variant_set_ids: List[str] = field(
         default_factory=lambda: [PLATINUM_GENOMES]
     )
+    # Device mesh of this process, e.g. "data:4,model:2"
+    # (parallel/mesh.py::make_mesh).
     mesh_shape: Optional[str] = None
+    # Accepted for CLI parity (the Spark shuffle knob); unused.
+    num_reduce_partitions: int = 10
     block_variants: int = DEFAULT_BLOCK_VARIANTS
     all_references: bool = False
     debug_datasets: bool = False
@@ -117,6 +122,14 @@ class PcaConfig:
     # World-size-independent checkpointing (the JAX package's
     # utils/elastic.py): refused until the mesh layer is ported.
     elastic_checkpoint: bool = False
+    # Shard the N×N Gramian over the mesh as a tile grid. None = auto
+    # (shard when N exceeds sample_shard_threshold); on a sample-sharded
+    # single-controller mesh `auto` routes through the sparse engine.
+    sample_sharded: Optional[bool] = None
+    sample_shard_threshold: int = 16384
+    # Fail-stop deadline (seconds) per collective phase of a
+    # multi-process run (utils/watchdog.py). None = disabled.
+    collective_timeout: Optional[float] = None
     trace_dir: Optional[str] = None  # torch.profiler trace output
     # N above which the finish uses dense eigh instead of the fused
     # subspace iteration.
@@ -252,7 +265,34 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         help="VariantSet id (repeat to join/merge datasets)",
     )
     p.add_argument(
-        "--mesh-shape", default=None, help="Device mesh (not ported yet)"
+        "--mesh-shape",
+        default=None,
+        help="Device mesh, e.g. 'data:4,model:2' (replaces --spark-master)",
+    )
+    p.add_argument(
+        "--num-reduce-partitions",
+        type=int,
+        default=10,
+        help="Accepted for CLI parity (Spark shuffle knob); unused",
+    )
+    p.add_argument(
+        "--sample-sharded",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="Shard the N×N Gramian over the mesh (default: auto above "
+        "--sample-shard-threshold; --no-sample-sharded forces the "
+        "replicated-G path); the 100k-sample stress regime",
+    )
+    p.add_argument(
+        "--sample-shard-threshold", type=int, default=16384
+    )
+    p.add_argument(
+        "--collective-timeout",
+        type=float,
+        default=None,
+        help="Fail-stop deadline (seconds) per collective phase of a "
+        "multi-process run: a lost peer stalls survivors in a collective "
+        "forever; with this set the process exits 77 instead",
     )
     p.add_argument(
         "--block-variants", type=int, default=DEFAULT_BLOCK_VARIANTS

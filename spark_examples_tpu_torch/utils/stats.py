@@ -88,8 +88,21 @@ class IoStats:
     def __post_init__(self) -> None:
         _instances.add(self)
 
+    @classmethod
+    def untracked(cls) -> "IoStats":
+        """An instance invisible to the registry collector, for merged
+        views (``allreduce_host_stats``) whose counts are copies of
+        tracked instances: tracking them would count a multi-process
+        run's ``genomics_io_*_total`` twice."""
+        inst = cls()
+        _instances.discard(inst)
+        inst._untracked = True
+        return inst
+
     def __del__(self) -> None:
         try:
+            if getattr(self, "_untracked", False):
+                return
             with _retired_lock:
                 for name in COUNTER_FIELDS:
                     _retired[name] += getattr(self, name)
@@ -100,6 +113,11 @@ class IoStats:
         with self._lock:
             for name, d in deltas.items():
                 setattr(self, name, getattr(self, name) + d)
+
+    def as_vector(self):
+        """The counters in :data:`COUNTER_FIELDS` order, for merging
+        across processes."""
+        return [getattr(self, f) for f in COUNTER_FIELDS]
 
     def report(self) -> str:
         """The formatted block of VariantsRDD.scala:168-180."""

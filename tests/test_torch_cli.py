@@ -325,7 +325,8 @@ _SERVED = {
             ("grpc-port", None, None),
             ("analyze", None, None),
             ("mesh",
-             ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2"],
+             ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2",
+              "--pca-mode", "sketch"],
              "item 7"),
             ("checkpoint",
              ["pca", "--fixture-samples", "4", "--checkpoint-dir", "c",
@@ -339,8 +340,10 @@ def test_unserved_options_name_their_roadmap_item(
     """Options of later items raise naming their item. The item-2 options
     (gRPC and the cohort mirror) and item 6's ``serve-cohort --analyze``
     are served now: each case runs them and holds them to the JAX CLI. Of
-    item 8 only ``--elastic-checkpoint`` is refused; ``--checkpoint-dir``
-    runs (``test_checkpointed_pca_prints_the_jax_clis_rows``)."""
+    item 7 the sketch under ``--mesh-shape`` is refused (the mesh itself
+    runs: ``tests/test_torch_parallel_pipeline.py``); of item 8 only
+    ``--elastic-checkpoint`` is refused; ``--checkpoint-dir`` runs
+    (``test_checkpointed_pca_prints_the_jax_clis_rows``)."""
     if item is None:
         _SERVED[case](tmp_path, capsys, monkeypatch, request)
         return

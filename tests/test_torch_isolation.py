@@ -7,7 +7,9 @@ either, so a lazy import inside a function cannot slip past. Every source
 of the port, its ``csrc/`` too, is searched for the JAX package's native
 library and its environment switches: the port builds and loads its own
 host core and reads no environment variable for it. No source names the
-JAX package's soft-deadline variable: the port reads its own.
+JAX package's soft-deadline variable: the port reads its own. No source
+names the JAX package's process-group variables: the port's process group
+reads the standard ``torch.distributed`` launcher variables.
 """
 
 import os
@@ -79,6 +81,10 @@ def test_every_module_imports_without_jax():
         "ops.reads_ops",
         "ops.scatter_kernel",
         "ops.sketch",
+        "parallel",
+        "parallel.distributed",
+        "parallel.mesh",
+        "parallel.sharded",
         "resilience",
         "resilience.breaker",
         "resilience.faults",
@@ -106,7 +112,9 @@ def test_every_module_imports_without_jax():
     for path in ("genomics/grpc_transport.py", "genomics/mirror.py",
                  "native/__init__.py", "bridge/__init__.py",
                  "bridge/backend.py", "utils/checkpoint.py",
-                 "utils/softcancel.py"):
+                 "utils/softcancel.py", "parallel/__init__.py",
+                 "parallel/distributed.py", "parallel/mesh.py",
+                 "parallel/sharded.py"):
         assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
     assert os.path.join(PKG_DIR, "csrc", "genomics_native.cpp") in (
         _port_sources(_CSRC_EXTS)
@@ -219,6 +227,54 @@ def test_the_soft_deadline_modules_import_with_jax_blocked():
     out = subprocess.run(
         [sys.executable, "-c", script],
         cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+# The JAX package's process-group variables (its parallel/distributed.py):
+# a coordinator exported for a JAX run must never pull a port run into a
+# group.
+_JAX_GROUP_VARIABLES = (
+    "JAX_COORDINATOR_ADDRESS",
+    "JAX_NUM_PROCESSES",
+    "JAX_PROCESS_ID",
+    "SPARK_EXAMPLES_TPU" + "_MULTIHOST",
+)
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_no_source_names_the_jax_packages_group_variables(path):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for name in _JAX_GROUP_VARIABLES:
+        assert name not in text, (path, name)
+
+
+def test_the_parallel_modules_import_with_jax_blocked():
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spark_examples_tpu_torch.parallel import (\n"
+        "    distributed, make_mesh, mesh, sharded)\n"
+        "m = make_mesh('data:2,model:2', device='cpu')\n"
+        "assert m.shape == {'data': 2, 'model': 2}\n"
+        "assert not distributed.initialize_from_env('cpu')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'spark_examples_tpu'\n"
+        "             or m.startswith('spark_examples_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "MASTER_ADDR"}
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
+        env=env,
         capture_output=True,
         text=True,
         timeout=120,

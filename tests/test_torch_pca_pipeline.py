@@ -154,17 +154,18 @@ def test_cpu_run_launches_no_kernel(tmp_path, capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"mesh_shape": "data:2"}, "item 7"),
+        ({"mesh_shape": "data:2", "pca_mode": "sketch"}, "item 7"),
         ({"pca_mode": "auto", "checkpoint_dir": "/nonexistent",
           "elastic_checkpoint": True}, "item 8"),
     ],
     ids=["mesh", "checkpoint"],
 )
 def test_unported_options_raise_before_ingest(kw, match):
-    """Options the port does not serve yet raise naming their item: the
-    mesh, and of the checkpoint options only ``--elastic-checkpoint``
-    (``--checkpoint-dir`` itself runs:
-    ``test_checkpointed_driver_matches_the_jax_driver``)."""
+    """Options the port does not serve yet raise naming their item: of
+    the mesh routes the sketch under a mesh (``--mesh-shape`` itself runs:
+    ``tests/test_torch_parallel_pipeline.py``), and of the checkpoint
+    options only ``--elastic-checkpoint`` (``--checkpoint-dir`` itself
+    runs: ``test_checkpointed_driver_matches_the_jax_driver``)."""
     settings = {**SETTINGS, **kw}
     with pytest.raises(NotImplementedError, match=match):
         VariantsPcaDriver(PcaConfig(device="cpu", **settings), None)

@@ -2138,11 +2138,37 @@ class TestServeCohortCli:
             _analysis_tier(self._args(*extra), src)
 
     def test_mesh_shape_still_raises(self, served_source):
+        """``--mesh-shape`` is served: the tier's engine runs each job on
+        the mesh (rows within 1e-4 of the meshless baseline, no delta
+        tier). What still raises is the sketch under a mesh (item 7's pod
+        slice): such a job fails naming it."""
         from spark_examples_tpu_torch.cli.main import _analysis_tier
 
-        src, _, _ = served_source
-        with pytest.raises(NotImplementedError, match="item 7"):
-            _analysis_tier(self._args("--mesh-shape", "data:1"), src)
+        src, _, baseline = served_source
+        tier = _analysis_tier(
+            self._args("--mesh-shape", "data:2,model:2"), src
+        )
+        try:
+            assert tier._engine.mesh.shape == {"data": 2, "model": 2}
+            assert tier._engine.delta_stats() is None
+            jobs = [tier.submit(JobSpec())[0],
+                    tier.submit(JobSpec(pca_mode="sketch"))[0]]
+            deadline = time.time() + 120
+            while any(j.state not in ("done", "failed") for j in jobs):
+                assert time.time() < deadline
+                time.sleep(0.02)
+        finally:
+            tier.close()
+        meshed, sketch = jobs
+        assert meshed.state == "done", meshed.error
+        assert [r[0] for r in meshed.result] == [r[0] for r in baseline]
+        np.testing.assert_allclose(
+            np.array([r[1:3] for r in meshed.result]),
+            np.array([r[1:3] for r in baseline]),
+            atol=1e-4,
+        )
+        assert sketch.state == "failed"
+        assert "item 7" in sketch.error
 
 
 class TestJobCheckpoints:
