@@ -242,6 +242,18 @@ on failure:
     CLI ``pca --mesh-shape data:1`` under a one-rank NCCL group
     (``MASTER_ADDR``/``WORLD_SIZE=1``), started first: the group is up and
     its rows are (a)'s.
+21. the pod regime's per-rank work on one card (NCCL takes one rank a
+    card, so the pod itself runs in ``spark_examples_tpu_torch/tools/
+    multi_card.py``), over phase 4's cohort: (a) phase 4's first scatter
+    window re-based onto a 2x2 grid with the mirror masks, the kernel
+    launched once a tile, each masked tile equal to its plain version, the
+    mirror fill giving the unmasked tiles, the four masked launches timed
+    against the four unmasked ones in turns; then every window of phase 4
+    through the mirrored tile path on one card (the kernel for scatter
+    windows, the pod dense tile step for dense ones) and the fill: G phase
+    4's bit for bit; (b) the pod dense tile step over phase 4's packed
+    blocks, cut into four rank slices and gathered, with the mirror on and
+    off: every tile phase 4's G block.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -4247,6 +4259,217 @@ def mesh_and_process_group(torch, root, g_ref, want, windows, device="cuda"):
     return by_leg, tile_path
 
 
+# -- phase 21: the pod regime's per-rank work on the card --------------------
+
+
+def pod_tile_paths(torch, g_ref, windows, device="cuda"):
+    """Phase 21: what each rank of a pod does on its card, in process on
+    one card (NCCL takes one rank a card, so no pod runs here): (a) the
+    scatter kernel's mirrored tile path — phase 4's first scatter window
+    re-based onto a 2x2 grid with the mirror masks, each masked tile equal
+    to its plain version, the four masked launches timed against the four
+    unmasked ones of phase 20b in turns, then every window of phase 4
+    through the mirrored tile path (scatter windows launch the kernel once
+    a tile, dense windows take the pod dense tile step) and the mirror
+    fill: G phase 4's bit for bit; (b) the pod dense tile step: phase 4's
+    windows packed, each packed block cut into four "rank" column slices
+    concatenated as the all-gather concatenates them, a 2x2 grid's tiles
+    through the slab products with the mirror on and off, G phase 4's.
+    Returns the scatter launches by leg and the timings. ``device``
+    ``cpu`` tries the phase without a card (the plain version runs and
+    nothing launches)."""
+    from spark_examples_tpu_torch.arrays.blocks import packed_block_from_csr
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops.gramian import pack_indicator_block
+    from spark_examples_tpu_torch.ops.sparse import (
+        _pad_rows_for_scan,
+        padded_carrier_matrix,
+        window_route,
+    )
+    from spark_examples_tpu_torch.parallel import ShardedGramian, make_mesh
+    from spark_examples_tpu_torch.parallel.sharded import (
+        _mirror_fill,
+        _mirror_operands,
+        _tile_dense_pod,
+        _tile_operands,
+        _tile_scatter,
+    )
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    t_phase = time.perf_counter()
+    n = g_ref.shape[0]
+    on_card = device == "cuda"
+    g_f32 = torch.from_numpy(g_ref.astype(np.float32)).to(device)
+    routes = [window_route(lens, n, PcaConfig.sparse_density_threshold)
+              for _, lens in windows]
+    n_scatter = routes.count("scatter")
+    mesh = make_mesh("data:2,model:2", devices=[torch.device(device)] * 4)
+    by_leg, out = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def grid_equals_g(g, label):
+        for (i, j), tile in g.local_tiles():
+            r0, c0 = g.tile_origin(i, j)
+            block = g_f32[r0:r0 + g.tile_rows, c0:c0 + g.tile_cols]
+            check(torch.equal(tile[: block.shape[0], : block.shape[1]],
+                              block),
+                  f"{label}: tile ({i}, {j}) is not phase 4's G block")
+
+    # (a) the mirrored tile path -------------------------------------------
+    w0 = routes.index("scatter")
+    idx0, lens0 = windows[w0]
+    n_padded = -(-n // 4) * 4
+    t = n_padded // 2
+    half = t // 2
+    idx = torch.from_numpy(padded_carrier_matrix(
+        idx0, lens0, sentinel=n_padded,
+        n_rows=_pad_rows_for_scan(lens0.size))).to(device)
+    full = torch.zeros((n_padded, n_padded), device=device)
+    sk.scatter_pairs_chunked(full, idx, idx)
+    plain_ops, masked_ops, tiles = [], [], np.empty((2, 2), dtype=object)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    for i in range(2):
+        for j in range(2):
+            li, lj = _tile_operands(idx, i * t, t, j * t, t)
+            mi, mj = _mirror_operands(li, lj, i, j, t, t)
+            tile_k = torch.zeros((t, t), device=device)
+            tile_p = torch.zeros_like(tile_k)
+            sk.scatter_pairs(tile_k, mi, mj)
+            sk.scatter_pairs_chunked(tile_p, mi, mj)
+            check(torch.equal(tile_k, tile_p),
+                  f"(a) masked tile ({i}, {j}): kernel != plain")
+            want = full[i * t:(i + 1) * t, j * t:(j + 1) * t].clone()
+            if i < j:
+                want[half:, :] = 0
+            elif i > j:
+                want[:, :half] = 0
+            check(torch.equal(tile_k, want),
+                  f"(a) masked tile ({i}, {j}): not the window's slab")
+            tiles[i, j] = tile_k
+            plain_ops.append((li, lj))
+            masked_ops.append((mi, mj))
+    sync()
+    by_leg["mirrored 2x2 window, kernel vs plain (phase 21a)"] = (
+        sk.SCATTER_KERNEL_LAUNCHES)
+    window_grid = ShardedGramian(tiles, n_padded, mesh)
+    _mirror_fill(window_grid)
+    for (i, j), tile in window_grid.local_tiles():
+        check(torch.equal(tile, full[i * t:(i + 1) * t, j * t:(j + 1) * t]),
+              f"(a) filled tile ({i}, {j}): not the unmasked tile")
+    pairs = {name: sum(valid_pairs(torch, a, b, t, t).numel()
+                       for a, b in ops)
+             for name, ops in (("unmasked", plain_ops),
+                               ("masked", masked_ops))}
+    moved = 4 * (2 * idx.numel() * 4 + 2 * t * t * 4)
+    bound = {name: max(moved / PEAK_BYTES_PER_S,
+                       p / PEAK_F32_PER_S) * 1e3
+             for name, p in pairs.items()}
+    if on_card:
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        scratch = [torch.zeros((t, t), device=device) for _ in range(4)]
+
+        def launches(ops):
+            def run():
+                for tile, (a, b) in zip(scratch, ops):
+                    sk.scatter_pairs(tile, a, b)
+            return run
+
+        def plain(ops):
+            def run():
+                for tile, (a, b) in zip(scratch, ops):
+                    sk.scatter_pairs_chunked(tile, a, b)
+            return run
+
+        turns = {"unmasked": [], "masked": []}
+        for name in ("unmasked", "masked", "masked", "unmasked"):
+            ops = plain_ops if name == "unmasked" else masked_ops
+            turns[name].append(time_cuda(launches(ops), 20, flush))
+        ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        plain_ms = time_cuda(plain(masked_ops), 3, flush)
+    else:
+        ms = {"unmasked": float("nan"), "masked": float("nan")}
+        plain_ms = float("nan")
+    out["window"] = {"ms": ms["masked"], "unmasked_ms": ms["unmasked"],
+                     "plain_ms": plain_ms, "bound_ms": bound["masked"],
+                     "unmasked_bound_ms": bound["unmasked"],
+                     "pairs": pairs}
+    print(f"  (a) window {w0} (V_pad={idx.shape[0]}, K={idx.shape[1]}) on a "
+          f"2x2 grid of {t}x{t} tiles: 4 mirror-masked launches, each tile "
+          f"equal to its plain version and to the window's slab, the fill "
+          f"gives the unmasked tiles; {pairs['masked']} pairs against "
+          f"{pairs['unmasked']} unmasked; masked {ms['masked']:.4f} ms, "
+          f"unmasked {ms['unmasked']:.4f} ms (in turns), plain "
+          f"{plain_ms:.4f} ms, bound {bound['masked']:.4f} ms",
+          flush=True)
+
+    # Every window of phase 4 through the mirrored tile path.
+    g = ShardedGramian.zeros(n, mesh)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    for (widx, lens), route in zip(windows, routes):
+        if route == "scatter":
+            _tile_scatter(g, padded_carrier_matrix(
+                widx, lens, sentinel=g.n_padded,
+                n_rows=_pad_rows_for_scan(lens.size)), mirror=True)
+        else:
+            xb = packed_block_from_csr(widx, lens, n, lens.size)
+            xb = np.pad(xb, ((0, g.n_padded - n), (0, 0)))
+            _tile_dense_pod(g, torch.from_numpy(xb).to(device), torch.int8,
+                            mirror=True)
+    _mirror_fill(g)
+    sync()
+    out["cohort_s"] = time.perf_counter() - t0
+    launches_a = sk.SCATTER_KERNEL_LAUNCHES
+    want_launches = 4 * n_scatter if on_card else 0
+    check(launches_a == want_launches,
+          f"(a) {launches_a} scatter launches, want {want_launches}")
+    by_leg["mirrored 2x2 tile path, every window (phase 21a)"] = launches_a
+    grid_equals_g(g, "(a) mirrored tile path")
+    print(f"  (a) phase 4's {len(windows)} windows through the mirrored tile "
+          f"path on one card ({n_scatter} scatter windows, {launches_a} "
+          f"launches; {len(windows) - n_scatter} dense windows through the "
+          f"pod dense tile step) and the mirror fill: G phase 4's bit for "
+          f"bit, {out['cohort_s']:.3f} s", flush=True)
+
+    # (b) the pod dense tile step ------------------------------------------
+    packed = [packed_block_from_csr(widx, lens, n, lens.size)
+              for widx, lens in windows]
+    panels = []
+    for xb in packed:
+        xb = np.pad(xb, ((0, n_padded - n), (0, 0)))
+        # Four ranks' column slices, concatenated in rank order as the
+        # all-gather concatenates them.
+        gathered = np.concatenate(np.array_split(xb, 4, axis=1), axis=1)
+        panels.append(torch.from_numpy(gathered).to(device))
+    dense_s = {}
+    for mirror in (True, False):
+        gd = ShardedGramian.zeros(n, mesh)
+        sync()
+        t0 = time.perf_counter()
+        for xp in panels:
+            _tile_dense_pod(gd, xp, torch.int8, mirror=mirror)
+        if mirror:
+            _mirror_fill(gd)
+        sync()
+        dense_s["mirror" if mirror else "full"] = time.perf_counter() - t0
+        grid_equals_g(gd, f"(b) dense tile step, mirror {mirror}")
+    out["dense_s"] = dense_s
+    print(f"  (b) the pod dense tile step over phase 4's {len(panels)} packed "
+          f"blocks, each cut into four rank slices and gathered: every tile "
+          f"of the 2x2 grid phase 4's G block, mirror on "
+          f"{dense_s['mirror']:.3f} s (fill included), off "
+          f"{dense_s['full']:.3f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  phase 21 numbers: " + json.dumps(out))
+    print(f"  phase 21 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg, out
+
+
 def main() -> int:
     import torch
 
@@ -4546,6 +4769,15 @@ def main() -> int:
     print(f"  phase 20 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
+    print("== 21. the pod regime's per-rank work on one card: the scatter "
+          "kernel's mirrored tile path, the mirror fill and the pod dense "
+          "tile step (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    pod_legs, pod_path = pod_tile_paths(torch, g_ref, windows)
+    by_leg.update(pod_legs)
+    print(f"  phase 21 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
     print(json.dumps({"kernels": [{
         "name": "scatter_pairs",
         "route": "cuda",
@@ -4554,6 +4786,7 @@ def main() -> int:
         "launches": sum(by_leg.values()),
         "launches_by_path": by_leg,
         "tile_path": tile_path,
+        "mirrored_tile_path": pod_path["window"],
         "max_abs_err": max_abs_err,
         "equal_to_plain": True,
         **first,

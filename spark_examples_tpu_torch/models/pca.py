@@ -132,7 +132,9 @@ from spark_examples_tpu_torch.parallel.sharded import (
     ShardedGramian,
     _axis_product,
     _mesh_axes,
+    gramian_blockwise_global,
     sharded_gramian_blockwise,
+    sharded_gramian_blockwise_global,
     sharded_pcoa,
     sparse_sharded_gramian_blockwise,
 )
@@ -239,6 +241,16 @@ class VariantsPcaDriver:
             raise ValueError(
                 "--sparse-density-threshold must be >= 0, got "
                 f"{conf.sparse_density_threshold}"
+            )
+        if conf.pod_pipeline_depth < 0:
+            raise ValueError(
+                "--pod-pipeline-depth must be >= 0 (0 = inline "
+                f"lockstep), got {conf.pod_pipeline_depth}"
+            )
+        if conf.pod_coalesce_variants < 0:
+            raise ValueError(
+                "--pod-coalesce-variants must be >= 0 (0 disables "
+                f"coalescing), got {conf.pod_coalesce_variants}"
             )
         meshed = mesh is not None or bool(conf.mesh_shape)
         if conf.pca_mode == "fused" and (
@@ -755,6 +767,22 @@ class VariantsPcaDriver:
         ShardedGramian` tile grid on a mesh. ``g_init`` (a snapshot's or an
         earlier group's G) is added on the device: exact, since every
         count stays below 2^24 in float32."""
+        if self._mesh_spans_processes():
+            # The pod: each rank feeds its manifest slice into the synced
+            # stream, and the result is already the global G (a replica
+            # on every rank, or this rank's share of the tile grid).
+            accumulate = (
+                sharded_gramian_blockwise_global
+                if self._sample_sharded()
+                else gramian_blockwise_global
+            )
+            return accumulate(
+                blocks,
+                self.cohort.size,
+                self.mesh,
+                packed=True,
+                prepacked=prepacked,
+            )
         if self.mesh is not None:
             g = sharded_gramian_blockwise(
                 blocks,
@@ -780,8 +808,9 @@ class VariantsPcaDriver:
     def _merge_partials(self, g):
         """Data-parallel merge: each rank holds the partial G of its
         manifest slice; sum them over the process group (identity on one
-        process). A host-local tile grid is gathered first."""
-        if distributed.process_count() == 1:
+        process, and on a pod, whose G is already global). A host-local
+        tile grid is gathered first."""
+        if distributed.process_count() == 1 or self._mesh_spans_processes():
             return g
         if isinstance(g, ShardedGramian):
             g = g.full()
@@ -1015,6 +1044,8 @@ class VariantsPcaDriver:
                     self.mesh,
                     density_threshold=self.conf.sparse_density_threshold,
                     block_variants=self.conf.block_variants,
+                    pipeline_depth=self.conf.pod_pipeline_depth,
+                    coalesce_variants=self.conf.pod_coalesce_variants,
                 )
             else:
                 g = sparse_gramian_blockwise(
@@ -1103,8 +1134,9 @@ class VariantsPcaDriver:
 
     def _sparse_host_g_bytes(self) -> int:
         """Bytes of float32 G this process holds: N² meshless; on a mesh,
-        the tile of every device (``(N/rows)·(N/cols)`` each, padded N),
-        replicas included."""
+        the tile of every device of this process (``(N/rows)·(N/cols)``
+        each, padded N), replicas included — on a pod only this rank's
+        share of the grid."""
         n = self.cohort.size
         if self.mesh is None:
             return n * n * 4
@@ -1114,7 +1146,7 @@ class VariantsPcaDriver:
         )
         rows = n_padded // self.mesh.shape[d_axis]
         cols = n_padded // (self.mesh.shape[m_axis] if m_axis else 1)
-        return self.mesh.size * rows * cols * 4
+        return len(self.mesh.local_devices()) * rows * cols * 4
 
     def sketch_selected(self) -> bool:
         """Will :meth:`ingest_gramian` return a Gramian-free

@@ -47,6 +47,7 @@ from spark_examples_tpu_torch.ops.scatter_kernel import (
 )
 
 __all__ = [
+    "DEFAULT_POD_COALESCE_VARIANTS",
     "DEFAULT_SPARSE_DENSITY_THRESHOLD",
     "SCATTER_CHUNK_VARIANTS",
     "dense_panel_width",
@@ -63,6 +64,14 @@ __all__ = [
 # straight from CSR; at or above it they densify onto the int8 product.
 # The JAX package's default, kept so both engines route every window alike.
 DEFAULT_SPARSE_DENSITY_THRESHOLD = 0.02
+
+# Pod gang coalescing target (the pipelined carrier exchange of
+# parallel/sharded.py::_synced_carrier_stream): consecutive scatter-route
+# windows merge into one protocol step until their variant-row total
+# reaches this, so tiny windows (tail windows, small shards) share one
+# header and one carrier exchange. Windows at the default block width
+# already exceed it. 0 or 1 disables. The JAX package's default.
+DEFAULT_POD_COALESCE_VARIANTS = 256
 
 _MIN_CARRIER_BUCKET = 8
 
@@ -191,6 +200,30 @@ def _note_window(route: str, nnz: int, count: int = 1) -> None:
         "sparse_gramian_nnz_total",
         "Genotype carriers (nonzeros) accumulated by the sparse engine",
     ).inc(nnz)
+
+
+def _note_pod_gang(n_windows: int) -> None:
+    """Pod coalescing telemetry: how many local CSR windows one protocol
+    step carried, labeled ``mode="gang"`` (more than one) or ``"solo"``;
+    inert (zero-window) steps are not noted. The JAX package's counter."""
+    if n_windows <= 0:
+        return
+    obs.get_registry().counter(
+        "sparse_pod_coalesced_windows_total",
+        "Local CSR windows entering pod-sparse protocol steps, by "
+        "gang/solo coalescing outcome",
+    ).labels(mode="gang" if n_windows > 1 else "solo").inc(n_windows)
+
+
+def _note_pod_sync(outcome: str) -> None:
+    """Per-step pod sync telemetry, outcome ∈ {synced, drained,
+    producer-error, route-divergence, dtype-divergence}. The JAX
+    package's counter."""
+    obs.get_registry().counter(
+        "sparse_pod_sync_total",
+        "Pod-sparse per-window sync steps (header + carrier allgather) "
+        "by outcome",
+    ).labels(outcome=outcome).inc()
 
 
 def sparse_gramian_blockwise(

@@ -1,12 +1,14 @@
-"""Mesh and process group: the distributed substrate, single-controller
-half.
+"""Mesh and process group: the distributed substrate.
 
 The reference's Spark runtime surface (shuffle, broadcast, accumulators,
-driver collects) becomes explicit copies and sums over one process's grid
-of devices (:mod:`~spark_examples_tpu_torch.parallel.mesh`,
+driver collects) becomes explicit copies and sums over a grid of devices
+(:mod:`~spark_examples_tpu_torch.parallel.mesh`,
 :mod:`~spark_examples_tpu_torch.parallel.sharded`) and, across processes,
 ``torch.distributed`` collectives
-(:mod:`~spark_examples_tpu_torch.parallel.distributed`).
+(:mod:`~spark_examples_tpu_torch.parallel.distributed`) and, for a pod's
+sparse stream, a host TCP exchange
+(:mod:`~spark_examples_tpu_torch.parallel.podstream`). A grid may span the
+processes of one group: the pod regime.
 
 Axis conventions, the JAX package's:
 
@@ -35,6 +37,7 @@ from spark_examples_tpu_torch.parallel.sharded import (
     ShardedGramian,
     SpectralGapWarning,
     addressable_sample_bounds,
+    gramian_blockwise_global,
     gramian_variant_parallel,
     gramian_variant_parallel_ring,
     sample_bounds_of_indices,
@@ -53,6 +56,7 @@ __all__ = [
     "addressable_sample_bounds",
     "allreduce_gramian",
     "allreduce_host_stats",
+    "gramian_blockwise_global",
     "gramian_variant_parallel",
     "gramian_variant_parallel_ring",
     "initialize_from_env",

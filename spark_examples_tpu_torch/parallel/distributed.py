@@ -27,8 +27,12 @@ from spark_examples_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from spark_examples_tpu_torch.utils.stats import COUNTER_FIELDS, IoStats
 
 __all__ = [
+    "allgather_concat",
+    "allgather_ints",
+    "allgather_objects",
     "allreduce_gramian",
     "allreduce_host_stats",
+    "allreduce_sum_",
     "initialize_from_env",
     "is_coordinator",
     "process_count",
@@ -109,15 +113,69 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _allgather_sum(part: torch.Tensor) -> torch.Tensor:
-    """Gather ``part`` from every rank and sum in rank order (the JAX
-    package's ``process_allgather`` then ``sum(axis=0)``)."""
+def allgather_ints(values) -> np.ndarray:
+    """Every rank's small int vector as a ``(world, k)`` int64 host array
+    in rank order — the JAX package's ``process_allgather`` of a step
+    header. Every rank calls it, from its main thread, in the same
+    order."""
+    vec = torch.as_tensor(np.asarray(values, dtype=np.int64).reshape(-1))
+    return torch.stack(_allgather(vec)).cpu().numpy()
+
+
+def allgather_concat(part: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``part`` (one shape on every rank) concatenated along
+    ``dim`` in rank order, on ``part``'s device."""
+    return torch.cat(_allgather(part), dim=dim).to(part.device)
+
+
+def allgather_objects(obj) -> list:
+    """Every rank's picklable ``obj`` in rank order (host metadata only,
+    such as the pod exchange's socket addresses)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def allreduce_sum_(t: torch.Tensor, chunk_bytes: int = 64 << 20):
+    """Sum ``t`` over the group in place, row chunks at a time (a
+    transient of ``chunk_bytes`` at most off the collective's device), and
+    return it. Every rank ends with the same values."""
+    import torch.distributed as dist
+
+    if not t.is_contiguous():
+        raise ValueError("allreduce_sum_ sums a contiguous tensor in place")
+    dev = _collective_device()
+    flat = t.reshape(t.shape[0], -1) if t.dim() else t.reshape(1)
+    row_bytes = max(1, flat[0].numel() * flat.element_size())
+    rows = max(1, chunk_bytes // row_bytes)
+    for r0 in range(0, flat.shape[0], rows):
+        chunk = flat[r0:r0 + rows]
+        if chunk.device == dev:
+            dist.all_reduce(chunk)
+        else:
+            buf = chunk.to(dev).contiguous()
+            dist.all_reduce(buf)
+            chunk.copy_(buf.to(chunk.device))
+    return t
+
+
+def _allgather(part: torch.Tensor) -> list:
+    """Every rank's ``part`` (one shape on every rank), in rank order, on
+    the collective's device."""
     import torch.distributed as dist
 
     part = part.to(_collective_device()).contiguous()
     parts = [torch.empty_like(part) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, part)
-    return torch.stack(parts).sum(dim=0)
+    return parts
+
+
+def _allgather_sum(part: torch.Tensor) -> torch.Tensor:
+    """Gather ``part`` from every rank and sum in rank order (the JAX
+    package's ``process_allgather`` then ``sum(axis=0)``)."""
+    return torch.stack(_allgather(part)).sum(dim=0)
 
 
 def allreduce_gramian(g_local, chunk_bytes: int = 64 << 20):

@@ -1,8 +1,8 @@
-"""Sharded Gramian + PCoA over a single-controller mesh.
+"""Sharded Gramian + PCoA over a mesh: the single-controller and the pod
+regimes.
 
-The port of the JAX package's ``parallel/sharded.py`` for a mesh of one
-process's own devices (:mod:`spark_examples_tpu_torch.parallel.mesh`).
-Two layouts, as there:
+The port of the JAX package's ``parallel/sharded.py``. Two layouts, as
+there:
 
 - **Variant-parallel.** Each device of the "data" axis holds a slice of
   the variant axis, computes its partial ``X_loc @ X_loc.T``, and the
@@ -20,11 +20,37 @@ Two layouts, as there:
   whose only O(N²) op is the tile-wise ``C @ Q``
   (:func:`topk_eig_randomized`, :func:`sharded_pcoa`).
 
+A mesh that spans processes (the pod regime,
+:func:`~spark_examples_tpu_torch.parallel.mesh.mesh_spans_processes`)
+gives each rank only the tiles at its own grid positions; ``.full()``,
+``.row_sums()`` and ``.matmul()`` of such a grid are collectives every
+rank calls. Each rank feeds its own slice of the manifest, and every
+accumulation step is agreed across the pod first, so a failure on one
+rank raises on every rank at the same step:
+
+- dense blocks through :func:`_synced_block_stream` (a header of ``[width,
+  dtype.num, rows]`` all-gathered through the process group) into a
+  replicated G (:func:`gramian_blockwise_global`: each rank adds its own
+  blocks, one all-reduce at the end) or a tile grid
+  (:func:`sharded_gramian_blockwise_global`: the ranks' packed blocks
+  all-gathered along the variant axis each step);
+- CSR windows through :func:`_synced_carrier_stream`, the pipelined host
+  exchange of :mod:`~spark_examples_tpu_torch.parallel.podstream`, into a
+  tile grid; on a square grid each off-diagonal pair of tiles computes
+  half of itself (the mirror slabs) and :func:`_mirror_fill` swaps and
+  transposes the halves at the end.
+
+Two transports: payloads on the card use the process group (NCCL on
+cards, gloo on the CPU); the sparse stream's host agreement uses the pod
+exchange's TCP mesh. Only the consumer (main) thread calls
+``torch.distributed``, in the same order on every rank.
+
 Where the JAX package has GSPMD or a ``psum``, this module has an explicit
-copy (``.to(device)``) or sum. Every Gramian here adds exact integer
-counts, so G is bit-identical to the meshless G at any mesh shape.
-Axes other than "data" and "model" would hold replicas of the tiles; the
-port keeps one copy, on the devices at index 0 of those axes.
+copy (``.to(device)``), sum or collective. Every Gramian here adds exact
+integer counts, so G is bit-identical to the meshless G at any mesh shape
+and world size. Axes other than "data" and "model" would hold replicas of
+the tiles; the port keeps one copy, on the devices at index 0 of those
+axes.
 """
 
 from __future__ import annotations
@@ -61,24 +87,36 @@ from spark_examples_tpu_torch.ops.pcoa import (
 )
 from spark_examples_tpu_torch.ops.scatter_kernel import scatter_pairs
 from spark_examples_tpu_torch.ops.sparse import (
+    DEFAULT_POD_COALESCE_VARIANTS,
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
+    _carrier_bucket,
+    _note_pod_gang,
+    _note_pod_sync,
     _note_window,
     _pad_rows_for_scan,
     dense_panel_width,
     padded_carrier_matrix,
     window_route,
 )
-from spark_examples_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from spark_examples_tpu_torch.parallel import distributed
+from spark_examples_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    mesh_spans_processes,
+)
 from spark_examples_tpu_torch.utils.tracing import GRAMIAN_ACCUMULATE
 
 __all__ = [
     "ShardedGramian",
     "SpectralGapWarning",
     "addressable_sample_bounds",
+    "gramian_blockwise_global",
     "gramian_variant_parallel",
     "gramian_variant_parallel_ring",
     "sample_bounds_of_indices",
     "sharded_gramian_blockwise",
+    "sharded_gramian_blockwise_global",
     "sharded_pcoa",
     "sparse_sharded_gramian_blockwise",
     "topk_eig_randomized",
@@ -102,15 +140,25 @@ def _axis_product(mesh: Mesh, spec) -> int:
     return total
 
 
-def _grid_device(mesh: Mesh, i: int, j: int) -> torch.device:
-    """The device at data index ``i``, model index ``j`` (index 0 on any
-    other axis)."""
+def _grid_index(mesh: Mesh, i: int, j: int):
+    """The mesh index of data index ``i``, model index ``j`` (index 0 on
+    any other axis)."""
     d_axis, m_axis = _mesh_axes(mesh)
     index = [0] * len(mesh.axis_names)
     index[mesh.axis_names.index(d_axis)] = i
     if m_axis is not None:
         index[mesh.axis_names.index(m_axis)] = j
-    return mesh.devices[tuple(index)]
+    return tuple(index)
+
+
+def _grid_device(mesh: Mesh, i: int, j: int) -> torch.device:
+    """The device at data index ``i``, model index ``j``."""
+    return mesh.devices[_grid_index(mesh, i, j)]
+
+
+def _grid_owner(mesh: Mesh, i: int, j: int) -> int:
+    """The rank that owns tile (i, j)."""
+    return int(mesh.processes[_grid_index(mesh, i, j)])
 
 
 def _grid_shape(mesh: Mesh):
@@ -131,14 +179,24 @@ class ShardedGramian:
     (the JAX package's rule), so every tile is ``(tile_rows, tile_cols)``;
     the padded rows and columns are zero and lie outside the logical
     (n, n) matrix. ``tiles[i, j]`` lives on the device at grid position
-    (i, j).
+    (i, j). On a mesh that spans processes a rank holds only its own
+    tiles (the others are ``None``, and ``is_fully_addressable`` is
+    False), and :meth:`full`, :meth:`row_sums` and :meth:`matmul` are
+    collectives that every rank calls, in the same order.
     """
 
     def __init__(self, tiles: np.ndarray, n: int, mesh: Mesh):
+        local = [t for t in tiles.flat if t is not None]
+        if not local:
+            raise ValueError(
+                f"process {distributed.process_index()} holds no device "
+                f"of {mesh}: every rank of a pod needs a tile"
+            )
         self.tiles = tiles
         self.n = n
         self.mesh = mesh
-        self.tile_rows, self.tile_cols = tiles[0, 0].shape
+        self.spans = mesh_spans_processes(mesh)
+        self.tile_rows, self.tile_cols = local[0].shape
         self.n_padded = self.tile_rows * tiles.shape[0]
 
     @classmethod
@@ -147,17 +205,18 @@ class ShardedGramian:
         n_padded = round_up_multiple(n, rows * cols)
         tiles = np.empty((rows, cols), dtype=object)
         for i, j in np.ndindex(rows, cols):
-            tiles[i, j] = torch.zeros(
-                (n_padded // rows, n_padded // cols),
-                dtype=dtype,
-                device=_grid_device(mesh, i, j),
-            )
+            if mesh.is_local(_grid_index(mesh, i, j)):
+                tiles[i, j] = torch.zeros(
+                    (n_padded // rows, n_padded // cols),
+                    dtype=dtype,
+                    device=_grid_device(mesh, i, j),
+                )
         return cls(tiles, n, mesh)
 
     @classmethod
     def from_full(cls, g, mesh: Mesh):
         """Lay an (n, n) tensor or array out over ``mesh``: one copy per
-        tile."""
+        tile (this rank's tiles on a spanning mesh)."""
         g = torch.as_tensor(g)
         out = cls.zeros(g.shape[0], mesh, g.dtype)
         out.add_(g)
@@ -168,13 +227,25 @@ class ShardedGramian:
         return (self.n, self.n)
 
     @property
+    def is_fully_addressable(self) -> bool:
+        """Does this process hold every tile?"""
+        return all(t is not None for t in self.tiles.flat)
+
+    def local_tiles(self):
+        """``((i, j), tile)`` for every tile this process holds, in grid
+        order."""
+        return [
+            (ij, t) for ij, t in np.ndenumerate(self.tiles) if t is not None
+        ]
+
+    @property
     def dtype(self):
-        return self.tiles[0, 0].dtype
+        return self.local_tiles()[0][1].dtype
 
     @property
     def device(self) -> torch.device:
-        """The first tile's device, where gathers and panels land."""
-        return self.tiles[0, 0].device
+        """The first local tile's device, where gathers and panels land."""
+        return self.local_tiles()[0][1].device
 
     def tile_origin(self, i: int, j: int):
         """Row and column offset of tile (i, j) in the padded matrix."""
@@ -182,13 +253,13 @@ class ShardedGramian:
 
     def add_(self, g) -> "ShardedGramian":
         """Add an (n, n) tensor or array, or a tile grid of the same
-        layout, into the tiles, in place."""
+        layout, into this process's tiles, in place."""
         if isinstance(g, ShardedGramian):
-            for tile, other in zip(self.tiles.flat, g.tiles.flat):
-                tile += other.to(tile.device)
+            for (ij, tile) in self.local_tiles():
+                tile += g.tiles[ij].to(tile.device)
             return self
         g = torch.as_tensor(g)
-        for (i, j), tile in np.ndenumerate(self.tiles):
+        for (i, j), tile in self.local_tiles():
             r0, c0 = self.tile_origin(i, j)
             part = g[r0:r0 + self.tile_rows, c0:c0 + self.tile_cols]
             tile[: part.shape[0], : part.shape[1]] += part.to(
@@ -197,35 +268,59 @@ class ShardedGramian:
         return self
 
     def full(self) -> torch.Tensor:
-        """Gather the tiles onto the first tile's device and trim to
-        (n, n)."""
-        rows = [
-            torch.cat([t.to(self.device) for t in row], dim=1)
-            for row in self.tiles
-        ]
-        return torch.cat(rows, dim=0)[: self.n, : self.n].contiguous()
+        """The whole (n, n) matrix on the first local tile's device. On a
+        spanning grid this is the JAX package's replicate before dense
+        eigh: every rank lays its tiles into a zero matrix and one
+        all-reduce over the group sums them (each entry comes from one
+        tile, so the sum is a copy)."""
+        if not self.spans:
+            rows = [
+                torch.cat([t.to(self.device) for t in row], dim=1)
+                for row in self.tiles
+            ]
+            return torch.cat(rows, dim=0)[: self.n, : self.n].contiguous()
+        out = torch.zeros(
+            (self.n_padded, self.n_padded), dtype=self.dtype,
+            device=self.device,
+        )
+        for (i, j), tile in self.local_tiles():
+            r0, c0 = self.tile_origin(i, j)
+            out[r0:r0 + self.tile_rows, c0:c0 + self.tile_cols] = tile.to(
+                out.device
+            )
+        distributed.allreduce_sum_(out)
+        return out[: self.n, : self.n].contiguous()
 
     def row_sums(self) -> torch.Tensor:
-        """Σ_j G[i, j] for the n rows, on the first tile's device."""
-        sums = [
-            sum(t.sum(dim=1).to(self.device) for t in row)
-            for row in self.tiles
-        ]
-        return torch.cat(sums)[: self.n]
+        """Σ_j G[i, j] for the n rows, on the first local tile's device
+        (one all-reduce of the partial sums on a spanning grid)."""
+        sums = torch.zeros(
+            self.n_padded, dtype=self.dtype, device=self.device
+        )
+        for (i, j), tile in self.local_tiles():
+            r0, _ = self.tile_origin(i, j)
+            sums[r0:r0 + self.tile_rows] += tile.sum(dim=1).to(sums.device)
+        if self.spans:
+            distributed.allreduce_sum_(sums)
+        return sums[: self.n]
 
     def matmul(self, q: torch.Tensor) -> torch.Tensor:
-        """``G @ q`` for an (n, p) panel on the first tile's device: each
-        tile multiplies its column slab of q on its own device."""
+        """``G @ q`` for an (n, p) panel on the first local tile's device:
+        each tile multiplies its column slab of q on its own device; on a
+        spanning grid one all-reduce of the panel sums the ranks'
+        parts."""
         dev = q.device
         qp = torch.zeros(
             (self.n_padded, q.shape[1]), dtype=q.dtype, device=dev
         )
         qp[: self.n] = q
         out = torch.zeros_like(qp)
-        for (i, j), tile in np.ndenumerate(self.tiles):
+        for (i, j), tile in self.local_tiles():
             r0, c0 = self.tile_origin(i, j)
             slab = qp[c0:c0 + self.tile_cols].to(tile.device)
             out[r0:r0 + self.tile_rows] += (tile @ slab).to(dev)
+        if self.spans:
+            distributed.allreduce_sum_(out)
         return out[: self.n]
 
 
@@ -287,10 +382,10 @@ def gramian_variant_parallel_ring(x, mesh: Mesh, compute_dtype=None):
 
 
 def _accumulate_tiles(g: ShardedGramian, x: torch.Tensor, compute_dtype):
-    """Add ``X[rows_i] · X[cols_j]ᵀ`` to every tile (i, j) of ``g``; ``x``
-    is one (n_padded, V) block, copied slab by slab to each tile's
+    """Add ``X[rows_i] · X[cols_j]ᵀ`` to every local tile (i, j) of ``g``;
+    ``x`` is one (n_padded, V) block, copied slab by slab to each tile's
     device."""
-    for (i, j), tile in np.ndenumerate(g.tiles):
+    for (i, j), tile in g.local_tiles():
         r0, c0 = g.tile_origin(i, j)
         rows = x[r0:r0 + g.tile_rows].to(tile.device)
         if (r0, g.tile_rows) == (c0, g.tile_cols):
@@ -300,6 +395,52 @@ def _accumulate_tiles(g: ShardedGramian, x: torch.Tensor, compute_dtype):
         tile += mxu_cross_product_pair(
             rows, cols, tile.dtype, compute_dtype
         )
+
+
+def _tile_dense_pod(
+    g: ShardedGramian, xp: torch.Tensor, compute_dtype, mirror: bool
+) -> None:
+    """The pod dense tile step on a bit-packed (n_padded, V/8) panel — the
+    ranks' packed blocks, concatenated along the variant axis (JAX
+    ``sharded.py:744-815``): each local tile slices its row and column
+    slabs of the PACKED panel (packing runs along the variant axis, so row
+    slices are exact), unpacks only those two and adds their product.
+
+    ``mirror`` (a square grid) splits each off-diagonal pair of tiles: the
+    upper tile (i < j) computes only its top ``half`` rows, the lower one
+    only its right ``tile_cols − half`` columns, and :func:`_mirror_fill`
+    rebuilds both at the end; diagonal tiles compute in full. The product
+    zero-pads the half slabs to the shapes ``torch._int_mm`` takes
+    (``ops/gramian.py``)."""
+    width = 8 * xp.shape[1]
+    half = g.tile_rows // 2
+    on_device = {}
+
+    def slab(dev, start, count):
+        if dev not in on_device:
+            on_device[dev] = xp.to(dev)
+        return unpack_indicator_block(
+            on_device[dev][start:start + count], width
+        )
+
+    def mm(tile, row_start, n_rows, col_start, n_cols):
+        rows = slab(tile.device, row_start, n_rows)
+        if (row_start, n_rows) == (col_start, n_cols):
+            cols = rows
+        else:
+            cols = slab(tile.device, col_start, n_cols)
+        return mxu_cross_product_pair(rows, cols, tile.dtype, compute_dtype)
+
+    for (i, j), tile in g.local_tiles():
+        r0, c0 = g.tile_origin(i, j)
+        if not mirror or i == j:
+            tile += mm(tile, r0, g.tile_rows, c0, g.tile_cols)
+        elif i < j:
+            tile[:half, :] += mm(tile, r0, half, c0, g.tile_cols)
+        else:
+            tile[:, half:] += mm(
+                tile, r0, g.tile_rows, c0 + half, g.tile_cols - half
+            )
 
 
 def sharded_gramian_blockwise(
@@ -325,8 +466,15 @@ def sharded_gramian_blockwise(
     Unpacked blocks resolve the product's dtype from the first block's: a
     float dosage block computes in float, never truncated to int8, and a
     later block of another dtype raises. Returns a
-    :class:`ShardedGramian`.
+    :class:`ShardedGramian`. On a mesh that spans processes the feed
+    follows the mesh, as in the JAX package: each rank's blocks go
+    through :func:`sharded_gramian_blockwise_global`.
     """
+    if mesh_spans_processes(mesh):
+        return sharded_gramian_blockwise_global(
+            blocks, n_samples, mesh, compute_dtype=compute_dtype,
+            accum_dtype=accum_dtype, packed=packed, prepacked=prepacked,
+        )
     g = ShardedGramian.zeros(n_samples, mesh, accum_dtype)
     n_padded = g.n_padded
     if packed or prepacked:
@@ -340,9 +488,7 @@ def sharded_gramian_blockwise(
         if first is not None:
             blocks = itertools.chain((first,), blocks)
     if compute_dtype is None:
-        compute_dtype = (
-            torch.int8 if x_dtype == np.int8 else torch.float32
-        )
+        compute_dtype = _compute_dtype_of(x_dtype)
 
     def padded_blocks():
         for block in blocks:
@@ -370,6 +516,293 @@ def sharded_gramian_blockwise(
     return g
 
 
+def _compute_dtype_of(x_dtype) -> torch.dtype:
+    """The exact product for a block dtype: int8 blocks take the int8
+    product, anything else float32."""
+    return torch.int8 if np.dtype(x_dtype) == np.int8 else torch.float32
+
+
+# dtype.num ↔ dtype for the cross-process dtype agreement (the gather
+# moves int64 codes, not dtype objects): every block dtype a producer can
+# emit (indicators, dosages, counts). The JAX package's table.
+_DTYPE_BY_NUM = {
+    np.dtype(t).num: np.dtype(t)
+    for t in (
+        np.bool_,
+        np.int8,
+        np.uint8,
+        np.int16,
+        np.int32,
+        np.int64,
+        np.float16,
+        np.float32,
+        np.float64,
+    )
+}
+
+
+def _dtype_name(num: int):
+    dt = _DTYPE_BY_NUM.get(num)
+    return str(dt) if dt is not None else f"dtype.num={num}"
+
+
+def _agreed_first_dtype(blocks):
+    """Peek the first block and agree its dtype across the pod (JAX
+    ``sharded.py:207-264``): a rank whose stream is empty would otherwise
+    default to int8 while its peers compute in float. The raw code goes
+    into the gather unvalidated (−1 an empty stream, −2 a failed peek) and
+    is checked on identical gathered data, so every rank raises together.
+    Returns the agreed dtype and the stream with its first block pushed
+    back."""
+    blocks = iter(blocks)
+    peek_exc = None
+    try:
+        first = next(blocks, None)
+    except Exception as e:  # noqa: BLE001 — re-raised below, synced
+        peek_exc, first = e, None
+    x_dtype = np.dtype(np.int8) if first is None else np.asarray(first).dtype
+    if peek_exc is not None:
+        local_num = -2
+    else:
+        local_num = -1 if first is None else x_dtype.num
+    nums = distributed.allgather_ints([local_num]).ravel()
+    failed = [i for i, v in enumerate(nums) if int(v) == -2]
+    if failed:
+        raise RuntimeError(
+            "block stream failed on process(es) "
+            f"{failed} while peeking the first block; raising "
+            "on every process together (a one-sided raise "
+            "would strand peers in the collective)"
+        ) from peek_exc
+    present = sorted({int(v) for v in nums if v >= 0})
+    unsupported = [n for n in present if n not in _DTYPE_BY_NUM]
+    if unsupported:
+        raise ValueError(
+            "unsupported block dtype(s) in the pod-mode stream: "
+            f"{[_dtype_name(n) for n in unsupported]}; supported: "
+            f"{sorted(str(d) for d in _DTYPE_BY_NUM.values())}"
+        )
+    if len(present) > 1:
+        raise ValueError(
+            "block dtypes differ across processes: "
+            f"{[_dtype_name(n) for n in present]}; "
+            "every host must stream the same block dtype"
+        )
+    if present:
+        x_dtype = _DTYPE_BY_NUM[present[0]]
+    if first is not None:
+        blocks = itertools.chain((first,), blocks)
+    return x_dtype, blocks
+
+
+def _synced_block_stream(local_blocks, n_samples: int, fill_dtype=np.int8):
+    """Per-step width/liveness-synced blocks from per-rank streams (JAX
+    ``sharded.py:455-557``).
+
+    Every rank learns every peer's block width (−1 = exhausted) BEFORE any
+    accumulation: a width mismatch raises on all ranks together, and an
+    exhausted rank zero-fills at the peers' width until every stream
+    drains (zero columns are inert in the Gramian). The same header
+    carries each block's dtype.num and row count, checked per step, and a
+    producer exception (width code −2) — the upstream generator runs
+    host-side validation whose raise would otherwise fire on ONE rank —
+    so every rank raises together, the failing one chaining its original
+    exception. The header ``[w, dtype.num, rows]`` is all-gathered
+    through the process group, on the calling (consumer) thread.
+    ``n_samples`` is the padded N. Yields host blocks.
+    """
+    fill_dtype = np.dtype(fill_dtype)
+    expected_num = fill_dtype.num
+    it = iter(local_blocks)
+    while True:
+        exc = None
+        try:
+            block = next(it, None)
+        except Exception as e:  # noqa: BLE001 — synced below, see docstring
+            exc, block = e, None
+        if exc is not None:
+            w, num, rows = -2, -1, -1
+        elif block is None:
+            w, num, rows = -1, -1, -1
+        else:
+            block = np.asarray(block)
+            w, num, rows = (
+                int(block.shape[1]), block.dtype.num, int(block.shape[0])
+            )
+        peer_info = distributed.allgather_ints([w, num, rows]).reshape(-1, 3)
+        failed = [
+            i for i, (x, _, _) in enumerate(peer_info) if int(x) == -2
+        ]
+        if failed:
+            # exc is None on healthy peers — `from None` is a no-op there.
+            raise RuntimeError(
+                "block stream failed on process(es) "
+                f"{failed}; raising on every process together (a "
+                "one-sided raise would strand peers in the next "
+                "collective)"
+            ) from exc
+        bad_rows = sorted(
+            {int(r) for x, _, r in peer_info if x >= 0 and r != n_samples}
+        )
+        if bad_rows:
+            raise ValueError(
+                f"block row counts {bad_rows} differ from the padded "
+                f"sample count {n_samples}; every host must stream "
+                "blocks over the full (padded) sample axis"
+            )
+        live = sorted({int(x) for x, _, _ in peer_info if x >= 0})
+        if not live:
+            return
+        bad_nums = sorted(
+            {int(n) for x, n, _ in peer_info if x >= 0 and n != expected_num}
+        )
+        if bad_nums:
+            raise ValueError(
+                "block dtype diverged mid-stream: got "
+                f"{[_dtype_name(n) for n in bad_nums]} where the stream "
+                f"was resolved as {_dtype_name(expected_num)}; every host "
+                "must stream one dtype for the whole accumulation"
+            )
+        if len(live) > 1:
+            raise ValueError(
+                "block widths differ across processes in the same step: "
+                f"{live}; every host must stream fixed-width blocks "
+                "(blocks_from_calls pads) with the same --block-variants"
+            )
+        if block is None:
+            block = np.zeros((n_samples, live[0]), fill_dtype)
+        yield block
+
+
+def _pod_blocks(blocks, n_samples: int, n_padded: int, packed: bool,
+                prepacked: bool):
+    """The pod accumulators' shared front: the agreed first-block dtype,
+    the rows padded to ``n_padded``, packing, and the synced stream.
+    Returns ``(x_dtype, stream)``."""
+    if packed or prepacked:
+        x_dtype = np.dtype(np.int8)
+    else:
+        x_dtype, blocks = _agreed_first_dtype(blocks)
+
+    def padded_blocks():
+        # A mid-stream dtype change is caught by the synced per-step
+        # check, on every rank together.
+        for block in blocks:
+            xb = np.asarray(block)
+            if n_padded != n_samples:
+                xb = np.pad(xb, ((0, n_padded - n_samples), (0, 0)))
+            if packed and not prepacked:
+                xb = pack_indicator_block(xb)
+            yield xb
+
+    # A drained rank's zero fill has the agreed dtype, so its peers build
+    # every step from one dtype.
+    fill = np.dtype(np.uint8) if packed or prepacked else x_dtype
+    return x_dtype, _synced_block_stream(padded_blocks(), n_padded, fill)
+
+
+def gramian_blockwise_global(
+    local_blocks,
+    n_samples: int,
+    mesh: Mesh,
+    compute_dtype=None,
+    accum_dtype=torch.float32,
+    packed: bool = False,
+    prepacked: bool = False,
+    prefetch_depth: int = 2,
+) -> torch.Tensor:
+    """Pod blockwise Gramian with G replicated on every rank (JAX
+    ``sharded.py:415-452``).
+
+    Each rank feeds its own variant columns (its slice of the shard
+    manifest) through :func:`_synced_block_stream` and adds each synced
+    block's product into its own replica of G through the ``_int_mm``
+    route; one chunked all-reduce over the process group sums the
+    replicas at the end. The counts are exact integers, so G is the JAX
+    package's per-step reduction bit for bit. Ranks may feed different
+    numbers of blocks: an exhausted rank adds zero columns. Returns the
+    (n, n) tensor on this rank's device, the same on every rank. On a
+    mesh of one process it is the meshless accumulator on the mesh's
+    first device.
+    """
+    local = mesh.local_devices()
+    if not local:
+        raise ValueError(
+            f"process {distributed.process_index()} holds no device of "
+            f"{mesh}: every rank of a pod needs one"
+        )
+    dev = local[0]
+    if not mesh_spans_processes(mesh):
+        from spark_examples_tpu_torch.ops.gramian import gramian_blockwise
+
+        return gramian_blockwise(
+            local_blocks, n_samples, compute_dtype=compute_dtype,
+            accum_dtype=accum_dtype, packed=packed, prepacked=prepacked,
+            prefetch_depth=prefetch_depth, device=dev,
+        )
+    x_dtype, stream = _pod_blocks(
+        local_blocks, n_samples, n_samples, packed, prepacked
+    )
+    if compute_dtype is None:
+        compute_dtype = _compute_dtype_of(x_dtype)
+    g = torch.zeros((n_samples, n_samples), dtype=accum_dtype, device=dev)
+    for b, xb in enumerate(stream):
+        with obs.span(GRAMIAN_ACCUMULATE, block=b, pod=True):
+            x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
+            if packed or prepacked:
+                x = unpack_indicator_block(x, 8 * x.shape[1])
+            g += mxu_cross_product(x, g.dtype, compute_dtype)
+    with obs.span("allreduce_gramian", n=int(n_samples), pod=True):
+        distributed.allreduce_sum_(g)
+    return g
+
+
+def sharded_gramian_blockwise_global(
+    local_blocks,
+    n_samples: int,
+    mesh: Mesh,
+    compute_dtype=None,
+    accum_dtype=torch.float32,
+    packed: bool = False,
+    prepacked: bool = False,
+    prefetch_depth: int = 2,
+) -> ShardedGramian:
+    """Pod blockwise Gramian with G *sample-sharded* over the mesh (JAX
+    ``sharded.py:560-596``).
+
+    G lives as a tile grid ``P(data, model)`` across the whole pod while
+    each rank feeds its own variant columns. Each synced step all-gathers
+    the ranks' blocks (bit-packed with ``packed``/``prepacked``) along the
+    variant axis through the process group; each local tile then takes
+    its row and column slabs of the gathered block and adds ``rows ·
+    colsᵀ`` (:func:`_tile_dense_pod` without the mirror). The per-step
+    sync and zero fill are :func:`gramian_blockwise_global`'s. Returns
+    this rank's share of the grid. On a mesh of one process it is
+    :func:`sharded_gramian_blockwise`.
+    """
+    if not mesh_spans_processes(mesh):
+        return sharded_gramian_blockwise(
+            local_blocks, n_samples, mesh, accum_dtype=accum_dtype,
+            compute_dtype=compute_dtype, packed=packed, prepacked=prepacked,
+            prefetch_depth=prefetch_depth,
+        )
+    g = ShardedGramian.zeros(n_samples, mesh, accum_dtype)
+    x_dtype, stream = _pod_blocks(
+        local_blocks, n_samples, g.n_padded, packed, prepacked
+    )
+    if compute_dtype is None:
+        compute_dtype = _compute_dtype_of(x_dtype)
+    for b, xb in enumerate(stream):
+        with obs.span(GRAMIAN_ACCUMULATE, block=b, sharded=True, pod=True):
+            x = torch.from_numpy(np.ascontiguousarray(xb)).to(g.device)
+            x = distributed.allgather_concat(x, dim=1)
+            if packed or prepacked:
+                _tile_dense_pod(g, x, compute_dtype, mirror=False)
+            else:
+                _accumulate_tiles(g, x, compute_dtype)
+    return g
+
+
 def sample_bounds_of_indices(index_slices, n: int):
     """``(lo, hi)`` union of the sample ranges a tile set touches.
 
@@ -391,14 +824,15 @@ def sample_bounds_of_indices(index_slices, n: int):
 
 def addressable_sample_bounds(mesh: Mesh, n: int):
     """This process's sample-range bounds for an (n, n) Gramian laid out
-    over ``mesh``: every tile of a single-controller mesh is this
-    process's, so this is the full range."""
+    over ``mesh``: the union over the tiles this process holds (every
+    tile of a single-controller mesh, so the full range there)."""
     rows, cols = _grid_shape(mesh)
     t_r, t_c = n // rows, n // cols
     return sample_bounds_of_indices(
         (
             (slice(i * t_r, (i + 1) * t_r), slice(j * t_c, (j + 1) * t_c))
             for i, j in np.ndindex(rows, cols)
+            if mesh.is_local(_grid_index(mesh, i, j))
         ),
         n,
     )
@@ -420,19 +854,437 @@ def _tile_operands(idx: torch.Tensor, r0: int, tile_rows: int, c0: int,
     return li, lj
 
 
-def _tile_scatter(g: ShardedGramian, idx: np.ndarray) -> None:
-    """One scatter window into every tile: one :func:`~spark_examples_tpu_
-    torch.ops.scatter_kernel.scatter_pairs` call per tile (the kernel on
-    a CUDA tile, its plain version on a CPU one), on rebased operands."""
+def _mirror_operands(li: torch.Tensor, lj: torch.Tensor, i: int, j: int,
+                     tile_rows: int, tile_cols: int):
+    """The mirror's slab masks on tile (i, j)'s operands (JAX
+    ``sharded.py:711-725``): above the diagonal the tile keeps its top
+    ``half`` rows, below it its right ``tile_cols − half`` columns; every
+    other index becomes the sentinel. The diagonal keeps everything."""
+    half = tile_rows // 2
+    if i < j:
+        li = torch.where(li >= half, tile_rows, li).to(torch.int32)
+    elif i > j:
+        lj = torch.where(lj < half, tile_cols, lj).to(torch.int32)
+    return li.contiguous(), lj.contiguous()
+
+
+def _tile_scatter(g: ShardedGramian, idx, mirror: bool = False) -> None:
+    """One scatter window into every local tile: one :func:`~spark_
+    examples_tpu_torch.ops.scatter_kernel.scatter_pairs` call per tile
+    (the kernel on a CUDA tile, its plain version on a CPU one), on
+    rebased operands; ``mirror`` masks them to the mirror slabs."""
+    idx = torch.as_tensor(idx)
     on_device = {}
-    for (i, j), tile in np.ndenumerate(g.tiles):
+    for (i, j), tile in g.local_tiles():
         if tile.device not in on_device:
-            on_device[tile.device] = torch.from_numpy(idx).to(tile.device)
+            on_device[tile.device] = idx.to(tile.device)
         r0, c0 = g.tile_origin(i, j)
         li, lj = _tile_operands(
             on_device[tile.device], r0, g.tile_rows, c0, g.tile_cols
         )
+        if mirror:
+            li, lj = _mirror_operands(
+                li, lj, i, j, g.tile_rows, g.tile_cols
+            )
         scatter_pairs(tile, li, lj)
+
+
+def _mirror_fill(g: ShardedGramian) -> None:
+    """Rebuild the mirror's skipped halves (JAX ``sharded.py:817-862``):
+    for each off-diagonal pair, the upper tile (i, j) takes rows
+    ``[half, t)`` from its partner's column slab, transposed, and the
+    lower tile (j, i) takes columns ``[0, half)`` from its partner's row
+    slab, transposed — exact copies of exact counts. A pair on one rank is
+    copied in place; a pair across ranks swaps its slabs with one batch of
+    point-to-point sends and receives through the process group, every
+    rank posting its pairs in the same (upper-tile, row-major) order."""
+    import torch.distributed as dist
+
+    half = g.tile_rows // 2
+    rows, cols = g.tiles.shape
+    rank = distributed.process_index()
+    ops, fills = [], []
+    for i in range(rows):
+        for j in range(i + 1, cols):
+            up, lo = g.tiles[i, j], g.tiles[j, i]
+            if up is not None and lo is not None:
+                # Rows [half, t) of the upper tile first: they read only
+                # the lower tile, whose columns [0, half) are then
+                # filled from the upper tile's untouched rows [0, half).
+                up[half:, :] = lo[:, half:].t().to(up.device)
+                lo[:, :half] = up[:half, :].t().to(lo.device)
+                continue
+            if up is not None:
+                peer = _grid_owner(g.mesh, j, i)
+                send = up[:half, :].contiguous()
+                recv = torch.empty(
+                    (g.tile_rows, g.tile_cols - half), dtype=up.dtype,
+                    device=up.device,
+                )
+                fills.append((up, "upper", recv))
+            elif lo is not None:
+                peer = _grid_owner(g.mesh, i, j)
+                send = lo[:, half:].contiguous()
+                recv = torch.empty(
+                    (half, g.tile_cols), dtype=lo.dtype, device=lo.device
+                )
+                fills.append((lo, "lower", recv))
+            else:
+                continue
+            tag = i * cols + j
+            ops.append(dist.P2POp(dist.isend, send, peer, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, recv, peer, tag=tag))
+    if ops:
+        with obs.span("gramian.mirror_fill", rank=rank, pairs=len(fills)):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    for tile, side, recv in fills:
+        if side == "upper":
+            tile[half:, :] = recv.t()
+        else:
+            tile[:, :half] = recv.t()
+
+
+# Route codes on the pod header (field 0 doubles as the liveness code):
+# −2 a producer exception, −1 an exhausted stream, else the step's
+# density route. The JAX package's codes.
+_ROUTE_CODES = {"scatter": 0, "dense": 1}
+_ROUTE_OF_CODE = {v: k for k, v in _ROUTE_CODES.items()}
+# Each route's payload dtype, which rides the header: int32 carrier
+# matrices on scatter steps, packed uint8 panels on dense ones.
+_PAYLOAD_DTYPES = {"scatter": np.dtype(np.int32), "dense": np.dtype(np.uint8)}
+
+
+def _synced_carrier_stream(
+    windows,
+    n_samples: int,
+    n_padded: int,
+    density_threshold: float,
+    dense_width: int,
+    v_div: int,
+    pipeline_depth: int = 2,
+    coalesce_variants: Optional[int] = None,
+):
+    """The pipelined per-step header and carrier exchange of a pod's CSR
+    streams — the sparse twin of :func:`_synced_block_stream` (JAX
+    ``sharded.py:879-1360``), over the host exchange of
+    :mod:`~spark_examples_tpu_torch.parallel.podstream`.
+
+    Per step every rank FIRST agrees a small header — ``[route/liveness
+    code, k_max, variant rows, payload dtype.num, nnz, windows, check
+    flag]`` — and only then builds and exchanges the payload. The whole
+    protocol step (the header, the payload's host construction, its
+    confirm and the carrier exchange) runs on a sync thread
+    ``pipeline_depth`` slots ahead of the consumer's kernels (``0`` is
+    inline lockstep). The failure discipline holds slot by slot:
+
+    - an exhausted rank posts −1 and keeps feeding inert payloads
+      (all-sentinel carrier rows, zero packed columns) until every stream
+      drains;
+    - a producer exception posts −2 and every rank raises together at the
+      SAME slot, the failing one chaining its exception; a payload that
+      fails to build after the header is caught by the confirm exchange
+      before any payload moves;
+    - the density route is a per-step GLOBAL decision (a divergent step
+      raises on every rank together);
+    - carrier widths need not agree: every rank pads to the power-of-two
+      bucket of the GLOBAL max width and the global max row count;
+    - consecutive scatter-route windows COALESCE into one gang per step
+      until their variant rows reach ``coalesce_variants`` (a dense
+      window ends the gang and becomes its own step) — bit-identical at
+      any split;
+    - with ``SPARK_EXAMPLES_TPU_TORCH_COLLECTIVE_CHECK`` on every rank,
+      each step's derived geometry is digested and cross-checked
+      (:mod:`~spark_examples_tpu_torch.utils.collectivecheck`).
+
+    Scatter steps exchange the padded ``(rows, k_bucket)`` int32 carrier
+    matrices over the sockets (a drained peer's inert block is made
+    locally from its header); dense steps carry this rank's packed panel,
+    which the consumer all-gathers through the process group. Yields
+    ``(route, payload, local_nnz, local_variants, step, local_windows,
+    stream_id)``: the payload is a CPU tensor — the global carrier matrix,
+    or this rank's packed panel — built HERE, on the consumer thread; the
+    sync thread never touches torch.
+    """
+    from spark_examples_tpu_torch.parallel.podstream import (
+        PodSlot,
+        PodWindowExchange,
+        SlotPipeline,
+    )
+    from spark_examples_tpu_torch.utils import collectivecheck
+
+    if coalesce_variants is None:
+        coalesce_variants = DEFAULT_POD_COALESCE_VARIANTS
+    if pipeline_depth < 0:
+        raise ValueError(
+            f"--pod-pipeline-depth must be >= 0, got {pipeline_depth}"
+        )
+    world = distributed.process_count()
+    pid = distributed.process_index()
+    exchange = PodWindowExchange.open()
+    if exchange is None:
+        raise RuntimeError(
+            "process-spanning sparse accumulation needs a process group "
+            "of more than one rank for its host-side window exchange; "
+            "join one via parallel.distributed.initialize_from_env"
+        )
+
+    it = iter(windows)
+    pushback: list = []
+
+    def _pull():
+        if pushback:
+            return pushback.pop()
+        return next(it, None)
+
+    def _gang():
+        """This step's local windows: ``[]`` when drained, ONE
+        dense-route window, or 1+ scatter-route windows coalesced until
+        the variant-row total reaches ``coalesce_variants``."""
+        first = _pull()
+        if first is None:
+            return [], None
+        idx = np.asarray(first[0], dtype=np.int64)
+        lens = np.asarray(first[1], dtype=np.int64)
+        _check_indices(idx, n_samples)
+        route = window_route(lens, n_samples, density_threshold)
+        gang = [(idx, lens)]
+        if route == "dense":
+            return gang, route
+        total = int(lens.size)
+        while total < coalesce_variants:
+            nxt = _pull()
+            if nxt is None:
+                break
+            nidx = np.asarray(nxt[0], dtype=np.int64)
+            nlens = np.asarray(nxt[1], dtype=np.int64)
+            _check_indices(nidx, n_samples)
+            if window_route(nlens, n_samples, density_threshold) != "scatter":
+                # A dense window ends the gang and becomes the NEXT step.
+                pushback.append((nidx, nlens))
+                break
+            gang.append((nidx, nlens))
+            total += int(nlens.size)
+        return gang, "scatter"
+
+    def _span(step, phase):
+        return obs.span(
+            "gramian.sparse.allgather", step=step, phase=phase,
+            stream=exchange.stream, processes=world,
+        )
+
+    def _produce_step(step):
+        exc = None
+        gang: list = []
+        code, k_max, rows, num, nnz, nwin = -1, -1, -1, -1, 0, 0
+        try:
+            gang, route_local = _gang()
+            if gang:
+                all_lens = [lens for _, lens in gang]
+                code = _ROUTE_CODES[route_local]
+                k_max = max(
+                    (int(lens.max()) if lens.size else 0)
+                    for lens in all_lens
+                )
+                rows = sum(int(lens.size) for lens in all_lens)
+                nnz = sum(int(lens.sum()) for lens in all_lens)
+                nwin = len(gang)
+                num = _PAYLOAD_DTYPES[route_local].num
+        except Exception as e:  # noqa: BLE001 — synced below
+            exc, code = e, -2
+        check_flag = 1 if collectivecheck.collective_check_enabled() else 0
+        with _span(step, "header"):
+            exchange.post_header(
+                step,
+                np.array(
+                    [code, k_max, rows, num, nnz, nwin, check_flag],
+                    np.int64,
+                ),
+            )
+            peer_info = exchange.gather_headers(step, 7)
+        failed = [i for i, row in enumerate(peer_info) if int(row[0]) == -2]
+        if failed:
+            _note_pod_sync("producer-error")
+            raise RuntimeError(
+                "carrier stream failed on process(es) "
+                f"{failed}; raising on every process together (a "
+                "one-sided raise would strand peers in the next "
+                "collective)"
+            ) from exc
+        live = peer_info[peer_info[:, 0] >= 0]
+        if live.size == 0:
+            _note_pod_sync("drained")
+            exchange.close()
+            return None
+        routes = sorted({int(c) for c in live[:, 0]})
+        if len(routes) > 1:
+            _note_pod_sync("route-divergence")
+            per_proc = {
+                i: _ROUTE_OF_CODE[int(row[0])]
+                for i, row in enumerate(peer_info)
+                if int(row[0]) >= 0
+            }
+            raise ValueError(
+                "sparse pod streams disagree on the density route "
+                f"for the same step: {per_proc}; the route is a "
+                "per-window GLOBAL decision (both routes are "
+                "collective programs) — pin "
+                "--sparse-density-threshold to one side for "
+                "heterogeneous cohorts"
+            )
+        nums = sorted({int(n) for n in live[:, 3]})
+        if len(nums) > 1:
+            # The dtype derives from the agreed route, so only a
+            # version-skewed pod reaches this.
+            _note_pod_sync("dtype-divergence")
+            raise ValueError(
+                "sparse pod payload dtypes diverged in the same "
+                f"step: {[_dtype_name(n) for n in nums]}; every "
+                "host must stream one payload dtype (the dtype "
+                "derives from the agreed route — divergence means "
+                "a version-skewed pod)"
+            )
+        route = _ROUTE_OF_CODE[routes[0]]
+        g_rows = _pad_rows_for_scan(int(live[:, 2].max()))
+        # The step's derived geometry, from the gathered (identical)
+        # headers: the carrier bucket on scatter steps, the pow2 panel
+        # width on dense ones.
+        bucket = g_dense = 0
+        payload_num = nums[0]
+        if route == "scatter":
+            bucket = _carrier_bucket(int(live[:, 1].max()))
+            geometry = (g_rows, bucket, world, n_padded, payload_num)
+        else:
+            g_dense = dense_panel_width(int(live[:, 2].max()), dense_width)
+            geometry = (g_dense, v_div, world, n_padded, payload_num)
+        if bool((live[:, 6] == 1).all()):
+            digest = collectivecheck.step_digest(
+                exchange.stream,
+                step,
+                [("header", (world, 7)), (route, geometry)],
+            )
+            with _span(step, "check"):
+                exchange.post_check(step, digest)
+                digests = exchange.gather_checks(step)
+            collectivecheck.verify_step_digests(step, digests, digest)
+        # The local payload is host numpy work that can fail one-sided
+        # AFTER the header committed every peer to this step, so it runs
+        # under its own try and the confirm exchange agrees success
+        # before any payload moves.
+        payload_exc = None
+        local = None
+        try:
+            if route == "scatter":
+                if gang:
+                    local = padded_carrier_matrix(
+                        np.concatenate([idx for idx, _ in gang]),
+                        np.concatenate([lens for _, lens in gang]),
+                        sentinel=n_padded,
+                        n_rows=g_rows,
+                        k_bucket=bucket,
+                    )
+                # A drained rank posts nothing: every peer makes its inert
+                # all-sentinel block from its −1 header.
+            else:
+                if gang:
+                    xb = _densify_window(
+                        gang[0][0], gang[0][1], n_samples, g_dense
+                    )
+                else:
+                    xb = np.zeros((n_samples, g_dense), dtype=np.int8)
+                if n_padded != n_samples:
+                    xb = np.pad(xb, ((0, n_padded - n_samples), (0, 0)))
+                xp = pack_indicator_block(xb)
+                cols = round_up_multiple(xp.shape[1], v_div)
+                if cols != xp.shape[1]:
+                    # Zero bytes unpack to inert zero columns; every rank
+                    # derives the same width from the same header.
+                    xp = np.pad(xp, ((0, 0), (0, cols - xp.shape[1])))
+                local = xp
+        except Exception as e:  # noqa: BLE001 — synced just below
+            payload_exc = e
+        with _span(step, "confirm"):
+            exchange.post_confirm(step, payload_exc is None)
+            confirm = exchange.gather_confirms(step)
+        bad = [i for i, v in enumerate(confirm) if int(v) == -2]
+        if bad:
+            _note_pod_sync("producer-error")
+            raise RuntimeError(
+                "carrier payload construction failed on "
+                f"process(es) {bad}; raising on every process "
+                "together (a one-sided raise would strand peers "
+                "in the payload collective)"
+            ) from payload_exc
+        gathered = None
+        if route == "scatter":
+            with _span(step, "carrier"):
+                if local is not None:
+                    exchange.post_payload(step, local)
+                inert = np.full((g_rows, bucket), n_padded, np.int32)
+                parts = []
+                for p in range(world):
+                    if p == pid:
+                        parts.append(local if local is not None else inert)
+                    elif int(peer_info[p, 0]) >= 0:
+                        parts.append(
+                            exchange.get_payload(step, p, (g_rows, bucket))
+                        )
+                    else:
+                        parts.append(inert)
+                gathered = np.concatenate(parts, axis=0)
+        _note_pod_sync("synced")
+        _note_pod_gang(nwin)
+        return PodSlot(
+            step=step,
+            route=route,
+            gathered=gathered,
+            local=local,
+            nnz=nnz,
+            variants=max(rows, 0),
+            windows=nwin,
+        )
+
+    state = {"step": 0}
+
+    def _produce():
+        step = state["step"]
+        with obs.span(
+            "gramian.sparse.slot", step=step, depth=pipeline_depth,
+            stream=exchange.stream, processes=world,
+        ):
+            slot = _produce_step(step)
+        state["step"] = step + 1
+        return slot
+
+    # A SYNCHRONIZED protocol failure (raised by next(): every rank raised
+    # at the same frame boundary) propagates as it is and the mesh stays
+    # usable. A ONE-SIDED abandonment — this rank's consumer dying, which
+    # lands here as an exception at the yield — may leave the sync thread
+    # blocked mid-read with peers' frames on the pipes, so the mesh is
+    # poisoned: a later stream fails loudly instead of desyncing.
+    pipe_iter = iter(SlotPipeline(_produce, pipeline_depth))
+    while True:
+        try:
+            slot = next(pipe_iter)
+        except StopIteration:
+            return
+        try:
+            if slot.route == "scatter":
+                payload = torch.from_numpy(slot.gathered)
+            else:
+                payload = torch.from_numpy(slot.local)
+            item = (
+                slot.route, payload, slot.nnz, slot.variants, slot.step,
+                slot.windows, exchange.stream,
+            )
+        except BaseException:
+            exchange.poison()
+            raise
+        try:
+            yield item
+        except BaseException:
+            exchange.poison()
+            raise
 
 
 def sparse_sharded_gramian_blockwise(
@@ -443,6 +1295,8 @@ def sparse_sharded_gramian_blockwise(
     density_threshold: Optional[float] = None,
     block_variants: Optional[int] = None,
     compute_dtype=None,
+    pipeline_depth: int = 2,
+    coalesce_variants: Optional[int] = None,
 ) -> ShardedGramian:
     """Stream CSR carrier windows into a mesh-sharded (tiled) Gramian.
 
@@ -453,9 +1307,20 @@ def sparse_sharded_gramian_blockwise(
     there; a dense window is densified, bit-packed and added to every
     tile as an int8 product. Both routes add exact integer counts, so G
     is bit-identical to the meshless engine's at any mesh shape and
-    window order. Ingest first drops carriers outside this process's
-    sample-range bounds (:func:`addressable_sample_bounds`), the full
-    range on a single-controller mesh.
+    window order. On a single-controller mesh ingest first drops carriers
+    outside this process's sample-range bounds
+    (:func:`addressable_sample_bounds`), the full range there.
+
+    On a mesh that SPANS processes each rank feeds its own windows through
+    :func:`_synced_carrier_stream` (``pipeline_depth``,
+    ``coalesce_variants``): a scatter step re-bases the concatenated
+    global carrier matrix into each local tile's frame and launches the
+    kernel once per local tile; a dense step all-gathers the ranks'
+    packed panels and runs :func:`_tile_dense_pod`. On a square grid
+    larger than 1×1 the mirror is on (JAX ``sharded.py:1462-1464``): the
+    off-diagonal tiles compute their slabs and :func:`_mirror_fill`
+    rebuilds them at the end. Pod ingest ships full sample-range windows
+    (each rank is the source of its variants for every peer's tiles).
     """
     if density_threshold is None:
         density_threshold = DEFAULT_SPARSE_DENSITY_THRESHOLD
@@ -464,8 +1329,44 @@ def sparse_sharded_gramian_blockwise(
     n_padded = g.n_padded
     if compute_dtype is None:
         compute_dtype = torch.int8
-    lo, hi = addressable_sample_bounds(mesh, n_padded)
     with obs.span("gramian.sparse.accumulate", n=n_samples, sharded=True):
+        if g.spans:
+            grid_rows, grid_cols = g.tiles.shape
+            mirror = grid_rows == grid_cols and grid_rows > 1
+            stream = _synced_carrier_stream(
+                windows,
+                n_samples,
+                n_padded,
+                density_threshold,
+                width,
+                _axis_product(mesh, (tuple(mesh.axis_names),)),
+                pipeline_depth=pipeline_depth,
+                coalesce_variants=coalesce_variants,
+            )
+            for route, payload, nnz, n_variants, step, n_win, stream_id in (
+                stream
+            ):
+                with obs.span(
+                    "gramian.sparse.window",
+                    route=route,
+                    nnz=nnz,
+                    variants=n_variants,
+                    step=step,
+                    stream=stream_id,
+                    windows=n_win,
+                ):
+                    if route == "scatter":
+                        _tile_scatter(g, payload, mirror=mirror)
+                    else:
+                        xp = distributed.allgather_concat(
+                            payload.to(g.device), dim=1
+                        )
+                        _tile_dense_pod(g, xp, compute_dtype, mirror)
+                _note_window(route, nnz, count=n_win)
+            if mirror:
+                _mirror_fill(g)
+            return g
+        lo, hi = addressable_sample_bounds(mesh, n_padded)
         for window_idx, lens in windows:
             lens = np.asarray(lens)
             _check_indices(np.asarray(window_idx), n_samples)
@@ -511,22 +1412,25 @@ def sparse_sharded_gramian_blockwise(
 def double_center_tiles(g: ShardedGramian) -> ShardedGramian:
     """The centered matrix ``C = G − rowmean − colmean + grandmean`` as a
     tile grid (the port's ``ops/centering.py`` tile by tile): the means
-    are over the n real rows and columns, and C's padded rows and columns
-    stay zero, so C's spectrum is the trimmed matrix's plus zeros."""
+    are over the n real rows and columns (summed over the pod with one
+    all-reduce on a spanning grid), and C's padded rows and columns stay
+    zero, so C's spectrum is the trimmed matrix's plus zeros."""
     n, dev = g.n, g.device
-    rows = torch.zeros(g.n_padded, dtype=torch.float32, device=dev)
-    cols = torch.zeros_like(rows)
-    for (i, j), tile in np.ndenumerate(g.tiles):
+    sums = torch.zeros((2, g.n_padded), dtype=torch.float32, device=dev)
+    for (i, j), tile in g.local_tiles():
         r0, c0 = g.tile_origin(i, j)
         t = tile.to(torch.float32)
-        rows[r0:r0 + g.tile_rows] += t.sum(dim=1).to(dev)
-        cols[c0:c0 + g.tile_cols] += t.sum(dim=0).to(dev)
+        sums[0, r0:r0 + g.tile_rows] += t.sum(dim=1).to(dev)
+        sums[1, c0:c0 + g.tile_cols] += t.sum(dim=0).to(dev)
+    if g.spans:
+        distributed.allreduce_sum_(sums)
+    rows, cols = sums[0], sums[1]
     grand = rows.sum() / (n * n)
     rowmean, colmean = rows / n, cols / n
     real = torch.zeros_like(rows)
     real[:n] = 1.0
     tiles = np.empty(g.tiles.shape, dtype=object)
-    for (i, j), tile in np.ndenumerate(g.tiles):
+    for (i, j), tile in g.local_tiles():
         r0, c0 = g.tile_origin(i, j)
         rs = slice(r0, r0 + g.tile_rows)
         cs = slice(c0, c0 + g.tile_cols)

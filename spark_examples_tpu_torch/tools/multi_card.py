@@ -1,7 +1,8 @@
-"""The mesh layer and the data-parallel regime across several cards.
+"""The mesh layer, the data-parallel regime and the pod across several
+cards.
 
     python3 -m spark_examples_tpu_torch.tools.multi_card [--samples N]
-        [--variants V] [--device cuda|cpu]
+        [--variants V] [--device cuda|cpu] [--legs mesh,ranks,pod]
 
 Over ``chip_smoke.py``'s sparse-slice cohort (N = 2504, V = 65536 rare
 variants, ``synthetic_cohort(seed=0, population_structure=3,
@@ -17,7 +18,17 @@ rare_variant_af=0.01, sparse_calls=True)``) written as a JSONL directory:
    r on ``cuda:r``; the launcher's variables set by this tool) run ``pca
    --input-path`` in ``auto`` and ``sparse``; rank 0's rows must be the
    one-process rows within 1e-4 and the other ranks print none; each
-   run's wall-clock from launch to exit, and the one process's.
+   run's wall-clock from launch to exit, and the one process's;
+3. **the pod**: C ranks of one process group run the driver over
+   ``--input-path`` on meshes that span them (``data:C`` — a C×1 grid, no
+   mirror — and ``data:C/2,model:2``, square for C = 4, with the mirror)
+   in ``sparse``, sample-sharded ``auto``, sample-sharded ``stream`` and
+   ``--no-sample-sharded auto`` (the replicated G); G gathered on rank 0
+   must be the meshless G bit for bit and rank 0's rows the one process's
+   within 1e-4; each rank's scatter launches, ``ingest+gramian`` and run
+   seconds, and its launch to exit; then ``sparse`` on the square grid
+   with ``--pod-pipeline-depth 0`` against 2 and
+   ``--pod-coalesce-variants 0`` against 256 (protocol steps, seconds).
 
 Prints each reading, the card's name and power limit, and one JSON line.
 ``--device cpu`` tries the tool at a small size without a card (the CPU's
@@ -87,7 +98,152 @@ def _cli(root, device, mode, env=None):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+# The pod leg's runs: (name, --pca-mode, sample_sharded, pipeline depth,
+# coalesce variants) on each spanning mesh; the flag runs on the square
+# grid only.
+POD_RUNS = [
+    ("sparse", "sparse", None, 2, 256),
+    ("auto", "auto", True, 2, 256),
+    ("stream", "stream", True, 2, 256),
+    ("auto --no-sample-sharded", "auto", False, 2, 256),
+]
+POD_FLAG_RUNS = [
+    ("sparse --pod-pipeline-depth 0", "sparse", None, 0, 256),
+    ("sparse --pod-coalesce-variants 0", "sparse", None, 2, 0),
+]
+
+
+def _mesh_specs(cards: int):
+    """``data:C`` and, for an even C above 2, ``data:C/2,model:2``."""
+    specs = [f"data:{cards}"]
+    if cards % 2 == 0 and cards > 2:
+        specs.append(f"data:{cards // 2},model:2")
+    return specs
+
+
+def _pod_worker(root: str, out_dir: str, device: str) -> int:
+    """One rank of the pod leg: every run of :data:`POD_RUNS` on every
+    spanning mesh, in the same order on every rank."""
+    from spark_examples_tpu_torch import obs
+    from spark_examples_tpu_torch.parallel import (
+        ShardedGramian,
+        distributed,
+        mesh_spans_processes,
+    )
+
+    t_start = time.perf_counter()
+    assert distributed.initialize_from_env(device), "no process group"
+    rank, world = distributed.process_index(), distributed.process_count()
+    synced = obs.get_registry().counter(
+        "sparse_pod_sync_total",
+        "Pod-sparse per-window sync steps (header + carrier allgather) "
+        "by outcome",
+    ).labels(outcome="synced")
+    source = JsonlSource(root)
+    specs = _mesh_specs(world)
+    report = {"rank": rank, "runs": {}}
+    for spec in specs:
+        runs = POD_RUNS + (POD_FLAG_RUNS if spec == specs[-1] else [])
+        for name, mode, sharded, depth, coalesce in runs:
+            conf = PcaConfig(
+                variant_set_ids=[DEFAULT_VARIANT_SET_ID], device=device,
+                pca_mode=mode, sample_sharded=sharded,
+                pod_pipeline_depth=depth, pod_coalesce_variants=coalesce,
+            )
+            mesh = make_mesh(spec, device=device)
+            assert mesh_spans_processes(mesh), spec
+            steps0 = synced.value
+            t0 = time.perf_counter()
+            driver, coords, launches = _run(conf, source, mesh)
+            run_s = time.perf_counter() - t0
+            g = driver.g
+            g = g.full() if isinstance(g, ShardedGramian) else g
+            key = f"{spec} {name}"
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"g {key}.npy"),
+                        g.cpu().numpy())
+                np.save(os.path.join(out_dir, f"rows {key}.npy"), coords)
+            report["runs"][key] = {
+                "run_s": run_s,
+                "launches": launches,
+                "steps": synced.value - steps0,
+                "sparse": driver._sparse_selected(),
+                "tiles": (sum(t is not None for t in driver.g.tiles.flat)
+                          if isinstance(driver.g, ShardedGramian) else None),
+                **{k: round(v, 6) for k, v in driver.timer.seconds.items()},
+            }
+    report["worker_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _pod_leg(root, device, cards, g_ref, want, alone, coord_tol):
+    """Leg 3: ``cards`` ranks of one process group on spanning meshes."""
+    out_dir = tempfile.mkdtemp(prefix="multi_card_pod_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "spark_examples_tpu_torch.tools.multi_card",
+             "--pod-worker", root, out_dir, "--device", device],
+            env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": port, "WORLD_SIZE": str(cards),
+                 "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(cards)
+    ]
+    try:
+        outs = [pr.communicate(timeout=900) for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+    exit_s = time.perf_counter() - t0
+    for r, (pr, (_, e)) in enumerate(zip(procs, outs)):
+        if pr.returncode:
+            raise SystemExit(f"multi_card: pod rank {r}: {e[-3000:]}")
+    reports = []
+    for r in range(cards):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    summary = {"launch_to_exit_s": exit_s,
+               "worker_s": [rep["worker_s"] for rep in reports], "runs": {}}
+    for key in reports[0]["runs"]:
+        mode = key.split(" ")[1]
+        g = np.load(os.path.join(out_dir, f"g {key}.npy"))
+        coords = np.load(os.path.join(out_dir, f"rows {key}.npy"))
+        err = float(np.abs(coords - alone[mode]).max())
+        oracle = float(np.abs(coords - want).max())
+        if not np.array_equal(g, g_ref) or err > coord_tol:
+            raise SystemExit(f"multi_card: pod {key}: G equal "
+                             f"{np.array_equal(g, g_ref)}, rows {err:.3e} "
+                             "from the one process's")
+        per_rank = [rep["runs"][key] for rep in reports]
+        summary["runs"][key] = {"max_abs_err": err, "oracle_err": oracle,
+                                "ranks": per_rank}
+        route = "sparse" if per_rank[0]["sparse"] else "dense"
+        print(f"pod {key}: {cards} ranks, {route} route, G bit-identical, "
+              f"rank 0's rows {err:.3e} from the one process's "
+              f"({oracle:.3e} from the oracle); per rank: scatter "
+              f"launches {[r['launches'] for r in per_rank]}, steps "
+              f"{[r['steps'] for r in per_rank]}, ingest+gramian "
+              f"{[r.get('ingest+gramian') for r in per_rank]} s, run "
+              f"{[round(r['run_s'], 3) for r in per_rank]} s", flush=True)
+    print(f"pod leg: {cards} ranks {exit_s:.2f} s launch to exit", flush=True)
+    return summary
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv[:1] == ["--pod-worker"]:
+        w = argparse.ArgumentParser()
+        w.add_argument("--pod-worker", nargs=2, metavar=("ROOT", "OUT"))
+        w.add_argument("--device", default="cuda")
+        a = w.parse_args(argv)
+        return _pod_worker(*a.pod_worker, a.device)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--samples", type=int, default=2504)
     p.add_argument("--variants", type=int, default=65536)
@@ -97,7 +253,10 @@ def main(argv=None) -> int:
     p.add_argument("--cards", type=int, default=None,
                    help="cards (ranks) to use; default: every card, 4 on "
                    "the CPU")
+    p.add_argument("--legs", default="mesh,ranks,pod",
+                   help="comma-separated legs to run (default all three)")
     args = p.parse_args(argv)
+    legs = set(args.legs.split(","))
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
         raise SystemExit("multi_card: CUDA is not available")
@@ -122,15 +281,14 @@ def main(argv=None) -> int:
                      rare_variant_af=0.01, sparse_calls=True).dump(root)
     source = JsonlSource(root)
     base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID], device=args.device)
-    plain, _, _ = _run(PcaConfig(pca_mode="sparse", **base), source)
+    plain, plain_coords, _ = _run(PcaConfig(pca_mode="sparse", **base),
+                                  source)
     g_ref = plain.g.cpu().numpy()
     want, _ = mllib_principal_components_reference(g_ref, 2)
     summary = {"cards": cards, "card": smi[0], "mesh": {}, "ranks": {}}
 
     # 1. single-controller meshes over every card -------------------------
-    specs = [f"data:{cards}"]
-    if cards % 2 == 0 and cards > 2:
-        specs.append(f"data:{cards // 2},model:2")
+    specs = _mesh_specs(cards) if "mesh" in legs else []
     devices = ([torch.device("cuda", i) for i in range(cards)] if on_card
                else None)
     for spec in specs:
@@ -159,7 +317,7 @@ def main(argv=None) -> int:
                   flush=True)
 
     # 2. data-parallel ranks of one process group -------------------------
-    for mode in ("auto", "sparse"):
+    for mode in ("auto", "sparse") if "ranks" in legs else ():
         t0 = time.perf_counter()
         alone = _cli(root, args.device, mode)
         out, err_text = alone.communicate(timeout=600)
@@ -200,6 +358,14 @@ def main(argv=None) -> int:
               f"{ranks_s:.2f} s launch to exit, one process {alone_s:.2f} s; "
               f"rank 0's rows {err:.3e} from the one process's, the others "
               f"print none", flush=True)
+
+    # 3. the pod: meshes that span the ranks --------------------------------
+    if "pod" in legs:
+        alone = {"sparse": plain_coords}
+        for mode in ("auto", "stream"):
+            _, alone[mode], _ = _run(PcaConfig(pca_mode=mode, **base), source)
+        summary["pod"] = _pod_leg(root, args.device, cards, g_ref, want,
+                                  alone, args.coord_tol)
     print(smi[0])
     print(json.dumps(summary))
     return 0

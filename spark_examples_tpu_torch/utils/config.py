@@ -32,6 +32,7 @@ from spark_examples_tpu_torch.ops.pcoa import (
     DEFAULT_SKETCH_POWER_ITERS,
 )
 from spark_examples_tpu_torch.ops.sparse import (
+    DEFAULT_POD_COALESCE_VARIANTS,
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
 )
 from spark_examples_tpu_torch.resilience.breaker import (
@@ -87,8 +88,8 @@ class PcaConfig:
     variant_set_ids: List[str] = field(
         default_factory=lambda: [PLATINUM_GENOMES]
     )
-    # Device mesh of this process, e.g. "data:4,model:2"
-    # (parallel/mesh.py::make_mesh).
+    # Device mesh, e.g. "data:4,model:2" (parallel/mesh.py::make_mesh):
+    # this process's devices, or in a process group every rank's.
     mesh_shape: Optional[str] = None
     # Accepted for CLI parity (the Spark shuffle knob); unused.
     num_reduce_partitions: int = 10
@@ -117,6 +118,17 @@ class PcaConfig:
     # Dense/sparse switch of the sparse Gramian: a window whose carrier
     # density is strictly below this scatters, at or above it goes dense.
     sparse_density_threshold: float = DEFAULT_SPARSE_DENSITY_THRESHOLD
+    # Pod-sparse protocol pipeline depth (process-spanning meshes with the
+    # sparse engine): how many window slots the sync thread's
+    # header/confirm/carrier exchange runs AHEAD of the card's scatter, so
+    # exchange latency and payload construction hide behind compute.
+    # 0 = inline lockstep (the ablation mode); 2 (double buffering).
+    pod_pipeline_depth: int = 2
+    # Pod-sparse gang coalescing: consecutive scatter-route windows merge
+    # into one protocol step until their variant-row total reaches this,
+    # so tiny windows share one exchange. 0 disables; G is bit-identical
+    # at any setting (integer-exact accumulation).
+    pod_coalesce_variants: int = DEFAULT_POD_COALESCE_VARIANTS
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 64  # shards per Gramian snapshot
     # World-size-independent checkpointing (the JAX package's
@@ -399,7 +411,33 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         default=PcaConfig.sparse_density_threshold,
         help="Windows with carrier density strictly below this scatter, "
         "at or above it they densify onto the int8 product; results are "
-        "bit-identical either way",
+        "bit-identical either way. On a process-spanning mesh the route is "
+        "a per-window GLOBAL decision synced by the carrier exchange's "
+        "header — ranks whose same-step windows land on opposite sides of "
+        "the threshold fail together (pin the threshold to 0 or large to "
+        "force one route on heterogeneous cohorts)",
+    )
+    p.add_argument(
+        "--pod-pipeline-depth",
+        type=int,
+        default=PcaConfig.pod_pipeline_depth,
+        help="Pod-sparse protocol pipeline depth (process-spanning "
+        "meshes, --pca-mode sparse): window slots the host-side "
+        "header/confirm/carrier exchange runs ahead of the device "
+        "scatter, hiding exchange latency and payload construction "
+        "behind compute. 0 = inline lockstep (ablation mode); default "
+        "2 (double buffering). G is bit-identical at any depth",
+    )
+    p.add_argument(
+        "--pod-coalesce-variants",
+        type=int,
+        default=PcaConfig.pod_coalesce_variants,
+        help="Pod-sparse gang coalescing target: consecutive "
+        "scatter-route windows merge into one protocol step until "
+        "their variant-row total reaches this, amortizing one "
+        "exchange over many tiny windows (tail windows, small "
+        "shards). 0 disables coalescing; G is bit-identical at any "
+        "setting",
     )
     p.add_argument(
         "--read-group-set-id",
@@ -467,7 +505,10 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
         type=int,
         default=PcaConfig.prefetch_depth,
         help="Blocks the double-buffered host→device feed stages ahead "
-        "of the accumulating product (default 2; must be >= 1)",
+        "of the accumulating product (default 2; must be >= 1). Applies "
+        "to the replicated and host-local-mesh feeds alike; the "
+        "process-spanning pod stream is collective lockstep and "
+        "ignores it",
     )
     p.add_argument(
         "--ingest-order",

@@ -9,7 +9,9 @@ library and its environment switches: the port builds and loads its own
 host core and reads no environment variable for it. No source names the
 JAX package's soft-deadline variable: the port reads its own. No source
 names the JAX package's process-group variables: the port's process group
-reads the standard ``torch.distributed`` launcher variables.
+reads the standard ``torch.distributed`` launcher variables. No source
+names the JAX package's collective-check variable: the pod's check reads
+the port's own, and the pod modules import with jax blocked.
 """
 
 import os
@@ -84,6 +86,7 @@ def test_every_module_imports_without_jax():
         "parallel",
         "parallel.distributed",
         "parallel.mesh",
+        "parallel.podstream",
         "parallel.sharded",
         "resilience",
         "resilience.breaker",
@@ -101,6 +104,7 @@ def test_every_module_imports_without_jax():
         "store.local",
         "tools.ingest_workers",
         "utils.checkpoint",
+        "utils.collectivecheck",
         "utils.concurrency",
         "utils.lockcheck",
         "utils.softcancel",
@@ -114,7 +118,8 @@ def test_every_module_imports_without_jax():
                  "bridge/backend.py", "utils/checkpoint.py",
                  "utils/softcancel.py", "parallel/__init__.py",
                  "parallel/distributed.py", "parallel/mesh.py",
-                 "parallel/sharded.py"):
+                 "parallel/podstream.py", "parallel/sharded.py",
+                 "utils/collectivecheck.py"):
         assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
     assert os.path.join(PKG_DIR, "csrc", "genomics_native.cpp") in (
         _port_sources(_CSRC_EXTS)
@@ -265,6 +270,46 @@ def test_the_parallel_modules_import_with_jax_blocked():
         "m = make_mesh('data:2,model:2', device='cpu')\n"
         "assert m.shape == {'data': 2, 'model': 2}\n"
         "assert not distributed.initialize_from_env('cpu')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'spark_examples_tpu'\n"
+        "             or m.startswith('spark_examples_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "MASTER_ADDR"}
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+# The JAX package's collective-check switch (its utils/collectivecheck.py):
+# a check turned on for a JAX pod must never change a port pod's protocol.
+_JAX_COLLECTIVE_CHECK = "SPARK_EXAMPLES_TPU" + "_COLLECTIVE_CHECK"
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_no_source_names_the_jax_packages_collective_check(path):
+    with open(path, encoding="utf-8") as f:
+        assert _JAX_COLLECTIVE_CHECK not in f.read(), path
+
+
+def test_the_pod_modules_import_with_jax_blocked():
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spark_examples_tpu_torch.parallel import podstream\n"
+        "from spark_examples_tpu_torch.utils import collectivecheck\n"
+        "assert collectivecheck.COLLECTIVE_CHECK_ENV == "
+        "'SPARK_EXAMPLES_TPU_TORCH_COLLECTIVE_CHECK'\n"
+        "assert podstream.PodWindowExchange.open() is None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'spark_examples_tpu'\n"
         "             or m.startswith('spark_examples_tpu.'))\n"

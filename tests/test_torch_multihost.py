@@ -8,9 +8,9 @@ for the JAX package (a free port, hard timeouts), with the standard
 of the manifest, its partial G or sketch panel, the merge over the group,
 the merged IoStats, and emission on rank 0 alone. Rank 0's TSV must be
 the one-process port's within 1e-4 in ``auto``, ``sparse`` and the
-meshless ``sketch`` (and on a host-local mesh), G bit-identical, the
-IoStats merged; rank 1 emits nothing; ``allreduce_gramian`` refuses a tile
-grid.
+meshless ``sketch`` (and with ``--mesh-shape``, whose mesh spans the two
+ranks: a pod), G bit-identical, the IoStats merged; rank 1 emits nothing;
+``allreduce_gramian`` refuses a tile grid.
 """
 
 import json
