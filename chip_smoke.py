@@ -123,7 +123,9 @@ on failure:
     ``GenomicsServiceServer`` and ``GrpcGenomicsServer`` on one
     ``JsonlSource`` (127.0.0.1, a bearer token). With grpcio: ``sparse``
     and ``auto`` over the gRPC frame tier (the frame bytes), ``sparse`` over
-    the record tier, one injected ``transport.grpc.request`` fault
+    the record tier (cut to the first 2 of 9 10-kb shards, G bit-identical
+    to the frame tier's over them), one injected ``transport.grpc.request``
+    fault
     (retried), and ``serve-cohort --grpc-port`` with ``pca --api-url
     grpc://`` in subprocesses; without grpcio one line says the gRPC legs
     did not run. The mirror legs over HTTP, each on a fresh cache: a cold
@@ -145,9 +147,9 @@ on failure:
     bench.py's resident r128xh128 tile at B = 128 and 2048 (ms, pairs/s),
     a shuffled tile bit-identical, one tile under ``torch.profiler``
     (CUDA kernels per tile and per diagonal, device idle share); the
-    coverage set, 60,000 reads over 200 kb (30x), scored with
+    coverage set, 15,000 reads over 50 kb (30x), scored with
     ``--pairhmm-batch 2048`` (wall-clock, host prep and forward), then
-    ``reads-example 3`` over it in 20 shards and ``reads-example 4`` over
+    ``reads-example 3`` over it in 5 shards and ``reads-example 4`` over
     a 30x tumor/normal pair: their files byte-identical to ``--device
     cpu``'s, example 4 recovering every somatic position; the bench
     directory behind the port's HTTP and gRPC servers and a warm mirror:
@@ -254,6 +256,33 @@ on failure:
     4's bit for bit; (b) the pod dense tile step over phase 4's packed
     blocks, cut into four rank slices and gathered, with the mirror on and
     off: every tile phase 4's G block.
+22. the sketch on a mesh at the biobank width (phase 10's CSR, N = 2^20,
+    V = 2048, k = 10): (a) ``sharded_sketch_panel`` on a one-card
+    ``data:1`` mesh, a warm run and the best of 2: Y within 1e-5 of phase
+    10's panel, row sums equal, ``host_peak_bytes`` the formula, no
+    scatter launch, under 2 GiB of card memory, coordinates within 1e-4 of
+    phase 10's; (b) ``sketch_tsqr`` over a ``data:2,model:2`` grid of row
+    blocks on the one card (the repeated-device list of phase 20b): ``Q·R``
+    within 1e-5 of the shifted panel, ``QᵀQ`` within 1e-5 of I, R the host
+    float64 R up to row signs, and ``sharded_sketch_finish`` through it,
+    coordinates within 1e-4 of phase 10's, each timed; (c) the driver's
+    ``auto`` flip on a ``data:1`` mesh over phase 11's common cohort (N =
+    40000): a mesh ``SketchPanel``, no launch, under 2 GiB, rows within
+    1e-4 of phase 11's; (d) a pod rank's card work: phase 10's window cut
+    into two ranks' windows, their global carrier matrix through the pod
+    scatter step, and phase 11's dense window cut into two ranks' packed
+    columns, their contributions summed as the all-reduce sums them: each
+    within 1e-5 of the one-device update, timed.
+23. checkpoints on the card over phase 12's directory (9 shards, 3 units
+    of 3): (a) a CLI ``pca --elastic-checkpoint``, started with phase 22,
+    its fourth shard stalled, SIGKILLed once its first lane appears; a
+    fresh driver resumes the lane (one lane, two new units) and G is phase
+    4's bit for bit, and a second resume reads no shard; (b) a CLI ``pca
+    --checkpoint-dir`` under a one-rank NCCL group, started with phase 22:
+    the group is up, the snapshot holds 9 shards, coordinates within 1e-4
+    of the f64 oracle; (c) the lane and snapshot writes of the 2504 x 2504
+    G, and a pod rank's tile snapshot of a 2x2 grid, timed; no scatter
+    launch in the phase.
 
 The last lines are one ``{"kernels": [...]}`` JSON line, the card's name
 and power limit as ``nvidia-smi`` reports them, and the result line
@@ -264,6 +293,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -1194,7 +1224,7 @@ def biobank_sketch(torch, dev):
     for name, (ms, count) in sorted(host_ranges(
             prof, (SKETCH_ACCUMULATE, SKETCH_WINDOW, SKETCH_FINISH)).items()):
         print(f"  host range {name}: {ms:.3f} ms over {count}")
-    return panel, coords, n / best[0]
+    return panel, coords, n / best[0], (idx, offsets)
 
 
 def dual_oracle(torch, dev, windows, n, k=3):
@@ -1350,6 +1380,7 @@ def auto_flip(torch, dev):
           and coord_err <= sketch.SKETCH_TOPK_ATOL,
           "the sketch must meet the reference's top-k bars on a gapped "
           "spectrum")
+    return common, coords, windows
 
 
 def same_g(g, g_ref) -> bool:
@@ -1628,17 +1659,78 @@ def biobank_driver(torch, panel10, coords10, rate10):
 NET_TOKEN = "chip-smoke-token"
 
 
+def phase_took(n, t0):
+    print(f"  phase {n} took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+
+def in_background(fn, *args):
+    """``fn(*args)`` on a thread, started now: a phase's subprocess leg
+    beside its in-process legs. Returns the future; ``.result()`` joins it
+    and raises what the leg raised."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return future
+
+
+def start_cli(root, out_dir, name, *args):
+    """``python -m spark_examples_tpu_torch.cli.main *args`` in a
+    subprocess, started now, its output in files under ``out_dir`` (a pipe
+    left unread would fill and stall it). :func:`collect_cli` waits for
+    it."""
+    out = open(os.path.join(out_dir, f"{name}.out"), "w+")
+    err = open(os.path.join(out_dir, f"{name}.err"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", *args],
+        cwd=root, stdout=out, stderr=err, text=True)
+    atexit.register(proc.kill)
+    ended = {}
+
+    def note_end():
+        # When the run ends, not when the script collects it.
+        proc.wait()
+        ended["s"] = time.perf_counter() - t0
+
+    watcher = threading.Thread(target=note_end, daemon=True)
+    watcher.start()
+    return proc, out, err, watcher, ended
+
+
+def collect_cli(started, timeout):
+    """Wait for a :func:`start_cli` subprocess: (exit code, its standard
+    output's lines, the tail of its standard error, seconds from its start
+    to its end)."""
+    proc, out, err, watcher, ended = started
+    try:
+        code = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"CLI {proc.args[3:]} did not end within {timeout} s")
+    watcher.join(timeout=30)
+    seconds = ended["s"]
+    out.seek(0)
+    err.seek(0)
+    lines, tail = out.read().splitlines(), err.read()[-2000:]
+    out.close()
+    err.close()
+    return code, lines, tail, seconds
+
+
 def metric(snapshot, name):
     """One counter of a registry snapshot (0.0 when never incremented)."""
     return float(snapshot["counters"].get(name, 0.0))
 
 
-def serve_cli(root, env, *extra, seen=None):
+def serve_cli(root, env, *extra, seen=None, echo=True):
     """``serve-cohort`` in a subprocess on an ephemeral port; returns the
     process and its URLs (``{"http": ..., "grpc": ...}``, the second with
     ``--grpc-port``) once it listens. The lines it printed until then are
-    appended to ``seen`` when given."""
-    return await_listening(spawn_serve_cli(root, env, *extra), seen=seen)
+    appended to ``seen`` when given, and printed unless ``echo`` is
+    False."""
+    return await_listening(spawn_serve_cli(root, env, *extra), seen=seen,
+                           echo=echo)
 
 
 def spawn_serve_cli(root, env, *extra):
@@ -1654,13 +1746,14 @@ def spawn_serve_cli(root, env, *extra):
     return proc
 
 
-def await_listening(proc, seen=None):
+def await_listening(proc, seen=None, echo=True):
     """Read a ``serve-cohort`` subprocess's output until it listens:
     (the process, its URLs)."""
     deadline = time.monotonic() + 120
     urls = {}
     for line in proc.stdout:
-        print(f"  serve-cohort | {line.rstrip()}", flush=True)
+        if echo:
+            print(f"  serve-cohort | {line.rstrip()}", flush=True)
         if seen is not None:
             seen.append(line.rstrip())
         for scheme in ("grpc", "http"):
@@ -1714,6 +1807,44 @@ def frame_breakdown(served, driver):
           f"{int(payload[0].size)} carriers): {json.dumps(out)}")
 
 
+def network_cli_leg(root):
+    """Phase 14's CLI leg, on a thread beside its in-process legs:
+    ``serve-cohort`` and ``pca --api-url http://`` (with a trace, metrics,
+    a manifest and one injected fault) in subprocesses. Returns the pca
+    run's completed process, its seconds, its output files and the
+    server's lines until it listened."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_net_")
+    atexit.register(shutil.rmtree, work, True)
+    token_file = os.path.join(work, "token.json")
+    with open(token_file, "w") as f:
+        json.dump({"token": NET_TOKEN}, f)
+    env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
+    seen = []
+    proc, urls = serve_cli(root, env, seen=seen, echo=False)
+    cli_url = urls["http"]
+    try:
+        outs = {k: os.path.join(work, k) for k in ("trace.json",
+                                                  "metrics.prom",
+                                                  "manifest.json")}
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+             "pca", "--api-url", cli_url, "--pca-mode", "sparse",
+             "--trace-out", outs["trace.json"],
+             "--metrics-out", outs["metrics.prom"],
+             "--manifest-out", outs["manifest.json"],
+             "--fault-plan", json.dumps({"seed": 0, "rules": [
+                 {"site": "transport.http.request",
+                  "match": "/variants-csr", "times": 1}]})],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    return cli, cli_s, outs, seen
+
+
 def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
     """Phase 14: ``serve-cohort`` and ``pca --api-url http://`` over phase
     12's directory. Returns the scatter launches of the frame-tier sparse
@@ -1735,6 +1866,7 @@ def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
 
     base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
     creds = Credentials(NET_TOKEN, "chip-smoke")
+    cli_leg = in_background(network_cli_leg, root)
     sidecar_bytes = os.path.getsize(os.path.join(root, SIDECAR_BASENAME))
     served = JsonlSource(root)
     t0 = time.perf_counter()
@@ -1833,36 +1965,11 @@ def network_tier(torch, root, g_ref, want, n_blocks, phase4_launches):
     print("  ingest+gramian seconds, warm: " + json.dumps(
         {k: round(v, 6) for k, v in times.items()}))
 
-    print("  the CLI in subprocesses: serve-cohort and pca --api-url",
-          flush=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_net_")
-    atexit.register(shutil.rmtree, work, True)
-    token_file = os.path.join(work, "token.json")
-    with open(token_file, "w") as f:
-        json.dump({"token": NET_TOKEN}, f)
-    env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
-    proc, urls = serve_cli(root, env)
-    cli_url = urls["http"]
-    try:
-        outs = {k: os.path.join(work, k) for k in ("trace.json",
-                                                  "metrics.prom",
-                                                  "manifest.json")}
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
-             "pca", "--api-url", cli_url, "--pca-mode", "sparse",
-             "--trace-out", outs["trace.json"],
-             "--metrics-out", outs["metrics.prom"],
-             "--manifest-out", outs["manifest.json"],
-             "--fault-plan", json.dumps({"seed": 0, "rules": [
-                 {"site": "transport.http.request",
-                  "match": "/variants-csr", "times": 1}]})],
-            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-            capture_output=True, text=True, timeout=300)
-        cli_s = time.perf_counter() - t0
-    finally:
-        proc.terminate()
-        proc.wait(timeout=30)
+    print("  the CLI in subprocesses, run beside the legs above: "
+          "serve-cohort and pca --api-url", flush=True)
+    cli, cli_s, outs, seen = cli_leg.result(timeout=600)
+    for line in seen:
+        print(f"  serve-cohort | {line}")
     lines = cli.stdout.splitlines()
     print(f"  pca --api-url ({cli_s:.2f} s):")
     for line in lines:
@@ -1944,6 +2051,41 @@ def tree_bytes(path) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
+def grpc_cli_leg(root):
+    """Phase 15's CLI leg, on a thread beside its in-process legs:
+    ``serve-cohort --grpc-port`` and ``pca --api-url grpc://`` in
+    subprocesses. Returns the pca run's completed process (None when the
+    server printed no gRPC URL), its seconds, the server's URLs and its
+    lines until it listened."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_grpc_cli_")
+    atexit.register(shutil.rmtree, work, True)
+    token_file = os.path.join(work, "token.json")
+    with open(token_file, "w") as f:
+        json.dump({"token": NET_TOKEN}, f)
+    env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
+    seen = []
+    proc, urls = serve_cli(root, env, "--grpc-port", "0", seen=seen,
+                           echo=False)
+    cli, cli_s = None, 0.0
+    try:
+        if "grpc" in urls:
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
+                 "pca", "--api-url", urls["grpc"], "--pca-mode", "sparse"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                capture_output=True, text=True, timeout=300)
+            cli_s = time.perf_counter() - t0
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return cli, cli_s, urls, seen
+
+
 def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
     """Phase 15: ``pca --api-url grpc://``, ``serve-cohort --grpc-port``
     and the cohort mirror (``--cache-dir``, ``--mirror-mode``, the cold
@@ -1974,6 +2116,8 @@ def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
     base = dict(variant_set_ids=[DEFAULT_VARIANT_SET_ID])
     creds = Credentials(NET_TOKEN, "chip-smoke")
     have_grpc = grpc_available()
+    if have_grpc:
+        cli_leg = in_background(grpc_cli_leg, root)
     served = CountingSource(JsonlSource(root))
     served.ensure_serving_index()
     http = GenomicsServiceServer(served, port=0, token=NET_TOKEN).start()
@@ -2052,11 +2196,37 @@ def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
                 times["grpc auto, frame tier, warm"] = ingest_s(driver)
             finally:
                 frames_client.close()
+            # The record tier over the first of phase 12's 9 10-kb shards
+            # (its window scatters), against the frame tier over the same
+            # shard: cut to keep the script inside half its limit.
+            cut = dict(references=RECORD_REFS, bases_per_partition=CKPT_BASES,
+                       pca_mode="sparse", **base)
+            frames_client = grpc_client()
+            try:
+                _, _, g_cut, want_launches, _, _ = drive_file(
+                    torch, frames_client,
+                    "grpc sparse, frame tier, the record tier's shards", **cut)
+            finally:
+                frames_client.close()
             records_client = grpc_client(wire_frames=False)
             try:
-                sparse_leg("grpc sparse, record tier", records_client)
+                driver, _, g, launches, _, _ = drive_file(
+                    torch, records_client, "grpc sparse, record tier", **cut)
             finally:
                 records_client.close()
+            shards = len(driver._manifest())
+            check(np.array_equal(g, g_cut),
+                  "record tier: G is not the frame tier's over its shards")
+            check(launches == want_launches and launches > 0,
+                  f"record tier: {launches} scatter launches, the frame tier "
+                  f"{want_launches} over the same {shards} shards")
+            print(f"    the record tier over {shards} shards ({RECORD_REFS}): "
+                  f"G bit-identical to the frame tier's over them, "
+                  f"{launches} scatter launches as there")
+            launched["grpc sparse, frame tier, the record tier's shards"] = (
+                want_launches)
+            launched["grpc sparse, record tier"] = launches
+            times["grpc sparse, record tier"] = ingest_s(driver)
             plan = faults.FaultPlan.from_spec(json.dumps({"seed": 0,
                 "rules": [{"site": "transport.grpc.request",
                            "match": "StreamVariantFrames", "times": 1}]}))
@@ -2186,29 +2356,13 @@ def grpc_and_mirror(torch, root, g_ref, want, n_blocks, phase4_launches):
     print("  bytes: " + json.dumps({k: int(v) for k, v in sizes.items()}))
 
     if have_grpc:
-        print("  the CLI in subprocesses: serve-cohort --grpc-port and pca "
-              "--api-url grpc://", flush=True)
-        token_file = os.path.join(work, "token.json")
-        with open(token_file, "w") as f:
-            json.dump({"token": NET_TOKEN}, f)
-        env = dict(os.environ, GENOMICS_APPLICATION_CREDENTIALS=token_file)
-        proc, urls = serve_cli(root, env, "--grpc-port", "0")
-        try:
-            check("grpc" in urls, "serve-cohort must print its gRPC URL")
-            t0 = time.perf_counter()
-            cli = subprocess.run(
-                [sys.executable, "-m", "spark_examples_tpu_torch.cli.main",
-                 "pca", "--api-url", urls["grpc"], "--pca-mode", "sparse"],
-                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                capture_output=True, text=True, timeout=300)
-            cli_s = time.perf_counter() - t0
-        finally:
-            proc.send_signal(signal.SIGINT)
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
+        print("  the CLI in subprocesses, run beside the legs above: "
+              "serve-cohort --grpc-port and pca --api-url grpc://",
+              flush=True)
+        cli, cli_s, urls, seen = cli_leg.result(timeout=600)
+        for line in seen:
+            print(f"  serve-cohort | {line}")
+        check("grpc" in urls, "serve-cohort must print its gRPC URL")
         lines = cli.stdout.splitlines()
         print(f"  pca --api-url grpc:// ({cli_s:.2f} s):")
         for line in lines:
@@ -2229,10 +2383,15 @@ PHMM_REFS = "11:6880000:6920000"
 PHMM_READS = 2048
 PHMM_SEED = 7
 READS_BASES = 10_000
-# 30x whole-genome-sequencing depth over a 200 kb window, and a tumor/normal
-# pair at 30x in each readset over 100 kb.
-COVERAGE_REFS = "11:6800000:7000000"
-COVERAGE_READS = 60_000
+# 30x whole-genome-sequencing depth over a 50 kb window (cut from 60,000
+# reads over 200 kb to keep the script inside half its time limit), and a
+# tumor/normal pair at 30x in each readset over 100 kb.
+# Phase 15's gRPC record tier reads this part of phase 12's directory: its
+# first 10-kb shard of nine (cut from all of them, 28-34 s, then from two,
+# 9.2 s, to keep the script inside half its time limit).
+RECORD_REFS = "17:41196311:41206311"
+COVERAGE_REFS = "11:6800000:6850000"
+COVERAGE_READS = 15_000
 TN_REFS = "1:100000000:100100000"
 TN_READS = 30_000
 
@@ -2479,7 +2638,7 @@ def pairhmm_and_reads(torch, dev):
           f"tile: {k_256})")
     print_device_time(kernels, top=8)
 
-    # -- coverage: 30x over 200 kb -------------------------------------------
+    # -- coverage: 30x over 50 kb --------------------------------------------
     t0 = time.perf_counter()
     coverage = synthetic_reads(COVERAGE_READS, references=COVERAGE_REFS,
                                read_len=100)
@@ -2521,7 +2680,7 @@ def pairhmm_and_reads(torch, dev):
     lines = depth["cuda"].decode().splitlines()
     mean_depth = np.mean([int(line[1:-1].split(",")[1]) for line in lines])
     check(25 < mean_depth < 35, f"mean depth {mean_depth:.2f}, not ~30x")
-    print(f"  reads-example 3 (20 shards): {len(lines)} covered bases, mean "
+    print(f"  reads-example 3 (5 shards): {len(lines)} covered bases, mean "
           f"depth {mean_depth:.2f}; the file byte-identical to --device "
           f"cpu's; {numbers['example3_cuda_s']:.3f} s on the card, "
           f"{numbers['example3_cpu_s']:.3f} s on the CPU")
@@ -4470,6 +4629,541 @@ def pod_tile_paths(torch, g_ref, windows, device="cuda"):
     return by_leg, out
 
 
+# -- phase 22: the sketch on a mesh -------------------------------------------
+
+
+def sketch_on_a_mesh(torch, csr, panel10, coords10, common, coords11,
+                     common_windows, device="cuda"):
+    """Phase 22: the sketch's mesh half on one card at the biobank width
+    (phase 10's CSR ``csr``, its panel and coordinates) and at phase 11's
+    flip width (its common cohort, rows and windows). Returns the scatter
+    launches of each leg (0: the sketch launches no kernel) and the
+    numbers printed. ``device`` ``cpu`` tries the phase at a small size
+    without a card, given the same inputs of small cohorts."""
+    import dataclasses
+    import warnings
+
+    from spark_examples_tpu_torch.arrays.blocks import (
+        _densify_window,
+        csr_windows,
+    )
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.ops import sketch
+    from spark_examples_tpu_torch.ops.gramian import pack_indicator_block
+    from spark_examples_tpu_torch.ops.pcoa import normalize_eigvec_signs
+    from spark_examples_tpu_torch.ops.sparse import (
+        _carrier_bucket,
+        _pad_rows_for_scan,
+        padded_carrier_matrix,
+    )
+    from spark_examples_tpu_torch.parallel import make_mesh
+    from spark_examples_tpu_torch.parallel.sharded import (
+        _sketch_pod_dense_contrib,
+        _sketch_pod_scatter,
+        sharded_sketch_finish,
+        sharded_sketch_panel,
+        sketch_tsqr,
+    )
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    n, k = panel10.n, panel10.k
+    l = panel10.l
+    idx, offsets = csr
+    by_leg, out = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_stats():
+        if not on_card:
+            return 0, 0
+        return torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+
+    def quiet_eig(panel):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the cohort has no structure
+            return sketch.sketch_eig(panel, k)
+
+    def windows():
+        return csr_windows(iter([(idx, offsets)]), SKETCH_BLOCK_V)
+
+    # (a) the panel on a one-card data:1 mesh -------------------------------
+    mesh1 = make_mesh("data:1", device=device)
+
+    def run():
+        sync()
+        t0 = time.perf_counter()
+        panel = sharded_sketch_panel(
+            windows, n, k, mesh1, power_iters=0, seed=0,
+            block_variants=SKETCH_BLOCK_V,
+        )
+        sync()
+        t1 = time.perf_counter()
+        coords, vals = quiet_eig(panel)
+        sync()
+        return {"total_s": time.perf_counter() - t0, "pass_s": t1 - t0,
+                "finish_s": time.perf_counter() - t1, "panel": panel,
+                "coords": coords}
+
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    before = dict(sketch.SKETCH_WINDOWS)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _, held = peak_stats()
+    runs = [run() for _ in range(3)]  # a warm run, then the best of 2
+    peak, _ = peak_stats()
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    routes = {r: sketch.SKETCH_WINDOWS[r] - before[r] for r in before}
+    by_leg["sketch on a data:1 mesh (phase 22a)"] = launches
+    best = min(runs[1:], key=lambda r: r["total_s"])
+    panel, coords = runs[0]["panel"], runs[0]["coords"]
+    err = rel_frobenius(panel.y, panel10.y)
+    coord_err = float(np.abs(coords - coords10).max())
+    same_y = np.array_equal(panel.y, panel10.y)
+    out["a"] = {"pass_s": [round(r["pass_s"], 6) for r in runs],
+                "finish_s": [round(r["finish_s"], 6) for r in runs],
+                "best_total_s": best["total_s"],
+                "samples_per_sec": n / best["total_s"],
+                "peak_bytes": peak, "held_bytes": held,
+                "y_rel_err": err, "y_bit_identical": same_y,
+                "coord_err": coord_err}
+    print(f"  (a) sharded_sketch_panel on a data:1 mesh + sketch_eig (TSQR "
+          f"of one block): pass seconds {out['a']['pass_s']}, finish "
+          f"seconds {out['a']['finish_s']} (warm, then 2); best "
+          f"{best['total_s']:.4f} s, {n / best['total_s']:.2f} samples/s; "
+          f"windows by route {routes}; scatter launches {launches}; peak "
+          f"card memory {peak} bytes ({peak / 2**20:.1f} MiB), {held} held "
+          f"by earlier phases; Y vs phase 10's panel: relative Frobenius "
+          f"{err:.3e} (bit-identical {same_y}); coordinates vs phase 10's "
+          f"max abs {coord_err:.3e}", flush=True)
+    check(launches == 0, "(a) the sketch must not launch the scatter kernel")
+    check(routes == {"scatter": 3, "dense": 0},
+          f"(a) each run must scatter its one window, got {routes}")
+    check(panel.mesh is mesh1 and panel.y.shape == (n, l),
+          "(a) the panel must carry its mesh and n_padded rows")
+    check(panel.host_peak_bytes == sketch.sketch_host_bytes(n, l),
+          "(a) host_peak_bytes must be the formula")
+    check(err <= PANEL_RTOL, "(a) Y beyond phase 10's panel")
+    check(np.array_equal(panel.row_sums, panel10.row_sums),
+          "(a) row sums must equal phase 10's")
+    check(coord_err <= COORD_TOL, "(a) coordinates beyond phase 10's")
+    if on_card:
+        check(peak < SKETCH_PEAK_BYTES, "(a) peak card memory over 2 GiB")
+
+    # (b) the TSQR over a grid of row blocks on one card --------------------
+    grid = make_mesh("data:2,model:2", devices=[torch.device(device)] * 4)
+    norm = float(np.linalg.norm(panel.y))
+    nu = float(np.sqrt(n) * np.finfo(np.float32).eps * norm)
+    y_nu = panel.y + nu * panel.omega
+    y_dev = torch.from_numpy(y_nu.astype(np.float32)).to(device)
+    tsqr_s = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        q_blocks, r = sketch_tsqr(y_dev, grid)
+        sync()
+        tsqr_s.append(time.perf_counter() - t0)
+    q = torch.cat(q_blocks).double()
+    qr_err = float(torch.linalg.norm(q @ r.double() - y_dev.double())
+                   / torch.linalg.norm(y_dev.double()))
+    orth_err = float((q.T @ q - torch.eye(l, dtype=torch.float64,
+                                          device=device)).abs().max())
+    del q
+    t0 = time.perf_counter()
+    _, r_host = np.linalg.qr(y_nu)
+    host_qr_s = time.perf_counter() - t0
+    r_np = r.cpu().numpy().astype(np.float64)
+    signs = np.sign(np.diag(r_np)) * np.sign(np.diag(r_host))
+    r_err = float(np.abs(r_np * signs[:, None] - r_host).max()
+                  / np.abs(r_host).max())
+    finish_s = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        c4, vals4 = sharded_sketch_finish(
+            dataclasses.replace(panel, mesh=grid), k)
+        sync()
+        finish_s.append(time.perf_counter() - t0)
+    c4 = normalize_eigvec_signs(c4[:n, :k])
+    coord_err4 = float(np.abs(c4 - coords10).max())
+    out["b"] = {"tsqr_s": tsqr_s, "finish_s": finish_s,
+                "host_qr_s": host_qr_s, "qr_rel_err": qr_err,
+                "orth_err": orth_err, "r_rel_err": r_err,
+                "coord_err": coord_err4}
+    print(f"  (b) sketch_tsqr of the ({n}, {l}) shifted panel over a 2x2 grid "
+          f"of row blocks on one card: {[round(x, 6) for x in tsqr_s]} s "
+          f"(host float64 QR {host_qr_s:.4f} s); |Q·R − Y|/|Y| {qr_err:.3e}, "
+          f"max |QᵀQ − I| {orth_err:.3e}, R vs the host R up to row signs "
+          f"{r_err:.3e} (bars 1e-5); sharded_sketch_finish through it "
+          f"{[round(x, 6) for x in finish_s]} s, coordinates vs phase 10's "
+          f"max abs {coord_err4:.3e}", flush=True)
+    check(qr_err <= 1e-5, "(b) Q·R beyond 1e-5 of the panel")
+    check(orth_err <= 1e-5, "(b) QᵀQ beyond 1e-5 of I")
+    check(r_err <= 1e-5, "(b) R beyond 1e-5 of the host R")
+    check(coord_err4 <= COORD_TOL, "(b) TSQR coordinates beyond phase 10's")
+    del y_dev, q_blocks
+
+    # (c) auto's flip on a data:1 mesh at phase 11's width ------------------
+    conf = PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                     pca_mode="auto", num_pc=2, sketch_power_iters=2,
+                     device=device)
+    sk.SCATTER_KERNEL_LAUNCHES = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _, held = peak_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        driver = VariantsPcaDriver(conf, common,
+                                   mesh=make_mesh("data:1", device=device))
+        selected = driver.sketch_selected()
+        result = driver.run()
+    run_s = time.perf_counter() - t0
+    peak, _ = peak_stats()
+    launches = sk.SCATTER_KERNEL_LAUNCHES
+    by_leg["auto's flip on a data:1 mesh (phase 22c)"] = launches
+    coords_c = np.array([[pc1, pc2] for _, pc1, pc2 in result])
+    flip_err = float(np.abs(coords_c - coords11).max())
+    stage_s = {kk: round(v, 6) for kk, v in driver.timer.seconds.items()}
+    out["c"] = {"run_s": run_s, "stage_s": stage_s, "peak_bytes": peak,
+                "coord_err": flip_err}
+    print(f"  (c) auto --sketch-power-iters 2 on a data:1 mesh, N = "
+          f"{driver.cohort.size}: driver.run() "
+          f"{run_s:.3f} s, stage seconds {json.dumps(stage_s)}; scatter "
+          f"launches {launches}; peak card memory {peak} bytes; rows vs "
+          f"phase 11's meshless run max abs {flip_err:.3e}", flush=True)
+    check(selected and isinstance(driver.g, sketch.SketchPanel)
+          and driver.g.mesh is not None,
+          "(c) auto on a mesh past 4 GiB must return a mesh SketchPanel")
+    check(launches == 0, "(c) no scatter kernel launch")
+    check(flip_err <= COORD_TOL, "(c) rows beyond phase 11's")
+    if on_card:
+        check(peak < SKETCH_PEAK_BYTES, "(c) peak card memory over 2 GiB")
+
+    # (d) a pod rank's card work ---------------------------------------------
+    n_pad = -(-n // 2) * 2
+    omega0 = sketch.gaussian_test_matrix(n, l, 0)
+    om = torch.zeros((n_pad + 1, l + 1), dtype=torch.float32, device=device)
+    om[:n_pad] = torch.from_numpy(sketch._augmented_omega(
+        np.pad(omega0, ((0, n_pad - n), (0, 0))), n, True))
+    halves = list(csr_windows(iter([(idx, offsets)]),
+                              -(-(offsets.size - 1) // 2)))
+    rows = _pad_rows_for_scan(max(lens.size for _, lens in halves))
+    bucket = _carrier_bucket(max(int(lens.max()) for _, lens in halves))
+    gathered = np.concatenate([
+        padded_carrier_matrix(w, lens, sentinel=n_pad, n_rows=rows,
+                              k_bucket=bucket) for w, lens in halves])
+    full_lens = np.diff(offsets)
+    y_pod = torch.zeros((n_pad, l + 1), device=device)
+    y_one = torch.zeros_like(y_pod)
+    scatter_s = {"pod": [], "one": []}
+    for _ in range(3):
+        y_pod.zero_()
+        y_one.zero_()
+        sync()
+        t0 = time.perf_counter()
+        _sketch_pod_scatter(y_pod, om, gathered)
+        sync()
+        scatter_s["pod"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sketch._sketch_scatter_update(y_one, om, idx, full_lens)
+        sync()
+        scatter_s["one"].append(time.perf_counter() - t0)
+    scatter_err = rel_frobenius(y_pod.cpu().numpy().astype(np.float64),
+                                y_one.cpu().numpy().astype(np.float64))
+    # The dense step over phase 11's common window(s), two ranks' columns.
+    nc = driver.cohort.size
+    nc_pad = -(-nc // 2) * 2
+    l2 = driver.g.l
+    om2 = torch.from_numpy(sketch._augmented_omega(np.pad(
+        sketch.gaussian_test_matrix(nc, l2, 0), ((0, nc_pad - nc), (0, 0))),
+        nc, True)).to(device)
+    contrib = torch.zeros((nc_pad, l2 + 1), device=device)
+    ref = torch.zeros_like(contrib)
+    dense_s = []
+    for widx, lens in common_windows:
+        cut = lens.size // 2
+        split = [(widx[:int(lens[:cut].sum())], lens[:cut]),
+                 (widx[int(lens[:cut].sum()):], lens[cut:])]
+        packed = []
+        for w, ln in split:
+            xb = _densify_window(w, ln, nc, ln.size)
+            packed.append(torch.from_numpy(pack_indicator_block(
+                np.pad(xb, ((0, nc_pad - nc), (0, 0))))).to(device))
+        full = torch.from_numpy(pack_indicator_block(np.pad(
+            _densify_window(widx, lens, nc, lens.size),
+            ((0, nc_pad - nc), (0, 0))))).to(device)
+        sync()
+        t0 = time.perf_counter()
+        for xp in packed:
+            contrib += _sketch_pod_dense_contrib(xp, om2)
+        sync()
+        dense_s.append(time.perf_counter() - t0)
+        sketch._sketch_dense_update(ref, om2, full)
+    dense_err = rel_frobenius(contrib.cpu().numpy().astype(np.float64),
+                              ref.cpu().numpy().astype(np.float64))
+    out["d"] = {"scatter_s": scatter_s, "scatter_rel_err": scatter_err,
+                "dense_s": dense_s, "dense_rel_err": dense_err}
+    print(f"  (d) a pod rank's card work: phase 10's window as two ranks' "
+          f"windows, the global carrier matrix {gathered.shape} through the "
+          f"pod scatter step {[round(x, 6) for x in scatter_s['pod']]} s "
+          f"(one device {[round(x, 6) for x in scatter_s['one']]} s), "
+          f"relative Frobenius {scatter_err:.3e}; phase 11's "
+          f"{len(common_windows)} dense window(s) as two ranks' packed "
+          f"columns, contributions summed {[round(x, 6) for x in dense_s]} "
+          f"s, relative Frobenius {dense_err:.3e} (bars {PANEL_RTOL})",
+          flush=True)
+    check(scatter_err <= PANEL_RTOL, "(d) the pod scatter step disagrees")
+    check(dense_err <= PANEL_RTOL, "(d) the pod dense step disagrees")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  phase 22 numbers: " + json.dumps(out))
+    print(f"  phase 22 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg, out
+
+
+# -- phase 23: checkpoints on the card ----------------------------------------
+
+
+def lane_files(directory):
+    d = os.path.join(directory, "elastic")
+    if not os.path.isdir(d):
+        return []
+    return sorted(f for f in os.listdir(d)
+                  if f.startswith("lane-") and f.endswith(".npz"))
+
+
+def start_checkpoint_runs(root, device="cuda"):
+    """Start phase 23's subprocesses beside phase 22: (a) a CLI ``pca
+    --elastic-checkpoint`` over phase 12's directory whose fourth shard
+    (the first of unit 2) stalls, and (b) a CLI ``pca --checkpoint-dir``
+    under a one-rank process group (NCCL on the card). Returns their
+    state."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    atexit.register(shutil.rmtree, work, True)
+    stall = {"rules": [{"site": "ingest.shard", "kind": "stall",
+                        "stall_s": 300, "after": CKPT_EVERY}]}
+    common = ["--input-path", root, "--bases-per-partition", str(CKPT_BASES),
+              "--checkpoint-every", str(CKPT_EVERY), "--device", device]
+    t0 = time.perf_counter()
+    elastic_run = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
+         *common, "--checkpoint-dir", os.path.join(work, "elastic-run"),
+         "--elastic-checkpoint", "--fault-plan", json.dumps(stall)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(elastic_run.kill)
+    group_script = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "from spark_examples_tpu_torch.cli import main as cli\n"
+        "rc = cli.main(sys.argv[1:])\n"
+        "up = dist.is_initialized()\n"
+        "print('GROUP', up and dist.get_backend(), "
+        "up and dist.get_world_size(), flush=True)\n"
+        "if up:\n"
+        "    dist.destroy_process_group()\n"
+        "sys.exit(rc)\n"
+    )
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0"}
+    group = subprocess.Popen(
+        [sys.executable, "-c", group_script, "pca", *common,
+         "--checkpoint-dir", os.path.join(work, "group-run")],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(group.kill)
+    run = {"work": work, "t0": t0, "elastic": elastic_run, "group": group,
+           "lane_s": None}
+
+    def watch():
+        # When the stalled run's first lane appears.
+        ck = os.path.join(work, "elastic-run")
+        while elastic_run.poll() is None and run["lane_s"] is None:
+            if lane_files(ck):
+                run["lane_s"] = time.perf_counter() - t0
+            time.sleep(0.05)
+
+    run["watcher"] = threading.Thread(target=watch, daemon=True)
+    run["watcher"].start()
+    print("  phase 23's elastic CLI run and its one-rank-group checkpointed "
+          "CLI run started beside phase 22", flush=True)
+    return run
+
+
+def checkpoints_on_the_card(torch, root, g_ref, want, runs, device="cuda"):
+    """Phase 23: elastic, process-group and pod checkpoints on the card over
+    phase 12's directory. ``runs`` is :func:`start_checkpoint_runs`'s.
+    Returns the scatter launches of each leg (0: every checkpointed route
+    is dense)."""
+    from spark_examples_tpu_torch.genomics.fixtures import (
+        DEFAULT_VARIANT_SET_ID,
+    )
+    from spark_examples_tpu_torch.genomics.sources import JsonlSource
+    from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+    from spark_examples_tpu_torch.ops import scatter_kernel as sk
+    from spark_examples_tpu_torch.parallel import ShardedGramian, make_mesh
+    from spark_examples_tpu_torch.utils import checkpoint, elastic
+    from spark_examples_tpu_torch.utils.config import PcaConfig
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    work = runs["work"]
+    by_leg, out = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) the elastic run, killed once its first lane appears --------------
+    ck = os.path.join(work, "elastic-run")
+    proc = runs["elastic"]
+    deadline = time.perf_counter() + 120
+    runs["watcher"].join(timeout=max(0.0, deadline - time.perf_counter()))
+    check(runs["lane_s"] is not None,
+          "(a) the elastic CLI run wrote no lane: "
+          + (proc.stderr.read()[-2000:] if proc.poll() is not None else ""))
+    check(proc.poll() is None, "(a) the elastic CLI run ended before its kill")
+    proc.send_signal(signal.SIGKILL)
+    proc.wait(timeout=60)
+    check(proc.returncode == -signal.SIGKILL,
+          f"(a) the elastic CLI run exited {proc.returncode}")
+    check(len(lane_files(ck)) == 1, "(a) one lane must survive the kill")
+    conf = PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                     bases_per_partition=CKPT_BASES,
+                     checkpoint_every=CKPT_EVERY, checkpoint_dir=ck,
+                     elastic_checkpoint=True, device=device)
+    saves = []
+    real_save = elastic.save_lane
+
+    def timed_save(directory, g, units, digest):
+        sync()
+        t0 = time.perf_counter()
+        host = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        t1 = time.perf_counter()
+        path = real_save(directory, host, units, digest)
+        saves.append({"units": sorted(units), "copy_s": t1 - t0,
+                      "write_s": time.perf_counter() - t1,
+                      "bytes": os.path.getsize(path)})
+        return path
+
+    resumes = []
+    elastic.save_lane = timed_save
+    try:
+        for name in ("resume after the kill", "resume with every unit done"):
+            src = JsonlSource(root)
+            sk.SCATTER_KERNEL_LAUNCHES = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                g = VariantsPcaDriver(conf, src).ingest_gramian()
+                sync()
+            secs = time.perf_counter() - t0
+            by_leg[f"elastic {name} (phase 23a)"] = sk.SCATTER_KERNEL_LAUNCHES
+            check(sk.SCATTER_KERNEL_LAUNCHES == 0,
+                  f"(a) {name}: the dense route launched the kernel")
+            resume_line = [ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("Elastic resume:")]
+            resumes.append({"name": name, "s": secs,
+                            "shards_read": src.stats.partitions,
+                            "line": resume_line})
+            check(same_g(g.cpu().numpy(), g_ref),
+                  f"(a) {name}: G is not phase 4's")
+    finally:
+        elastic.save_lane = real_save
+    check(resumes[0]["shards_read"] == CKPT_SHARDS - CKPT_EVERY,
+          f"(a) the resume read {resumes[0]['shards_read']} shards")
+    check(resumes[0]["line"] == [
+        f"Elastic resume: 1/3 units already covered by 1 lane(s); this "
+        f"process claims 1 lane(s) + 2 new unit(s)."],
+        f"(a) resume line {resumes[0]['line']}")
+    check(resumes[1]["shards_read"] == 0, "(a) a full resume read shards")
+    out["a"] = {"first_lane_s": runs["lane_s"], "resumes": resumes,
+                "lane_saves": saves}
+    print(f"  (a) the elastic CLI run's first lane after "
+          f"{runs['lane_s']:.2f} s, then SIGKILL; resumes: "
+          + "; ".join(f"{r['name']} {r['s']:.3f} s, {r['shards_read']} "
+                      f"shards read" for r in resumes)
+          + f"; G phase 4's bit for bit; lane writes (copy, write, bytes): "
+          + ", ".join(f"{x['copy_s']:.4f}+{x['write_s']:.4f} s "
+                      f"{x['bytes']}" for x in saves), flush=True)
+
+    # (b) the one-rank NCCL group with --checkpoint-dir ----------------------
+    group = runs["group"]
+    stdout, stderr = group.communicate(timeout=300)
+    check(group.returncode == 0,
+          f"(b) the group CLI run exited {group.returncode}: "
+          f"{stderr[-2000:]}")
+    backend = "nccl" if on_card else "gloo"
+    check(f"GROUP {backend} 1" in stdout, "(b) the process group was not up")
+    rows = [ln.split("\t") for ln in stdout.splitlines()
+            if ln.count("\t") == 3]
+    by_name = {r[0]: (float(r[2]), float(r[3])) for r in rows}
+    src = JsonlSource(root)
+    names = VariantsPcaDriver(PcaConfig(
+        variant_set_ids=[DEFAULT_VARIANT_SET_ID], device=device),
+        src).cohort
+    coords = np.array([by_name[names.names[cid]]
+                       for cid in names.callset_of_index()])
+    group_err = float(np.abs(coords - want).max())
+    snap_dir = os.path.join(work, "group-run")
+    check(snapshot_done(snap_dir) == CKPT_SHARDS,
+          "(b) the snapshot must hold every shard")
+    out["b"] = {"s_since_start": time.perf_counter() - runs["t0"],
+                "coord_err": group_err}
+    print(f"  (b) pca --checkpoint-dir under a one-rank {backend} group: "
+          f"{len(rows)} rows, coordinates vs the f64 oracle max abs "
+          f"{group_err:.3e}; snapshot of {CKPT_SHARDS} shards", flush=True)
+    check(group_err <= COORD_TOL, "(b) coordinates beyond the oracle")
+
+    # (c) lane, snapshot and tile snapshot writes ----------------------------
+    g_dev = torch.from_numpy(g_ref.astype(np.float32)).to(device)
+    writes = {"lane": [], "snapshot": [], "tiles": []}
+    grid = ShardedGramian.from_full(
+        g_dev, make_mesh("data:2,model:2",
+                         devices=[torch.device(device)] * 4))
+    n = g_ref.shape[0]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        elastic.save_lane(os.path.join(work, "lanes"), g_dev, [0], "c")
+        writes["lane"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        checkpoint.save_snapshot(os.path.join(work, "snap"), g_dev, 1, "c")
+        writes["snapshot"].append(time.perf_counter() - t0)
+        tiles = []
+        for (i, j), tile in grid.local_tiles():
+            r0, c0 = grid.tile_origin(i, j)
+            rs = slice(min(r0, n), min(r0 + grid.tile_rows, n))
+            cs = slice(min(c0, n), min(c0 + grid.tile_cols, n))
+            tiles.append(((rs, cs), tile[: rs.stop - rs.start,
+                                         : cs.stop - cs.start]))
+        t0 = time.perf_counter()
+        checkpoint.save_sharded_snapshot(os.path.join(work, "tiles"), tiles,
+                                         n, 1, "c")
+        writes["tiles"].append(time.perf_counter() - t0)
+    loaded = checkpoint.load_sharded_snapshot(os.path.join(work, "tiles"),
+                                              "c", n)
+    check(loaded is not None and sum(t.size for t in loaded[1].values())
+          == n * n, "(c) the tile snapshot must cover G")
+    out["c"] = {k: [round(x, 6) for x in v] for k, v in writes.items()}
+    print(f"  (c) writes of the {n} x {n} G from the card, seconds: "
+          f"{json.dumps(out['c'])}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("  phase 23 numbers: " + json.dumps(out))
+    print(f"  phase 23 card (nvidia-smi name, power.limit): "
+          f"{nvidia_smi_line()}")
+    return by_leg, out
+
+
 def main() -> int:
     import torch
 
@@ -4624,6 +5318,7 @@ def main() -> int:
     first = timings[0]
 
     print("== 6. CLI", flush=True)
+    t_phase = time.perf_counter()
     cohort_dir = tempfile.mkdtemp(prefix="chip_smoke_cohort_")
     atexit.register(shutil.rmtree, cohort_dir, True)
     t0 = time.perf_counter()
@@ -4631,76 +5326,81 @@ def main() -> int:
     print(f"  phase 4's cohort dumped with FixtureSource.dump in "
           f"{time.perf_counter() - t0:.2f} s (phase 12's directory)",
           flush=True)
-    cli = subprocess.run(
-        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
-         "--fixture-samples", "256", "--fixture-variants", "2048",
-         "--fixture-rare-af", "0.005", "--fixture-sparse-calls",
-         "--pca-mode", "sparse", "--sparse-density-threshold", "0.05"],
-        cwd=root, capture_output=True, text=True, timeout=300,
-    )
-    cli_lines = cli.stdout.splitlines()
-    for line in cli_lines:
-        if line.count("\t") != 3:
-            print(f"  | {line}")
-    check(cli.returncode == 0,
-          f"CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
-    check(sum(line.count("\t") == 3 for line in cli_lines) == 256,
-          "CLI must emit one result line per sample")
-    cli = subprocess.run(
-        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
-         "--fixture-samples", "256", "--fixture-variants", "2048"],
-        cwd=root, capture_output=True, text=True, timeout=300,
-    )
-    cli_lines = cli.stdout.splitlines()
-    print("  the default command (no --pca-mode):")
-    for line in cli_lines:
-        if line.count("\t") != 3:
-            print(f"  | {line}")
-    check(cli.returncode == 0,
-          f"default CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
-    check(sum(line.count("\t") == 3 for line in cli_lines) == 256,
-          "the default CLI must emit one result line per sample")
-    t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "spark_examples_tpu_torch.cli.main", "pca",
-         "--input-path", cohort_dir],
-        cwd=root, capture_output=True, text=True, timeout=600,
-    )
-    cli_lines = cli.stdout.splitlines()
-    print(f"  pca --input-path <phase 12's directory> "
-          f"({time.perf_counter() - t0:.2f} s, sidecar built):")
-    for line in cli_lines:
-        if line.count("\t") != 3:
-            print(f"  | {line}")
-    check(cli.returncode == 0,
-          f"--input-path CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
-    check(sum(line.count("\t") == 3 for line in cli_lines) == N_SAMPLES,
-          "the --input-path CLI must emit one result line per sample")
+    # The three CLI runs start together and run beside phases 7 and 8;
+    # they are collected before phase 9's timings (and phase 12 reads
+    # their sidecar).
+    cli_out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    atexit.register(shutil.rmtree, cli_out, True)
+    clis = [
+        ("pca --pca-mode sparse on a fixture", 256, start_cli(
+            root, cli_out, "sparse", "pca", "--fixture-samples", "256",
+            "--fixture-variants", "2048", "--fixture-rare-af", "0.005",
+            "--fixture-sparse-calls", "--pca-mode", "sparse",
+            "--sparse-density-threshold", "0.05")),
+        ("the default command (no --pca-mode)", 256, start_cli(
+            root, cli_out, "default", "pca", "--fixture-samples", "256",
+            "--fixture-variants", "2048")),
+        ("pca --input-path <phase 12's directory> (sidecar built)",
+         N_SAMPLES, start_cli(root, cli_out, "input-path", "pca",
+                              "--input-path", cohort_dir)),
+    ]
+    print("  three CLI runs started, collected after phase 8", flush=True)
+    print(f"  phase 6 in-process part took "
+          f"{time.perf_counter() - t_phase:.2f} s; the script so far "
+          f"{time.perf_counter() - T_START:.2f} s")
 
     print("== 7. odd sample counts", flush=True)
+    t_phase = time.perf_counter()
     odd_sample_counts(torch, dev)
+    phase_took(7, t_phase)
 
     print("== 8. dense main path (--pca-mode auto)", flush=True)
+    t_phase = time.perf_counter()
     dense_main_path(torch, dev)
+    phase_took(8, t_phase)
+
+    print("== 6, collected: the CLI runs", flush=True)
+    t_phase = time.perf_counter()
+    for label, rows, started in clis:
+        code, lines, tail, cli_s = collect_cli(started, 600)
+        print(f"  {label} ({cli_s:.2f} s, beside phases 7 and 8):")
+        for line in lines:
+            if line.count("\t") != 3:
+                print(f"  | {line}")
+        check(code == 0, f"{label} exited {code}: {tail}")
+        check(sum(line.count("\t") == 3 for line in lines) == rows,
+              f"{label} must emit one result line per sample")
+    print(f"  waited {time.perf_counter() - t_phase:.2f} s for them; the "
+          f"script so far {time.perf_counter() - T_START:.2f} s")
 
     print("== 9. bench shape through pcoa_fused_blocks", flush=True)
+    t_phase = time.perf_counter()
     bench_shape(torch, dev)
+    phase_took(9, t_phase)
 
     print("== 10. sketch engine at the biobank width (N = 2^20)", flush=True)
-    panel10, coords10, rate10 = biobank_sketch(torch, dev)
+    t_phase = time.perf_counter()
+    panel10, coords10, rate10, csr10 = biobank_sketch(torch, dev)
+    phase_took(10, t_phase)
 
     print("== 11. --pca-mode auto past the 4 GiB G bound (N = 40000)",
           flush=True)
-    auto_flip(torch, dev)
+    t_phase = time.perf_counter()
+    common11, coords11, windows11 = auto_flip(torch, dev)
+    phase_took(11, t_phase)
 
     print("== 12. pca --input-path at the 1000 Genomes width (N = 2504, "
           "V = 65536)", flush=True)
+    t_phase = time.perf_counter()
     launches = on_disk_cohort(torch, cohort_dir, source, g_ref, want,
                               len(windows), launches)
+    phase_took(12, t_phase)
 
     print("== 13. the biobank width through the driver (N = 2^20, "
           "--input-path)", flush=True)
+    t_phase = time.perf_counter()
     biobank_driver(torch, panel10, coords10, rate10)
+    phase_took(13, t_phase)
 
     print("== 14. the network tier: serve-cohort and pca --api-url "
           "http:// (N = 2504, V = 65536)", flush=True)
@@ -4776,6 +5476,28 @@ def main() -> int:
     pod_legs, pod_path = pod_tile_paths(torch, g_ref, windows)
     by_leg.update(pod_legs)
     print(f"  phase 21 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 22. the sketch on a mesh: sharded_sketch_panel on a data:1 "
+          "mesh, the TSQR finish over a grid of row blocks, auto's flip on "
+          "a mesh and a pod rank's card work (N = 2^20 and 40000)",
+          flush=True)
+    t0 = time.perf_counter()
+    ckpt_runs = start_checkpoint_runs(cohort_dir)
+    sketch_legs, _ = sketch_on_a_mesh(torch, csr10, panel10, coords10,
+                                      common11, coords11, windows11)
+    by_leg.update(sketch_legs)
+    print(f"  phase 22 took {time.perf_counter() - t0:.2f} s; the script "
+          f"so far {time.perf_counter() - T_START:.2f} s")
+
+    print("== 23. checkpoints on the card: --elastic-checkpoint killed and "
+          "resumed, --checkpoint-dir under a one-rank NCCL group, lane and "
+          "snapshot writes (N = 2504, V = 65536)", flush=True)
+    t0 = time.perf_counter()
+    ckpt_legs, _ = checkpoints_on_the_card(torch, cohort_dir, g_ref, want,
+                                           ckpt_runs)
+    by_leg.update(ckpt_legs)
+    print(f"  phase 23 took {time.perf_counter() - t0:.2f} s; the script "
           f"so far {time.perf_counter() - T_START:.2f} s")
 
     print(json.dumps({"kernels": [{

@@ -15,8 +15,8 @@ straight through ``collect``-free ``foreachPartition`` writes. The bytes on
 the wire are the JAX package's bridge's, request and reply, so either
 package's clients (and the C++ and Java examples) speak to either server.
 
-The in-process backend is meshless: the meshed branch waits for the mesh
-layer (ROADMAP.md, Queue 1, item 7).
+The in-process backend runs meshless or, given a ``mesh``, on a tile
+grid.
 """
 
 from __future__ import annotations

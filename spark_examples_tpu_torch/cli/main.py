@@ -598,11 +598,10 @@ def _cmd_serve_cohort(args) -> int:
                     device=args.device,
                 ),
             ).start()
-            print(
+            _announce(
                 f"gRPC stream service on grpc://{args.host}:"
                 f"{grpc_server.port}"
-                + (" (token auth)" if args.token else ""),
-                flush=True,
+                + (" (token auth)" if args.token else "")
             )
         if args.analyze:
             # The live introspection plane (/metrics, /statusz,
@@ -669,10 +668,9 @@ def _cmd_serve_cohort(args) -> int:
             host=args.host,
             job_tier=job_tier,
         )
-        print(
+        _announce(
             f"Genomics service listening on http://{args.host}:"
-            f"{server.port}" + (" (token auth)" if args.token else ""),
-            flush=True,
+            f"{server.port}" + (" (token auth)" if args.token else "")
         )
         try:
             server.serve_forever()
@@ -689,6 +687,15 @@ def _cmd_serve_cohort(args) -> int:
             job_tier.close()
         stack.close()
     return 0
+
+
+def _announce(line: str) -> None:
+    """Print a line that clients parse (a server's address) in one write:
+    ``print`` writes the text and its newline separately, so a journal
+    job's worker thread printing at the same moment could split the line
+    in two."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 def build_parser() -> argparse.ArgumentParser:

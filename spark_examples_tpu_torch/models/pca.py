@@ -1,6 +1,6 @@
 """The PCoA pipeline driver on PyTorch: ``--pca-mode
-auto|fused|stream|sparse|sketch``, meshless or on a single-controller mesh,
-in one process or data-parallel across a process group.
+auto|fused|stream|sparse|sketch``, meshless, on a single-controller mesh or
+on a pod, in one process or data-parallel across a process group.
 
 The port of the JAX package's ``VariantsPcaDriver`` (the reference's
 ``VariantsPca.scala:36-246``) with the same stage surface — get_data /
@@ -24,7 +24,12 @@ report_io_stats:
   snapshot committed after it, so a killed or soft-cancelled run resumes
   from its last group (:mod:`spark_examples_tpu_torch.utils.checkpoint`,
   the JAX package's snapshot file); single dataset, full cohort, not
-  ``sparse`` nor ``sketch``;
+  ``sparse`` nor ``sketch``. In a process group each rank snapshots its
+  own manifest slice (``host-<p>``, a ``|host=p/P`` digest); on a pod the
+  ranks snapshot synced rounds (the replicated G, or each rank's tiles);
+  ``--elastic-checkpoint`` writes world-size-independent lanes
+  (:mod:`~spark_examples_tpu_torch.utils.elastic`, single or
+  multi-dataset) that resume at any world size;
 - soft cancel: past the ``SPARK_EXAMPLES_TPU_TORCH_SOFT_DEADLINE``
   deadline the run exits with code 75 at the next block, window or group
   boundary (:mod:`spark_examples_tpu_torch.utils.softcancel`);
@@ -59,7 +64,10 @@ report_io_stats:
   :func:`~spark_examples_tpu_torch.parallel.sharded.
   sparse_sharded_gramian_blockwise` (``sparse``, and ``auto`` on a
   sample-sharded mesh), finished by :func:`~spark_examples_tpu_torch.
-  parallel.sharded.sharded_pcoa`;
+  parallel.sharded.sharded_pcoa`; the sketch through
+  :func:`~spark_examples_tpu_torch.parallel.sharded.sharded_sketch_panel`
+  and its TSQR finish; a mesh in a process group spans its ranks (the
+  pod);
 - data-parallel (a ``torch.distributed`` group from the launcher's
   variables): rank r ingests ``shards[r::P]`` of the manifest, the partial
   G (or sketch panel) is summed over the group, and rank 0 alone emits
@@ -74,9 +82,6 @@ report_io_stats:
   sorted by name; ``--output-path`` writes ``<path>-pca.tsv`` lines
   ``name\\tpc1\\tpc2\\tdataset``; ``--trace-dir`` writes a
   ``torch.profiler`` trace of the run.
-
-Options of routes not ported yet raise ``NotImplementedError`` before any
-ingest (:func:`spark_examples_tpu_torch.utils.config.unported`).
 """
 
 from __future__ import annotations
@@ -131,11 +136,16 @@ from spark_examples_tpu_torch.parallel.mesh import (
 from spark_examples_tpu_torch.parallel.sharded import (
     ShardedGramian,
     _axis_product,
+    _grid_device,
+    _grid_index,
+    _grid_shape,
     _mesh_axes,
     gramian_blockwise_global,
+    jax_tile_splits,
     sharded_gramian_blockwise,
     sharded_gramian_blockwise_global,
     sharded_pcoa,
+    sharded_sketch_panel,
     sparse_sharded_gramian_blockwise,
 )
 from spark_examples_tpu_torch.resilience import faults
@@ -144,7 +154,6 @@ from spark_examples_tpu_torch.utils.config import (
     INGEST_ORDERS,
     PCA_MODES,
     PcaConfig,
-    unported,
 )
 from spark_examples_tpu_torch.utils.concurrency import (
     completion_parallel_map,
@@ -180,6 +189,14 @@ class VariantsPcaDriver:
     def __init__(self, conf: PcaConfig, source, mesh=None, index=None):
         if conf.num_pc < 1:
             raise ValueError(f"--num-pc must be >= 1, got {conf.num_pc}")
+        if conf.elastic_checkpoint and not conf.checkpoint_dir:
+            # A checkpoint flag that silently does nothing loses the user
+            # hours of presumed-checkpointed work: refuse up front. (The
+            # multi-dataset preconditions are checked in
+            # _checkpointed_elastic, still before any ingest.)
+            raise ValueError(
+                "--elastic-checkpoint requires --checkpoint-dir"
+            )
         if conf.ingest_order not in INGEST_ORDERS:
             # argparse choices only guard the CLI.
             raise ValueError(
@@ -279,20 +296,6 @@ class VariantsPcaDriver:
             raise ValueError(
                 "--samples/--exclude-samples require a meshless run "
                 "(drop --mesh-shape)"
-            )
-        if meshed and conf.pca_mode == "sketch":
-            raise unported(
-                "--pca-mode sketch under --mesh-shape (sharded_sketch_panel)",
-                "item 7, the pod protocol and the sketch's mesh half",
-            )
-        if conf.checkpoint_dir and distributed.process_count() > 1:
-            raise unported(
-                "--checkpoint-dir in a multi-process run",
-                "item 8, elastic and pod checkpoints",
-            )
-        if conf.elastic_checkpoint:
-            raise unported(
-                "--elastic-checkpoint", "item 8, elastic and pod checkpoints"
             )
         self.conf = conf
         self.source = source
@@ -776,13 +779,18 @@ class VariantsPcaDriver:
                 if self._sample_sharded()
                 else gramian_blockwise_global
             )
-            return accumulate(
+            g = accumulate(
                 blocks,
                 self.cohort.size,
                 self.mesh,
                 packed=True,
                 prepacked=prepacked,
             )
+            if g_init is None:
+                return g
+            if isinstance(g, ShardedGramian):
+                return g.add_(g_init)
+            return g + torch.as_tensor(g_init).to(g.device, g.dtype)
         if self.mesh is not None:
             g = sharded_gramian_blockwise(
                 blocks,
@@ -868,12 +876,15 @@ class VariantsPcaDriver:
 
         Resume semantics (done better than the reference's all-or-nothing
         objectFile): the deterministic manifest + idempotent per-shard
-        ingest make skipping completed shards exact. Single-dataset only
-        — N-way merge needs global identity state that cannot be cut at
-        shard boundaries. Single-process and meshless: the JAX package's
-        multi-process digests, pod and elastic routes wait for the mesh
-        layer. Groups of ``--checkpoint-every`` shards are ingested in
-        manifest order, whatever ``--ingest-order`` says.
+        ingest make skipping completed shards exact. Groups of
+        ``--checkpoint-every`` shards are ingested in manifest order,
+        whatever ``--ingest-order`` says. Four routes, as in the JAX
+        package: ``--elastic-checkpoint`` (world-size-independent lanes,
+        :meth:`_checkpointed_elastic`, single or multi-dataset); a pod
+        (synced rounds, :meth:`_checkpointed_pod`); else one dataset, each
+        rank of a process group snapshotting its own manifest slice into
+        ``host-<p>`` under a ``|host=p/P`` digest, the partials summed
+        over the group at the end.
         """
         from spark_examples_tpu_torch.genomics.shards import manifest_digest
         from spark_examples_tpu_torch.utils.checkpoint import (
@@ -881,17 +892,34 @@ class VariantsPcaDriver:
             save_snapshot,
         )
 
+        if self.conf.elastic_checkpoint:
+            # Elastic takes multi-dataset joins through contig-aligned
+            # units; the grid-keyed routes below stay single-set.
+            return self._checkpointed_elastic()
         assert len(self.conf.variant_set_ids) == 1, (
             "checkpointed ingest supports a single variantset"
         )
+        if self._mesh_spans_processes():
+            return self._checkpointed_pod()
         vsid = self.conf.variant_set_ids[0]
         shards = self._manifest()
         checkpoint_dir = self.conf.checkpoint_dir
-        # The snapshot key covers everything that determines G: the
-        # manifest, the dataset and the AF filter.
+        # In a process group each rank checkpoints ITS manifest slice into
+        # its own subdirectory (no cross-rank file races); the partials
+        # merge after every rank completes, as uncheckpointed. The slice
+        # depends on the process grid, so the digest pins it.
+        host_tag = ""
+        world = distributed.process_count()
+        if world > 1:
+            rank = distributed.process_index()
+            host_tag = f"|host={rank}/{world}"
+            checkpoint_dir = os.path.join(checkpoint_dir, f"host-{rank}")
+        # The snapshot key covers everything that determines this rank's
+        # partial G: the manifest slice, the dataset, the AF filter and
+        # the process grid.
         digest = (
             f"{manifest_digest(shards)}|{vsid}"
-            f"|af={self.conf.min_allele_frequency}"
+            f"|af={self.conf.min_allele_frequency}{host_tag}"
         )
         n = self.index.size
         ck = load_snapshot(checkpoint_dir, digest, n)
@@ -909,14 +937,404 @@ class VariantsPcaDriver:
             g = self._ingest_shard_group(vsid, group, g)
             done += len(group)
             save_snapshot(checkpoint_dir, g, done, digest)
+        return self._merge_partials(self._gramian_on_device(g))
+
+    def _gramian_on_device(self, g):
+        """A checkpointed route's G where the run computes: a host array
+        (a snapshot's or a lane's, every shard done before this run)
+        copied to the device, or laid out over the mesh; None is the
+        empty Gramian."""
+        if g is None:
+            return self._blocks_to_gramian(iter(()))
+        if isinstance(g, (torch.Tensor, ShardedGramian)):
+            return g
+        g = torch.from_numpy(np.array(g, copy=True)).to(self.device)
+        if self.mesh is not None:
+            g = ShardedGramian.from_full(g, self.mesh)
+        return g
+
+    def _elastic_shared_dir_probe(self, directory, p, world):
+        """Verify every rank sees ONE checkpoint directory, before any
+        work.
+
+        A write probe rather than lane fingerprints: on a first run every
+        rank sees zero lanes, so fingerprints cannot tell a shared
+        directory from per-host local disks, and finding that out only
+        after a crash strands each host's lanes. Every rank drops a token,
+        all-gathers (the barrier), then must see every peer's token. Miss
+        counts are exchanged BEFORE the tokens are deleted (an all-gather
+        syncs entry, not exit), and EVERY rank fails when ANY rank missed:
+        a one-sided raise would strand the others in the next collective.
+        """
+        os.makedirs(directory, exist_ok=True)
+        token = os.path.join(directory, f".probe-{p}")
+        with open(token, "w") as f:
+            f.write(str(p))
+        with self._watchdog().armed("elastic shared-dir probe"):
+            distributed.allgather_ints([p])
+        missing = [
+            i
+            for i in range(world)
+            if not os.path.exists(os.path.join(directory, f".probe-{i}"))
+        ]
+        with self._watchdog().armed("elastic shared-dir probe (exit)"):
+            misses = distributed.allgather_ints([len(missing)]).ravel()
+        try:
+            os.remove(token)
+        except OSError:
+            pass
+        if int(misses.max()) > 0:
+            detail = (
+                f"this host cannot see the probe file(s) of "
+                f"process(es) {missing}; "
+                if missing
+                else ""
+            )
+            raise RuntimeError(
+                "elastic multi-host checkpointing requires "
+                "--checkpoint-dir on a filesystem every host shares; "
+                f"{detail}probe miss counts per process: "
+                f"{misses.tolist()}"
+            )
+
+    def _checkpointed_elastic(self):
+        """Elastic ingest: Spark-task-style work units, resumable at any
+        world size (:mod:`~spark_examples_tpu_torch.utils.elastic`).
+
+        The GLOBAL manifest is cut into fixed units of
+        ``--checkpoint-every`` shards (whole contigs a unit for a
+        multi-dataset join); each rank accumulates its units into a
+        self-describing lane file; a resume at ANY process count claims the
+        surviving lanes and deals the uncovered units over the ranks
+        alive, so a lost rank's share is re-executed by the others. Lanes
+        are written in the JAX package's format, so either package resumes
+        the other's. The host-local (data-parallel) regime only: a pod's
+        collectives need every rank in lockstep, so a process-spanning
+        mesh raises (use the synced-round pod checkpoints). A multi-rank
+        run needs the directory on a filesystem every rank shares (probed
+        before any work).
+        """
+        from spark_examples_tpu_torch.genomics.shards import manifest_digest
+        from spark_examples_tpu_torch.utils import elastic
+
+        if self._mesh_spans_processes():
+            raise ValueError(
+                "--elastic-checkpoint applies to the host-local (DP) "
+                "accumulation regime; a process-spanning mesh needs the "
+                "fixed-grid pod checkpointing (omit --elastic-checkpoint)"
+            )
+        vsids = self.conf.variant_set_ids
+        multi = len(vsids) > 1
+        shards_all = self._global_manifest()
+        every = max(1, self.conf.checkpoint_every)
+        if multi:
+            # Multi-dataset joins checkpoint exactly when no work unit
+            # splits a contig: the identity join keeps per-contig state,
+            # so whole-contig units reproduce the uninterrupted join row
+            # for row.
+            if not self._fused_multi_possible():
+                raise ValueError(
+                    "elastic multi-dataset checkpointing needs the fused "
+                    "keyed ingest (a source with stream_carrying_keyed, "
+                    "no --debug-datasets)"
+                )
+            if not _contig_runs_unique(shards_all):
+                raise ValueError(
+                    "elastic multi-dataset checkpointing requires each "
+                    "contig to appear as one contiguous manifest run "
+                    "(join state is per-contig; units cut at contig "
+                    "boundaries)"
+                )
+        # One dataset keeps the bare id; several use a length-prefixed
+        # encoding, so distinct id lists never collide.
+        vs_key = (
+            vsids[0]
+            if not multi
+            else ",".join(f"{len(v)}:{v}" for v in vsids)
+        )
+        digest = (
+            f"{manifest_digest(shards_all)}|{vs_key}"
+            f"|af={self.conf.min_allele_frequency}|every={every}|elastic"
+            + ("|contig-units" if multi else "")
+        )
+        n = self.index.size
+        directory = os.path.join(self.conf.checkpoint_dir, "elastic")
+        p, world = distributed.process_index(), distributed.process_count()
+        if world > 1:
+            self._elastic_shared_dir_probe(directory, p, world)
+        lanes = elastic.load_lanes(directory, digest, n)
+        if world > 1:
+            fp = np.frombuffer(
+                bytes.fromhex(elastic.lane_view_fingerprint(lanes)),
+                dtype=np.uint8,
+            )
+            with self._watchdog().armed("elastic lane-view agreement"):
+                views = distributed.allgather_ints(fp).reshape(world, -1)
+            if not (views == views[0]).all():
+                raise RuntimeError(
+                    "elastic checkpoint lanes differ across hosts — "
+                    "--checkpoint-dir must be on a filesystem every host "
+                    "shares for elastic multi-host resume"
+                )
+        if p == 0:
+            # One rank prunes digest-orphaned and superseded lane files
+            # (safe: every rank finished reading lanes at the agreement
+            # above; a single process has no reader to race).
+            elastic.prune_stale_lanes(directory, digest, lanes)
+        if multi:
+            units = elastic.unit_ranges_contig_aligned(shards_all, every)
+        else:
+            units = elastic.unit_ranges(len(shards_all), every)
+        done = set()
+        for lane in lanes:
+            done |= lane.units
+        remaining = [u for u in range(len(units)) if u not in done]
+        # A deterministic claim: the sorted lanes and the uncovered units
+        # round-robin over the CURRENT world size, the same rule at any
+        # world size, so a relaunch with fewer or more ranks re-deals.
+        my_lanes = lanes[p::world]
+        my_units = remaining[p::world]
+        if done:
+            print(
+                f"Elastic resume: {len(done)}/{len(units)} units already "
+                f"covered by {len(lanes)} lane(s); this process claims "
+                f"{len(my_lanes)} lane(s) + {len(my_units)} new unit(s)."
+            )
+        g = None
+        covered = set()
+        own_paths = []
+        for lane in my_lanes:
+            # Payloads load lazily: only CLAIMED lanes' Gramians reach this
+            # host's memory. A claimed payload that fails to read is
+            # re-executed, and the file is superseded at the next merge.
+            try:
+                lane_g = lane.load_g()
+            except Exception as e:  # noqa: BLE001 — any corruption shape
+                print(
+                    f"WARNING: claimed lane {lane.path} payload is "
+                    f"unreadable ({type(e).__name__}: {e}); re-executing "
+                    f"its {len(lane.units)} unit(s).",
+                    file=sys.stderr,
+                )
+                my_units = my_units + sorted(lane.units)
+                own_paths.append(lane.path)
+                continue
+            covered |= lane.units
+            own_paths.append(lane.path)
+            if g is None:
+                g = lane_g  # a private array from np.load: add in place
+            else:
+                g += lane_g
+        if multi and my_units and self.conf.min_allele_frequency is not None:
+            for _ in vsids:  # one parity print per dataset stream
+                print(
+                    f"Min allele frequency "
+                    f"{self.conf.min_allele_frequency}."
+                )
+        for u in my_units:
+            # Between units the lane covers everything done: a soft
+            # cancel here loses zero completed work.
+            softcancel.check("elastic unit boundary")
+            lo, hi = units[u]
+            if multi:
+                g = self._ingest_unit_multi(shards_all[lo:hi], g)
+            else:
+                g = self._ingest_shard_group(vsids[0], shards_all[lo:hi], g)
+            covered.add(u)
+            own_paths = [
+                elastic.merge_and_supersede(
+                    directory, g, covered, digest, own_paths
+                )
+            ]
+        g = self._gramian_on_device(g)
+        if world > 1:
+            # Elastic ranks ingest with no sync until this one merge: the
+            # first rank done waits here for the slowest, so
+            # --collective-timeout must budget the whole run's ingest skew.
+            with self._watchdog().armed(
+                "elastic final allreduce (deadline must cover ingest "
+                "skew across hosts — slowest minus fastest host)"
+            ):
+                g = self._merge_partials(g)
+        return g
+
+    def _checkpointed_pod(self):
+        """Pod checkpoints: a globally synced round cursor.
+
+        Pod block steps are collective, so a per-rank cursor cannot
+        resume ranks independently. Every rank runs the same number of
+        ROUNDS (``--checkpoint-every`` shards of its own manifest slice a
+        round, a zero fill where its slice runs short), and after each
+        round every rank snapshots into its own ``host-<p>`` directory
+        with the same round cursor: the replicated G whole, a
+        sample-sharded G as this rank's tiles only (no gather). A resume
+        needs every rank to agree on the round (all-gathered); a
+        disagreement (a crash between two ranks' saves) discards the
+        snapshots with a warning and re-ingests from round 0.
+        """
+        from spark_examples_tpu_torch.genomics.shards import manifest_digest
+        from spark_examples_tpu_torch.utils.checkpoint import (
+            load_snapshot,
+            save_snapshot,
+        )
+
+        # A lost peer stalls the others in the next collective; with
+        # --collective-timeout each phase is armed fail-stop.
+        wd = self._watchdog()
+        sharded_g = self._sample_sharded()
+        vsid = self.conf.variant_set_ids[0]
+        mine = self._manifest()
+        every = max(1, self.conf.checkpoint_every)
+        rank, world = distributed.process_index(), distributed.process_count()
+        with wd.armed("manifest-length allgather"):
+            lens = distributed.allgather_ints([len(mine)]).ravel()
+        total_rounds = int(-(-int(lens.max()) // every))  # ceil
+        checkpoint_dir = os.path.join(
+            self.conf.checkpoint_dir, f"host-{rank}"
+        )
+        # The digest pins THIS rank's manifest slice, its pod coordinates,
+        # the round width and, for a tiled G, the mesh layout the tiles
+        # are keyed to; the rounds all-gather below checks the ranks agree.
+        mesh_tag = ""
+        if sharded_g:
+            mesh_tag = "|mesh=" + ",".join(
+                f"{name}:{size}" for name, size in self.mesh.shape.items()
+            )
+        digest = (
+            f"{manifest_digest(mine)}|{vsid}"
+            f"|af={self.conf.min_allele_frequency}"
+            f"|pod={rank}/{world}|every={every}"
+            f"{mesh_tag}"
+        )
+        n = self.index.size
+        if sharded_g:
+            local_round, g = self._load_sharded_pod_snapshot(
+                checkpoint_dir, digest, n
+            )
+        else:
+            ck = load_snapshot(checkpoint_dir, digest, n)
+            local_round = ck.shards_done if ck else 0  # counts ROUNDS
+            g = ck.g if ck else None
+        with wd.armed("resume-round allgather"):
+            rounds = distributed.allgather_ints([local_round]).ravel()
+        start = int(rounds.min())
+        if int(rounds.max()) != start:
+            print(
+                "WARNING: pod snapshot rounds disagree across hosts "
+                f"({sorted(int(r) for r in rounds)}); discarding and "
+                "re-ingesting from round 0.",
+                file=sys.stderr,
+            )
+            start, g = 0, None
+        if start and sharded_g:
+            # Every rank holds its snapshot's tiles: lay them out on the
+            # port's grid together.
+            g = ShardedGramian.from_jax_tiles(g, n, self.mesh)
+        if start:
+            print(
+                f"Resuming pod ingest from round {start}/{total_rounds}."
+            )
+        for r in range(start, total_rounds):
+            # A collective round: a rank whose slice ran short feeds zero
+            # steps through the synced stream, so every rank runs the same
+            # collectives. The watchdog budget covers the whole round.
+            with wd.armed(f"pod round {r + 1}/{total_rounds}"):
+                g = self._ingest_shard_group(
+                    vsid, mine[r * every : (r + 1) * every], g
+                )
+                if sharded_g:
+                    self._save_sharded_pod_snapshot(
+                        checkpoint_dir, g, r + 1, digest
+                    )
+                else:
+                    save_snapshot(checkpoint_dir, g, r + 1, digest)
         if g is None:
             g = self._blocks_to_gramian(iter(()))
         elif not isinstance(g, (torch.Tensor, ShardedGramian)):
-            # Every shard was done before this run: the snapshot's G.
-            g = torch.from_numpy(np.array(g, copy=True)).to(self.device)
-            if self.mesh is not None:
-                g = ShardedGramian.from_full(g, self.mesh)
+            # Every round was done before this run: the snapshot's G.
+            g = torch.from_numpy(np.array(g, copy=True)).to(
+                self.mesh.local_devices()[0]
+            )
         return g
+
+    def _g_sharding(self):
+        """This rank's tiles of the pod's sample-sharded G, as ``{(i, j):
+        (rows, cols)}`` slices of the (n, n) matrix in the JAX package's
+        ``P(data, model)`` split (:func:`jax_tile_splits`), which its
+        snapshots are keyed to."""
+        rows, cols = jax_tile_splits(self.index.size, self.mesh)
+        return {
+            (i, j): (rows[i], cols[j])
+            for i, j in np.ndindex(len(rows), len(cols))
+            if self.mesh.is_local(_grid_index(self.mesh, i, j))
+        }
+
+    def _save_sharded_pod_snapshot(self, directory, g, round_, digest):
+        """Snapshot this rank's tiles of the sharded G (no gather), in the
+        JAX package's split, each tagged with its global [start, stop)
+        indices in the (n, n) matrix. Re-tiling G from the port's grid is
+        a collective that every rank runs at the same round, as the JAX
+        package's pin to ``P(data, model)`` is."""
+        from spark_examples_tpu_torch.utils.checkpoint import (
+            save_sharded_snapshot,
+        )
+
+        tiles = g.jax_tiles()
+        save_sharded_snapshot(
+            directory,
+            [(idx, tiles[ij]) for ij, idx in self._g_sharding().items()],
+            g.n,
+            round_,
+            digest,
+        )
+
+    def _load_sharded_pod_snapshot(self, directory, digest, n):
+        """→ ``(rounds_done, tiles | None)`` from this rank's tile set:
+        ``tiles`` an object array of its tiles in the JAX package's split,
+        for :meth:`ShardedGramian.from_jax_tiles` once every rank agrees
+        on the round. The stored tiles must be exactly this rank's tiles
+        of the current layout; any mismatch discards the snapshot with a
+        warning. The rounds value feeds the cross-rank agreement either
+        way."""
+        from spark_examples_tpu_torch.utils.checkpoint import (
+            index_key,
+            load_sharded_snapshot,
+        )
+
+        loaded = load_sharded_snapshot(directory, digest, n)
+        if loaded is None:
+            return 0, None
+        rounds_done, tiles = loaded
+        layout = {
+            ij: index_key(idx, (n, n))
+            for ij, idx in self._g_sharding().items()
+        }
+        if set(layout.values()) != set(tiles):
+            print(
+                "WARNING: sharded snapshot tile set does not match this "
+                "mesh placement; discarding.",
+                file=sys.stderr,
+            )
+            return 0, None
+        grid = np.empty(_grid_shape(self.mesh), dtype=object)
+        for ij, key in layout.items():
+            grid[ij] = torch.from_numpy(np.array(tiles[key], copy=True)).to(
+                _grid_device(self.mesh, *ij)
+            )
+        return rounds_done, grid
+
+    def _ingest_unit_multi(self, group, g):
+        """One contig-aligned unit through the fused keyed join → blocks
+        accumulated onto g (elastic multi-dataset checkpoints). The group
+        holds whole contigs, so the join state is complete within the
+        unit and its rows equal the same contigs' rows of an
+        uninterrupted run."""
+        blocks = blocks_from_calls(
+            self._keyed_calls(group, contig_runs_unique=True),
+            self.index.size,
+            self.conf.block_variants,
+        )
+        return self._blocks_to_gramian(blocks, g_init=g)
 
     def _ingest_shard_group(self, vsid: str, group, g):
         """Stream one shard group through filter → calls → Gramian blocks,
@@ -1176,13 +1594,10 @@ class VariantsPcaDriver:
         (N, k+p) randomized panel. The factory returns fresh windows on
         each call, because each power iteration re-streams the source;
         each window boundary is a soft-cancel check. A data-parallel run
-        sums the ranks' partial panels after each pass."""
-        if self.mesh is not None:
-            # auto flipped to the sketch past the 4 GiB G bound.
-            raise unported(
-                "the sketch engine under --mesh-shape (sharded_sketch_panel)",
-                "item 7, the pod protocol and the sketch's mesh half",
-            )
+        sums the ranks' partial panels after each pass. On a mesh the panel
+        is :func:`~spark_examples_tpu_torch.parallel.sharded.
+        sharded_sketch_panel`'s (a pod's through the synced carrier
+        stream), finished by the TSQR."""
 
         def windows_factory():
             for window in self._cohort_windows():
@@ -1190,6 +1605,20 @@ class VariantsPcaDriver:
                 yield window
 
         with self._watchdog().armed("sketch ingest+panel"):
+            if self.mesh is not None:
+                return sharded_sketch_panel(
+                    windows_factory,
+                    self.cohort.size,
+                    self.conf.num_pc,
+                    self.mesh,
+                    oversample=self.conf.sketch_oversample,
+                    power_iters=self.conf.sketch_power_iters,
+                    seed=self.conf.sketch_seed,
+                    density_threshold=self.conf.sparse_density_threshold,
+                    block_variants=self.conf.block_variants,
+                    pipeline_depth=self.conf.pod_pipeline_depth,
+                    coalesce_variants=self.conf.pod_coalesce_variants,
+                )
             return sketch_panel_blockwise(
                 windows_factory,
                 self.cohort.size,
@@ -1212,7 +1641,10 @@ class VariantsPcaDriver:
         the fused carrier lists, the keyed multi-dataset join/merge or the
         staged Variant path, all through the dense-blockwise
         accumulator."""
-        if self.conf.checkpoint_dir and len(self.conf.variant_set_ids) == 1:
+        if self.conf.checkpoint_dir and (
+            len(self.conf.variant_set_ids) == 1
+            or self.conf.elastic_checkpoint
+        ):
             return self.get_similarity_matrix_checkpointed()
         if self._sketch_selected():
             return self._sketch_panel()

@@ -53,6 +53,12 @@ spectrum at small N):
 - top k (l < n, ≥ 2 power iterations, a clear gap past k): within
   ``SKETCH_TOPK_RTOL`` and ``SKETCH_TOPK_ATOL``.
 
+On a mesh (``--mesh-shape``) the panel and its finish are
+:func:`~spark_examples_tpu_torch.parallel.sharded.sharded_sketch_panel` and
+:func:`~spark_examples_tpu_torch.parallel.sharded.sharded_sketch_finish`
+(a two-level TSQR over the mesh's row blocks): the panel carries ``mesh``
+and :func:`sketch_eig` routes to that finish.
+
 Ω is drawn by numpy from ``--sketch-seed``, so it is bit-identical to the
 JAX package's, and a run is reproducible bit for bit from its seed.
 """
@@ -153,7 +159,10 @@ class SketchPanel:
 
     ``y`` is the centered sketch C·Ω_final and ``omega`` the final test
     matrix (orth(Y) after power iterations, Ω̃ otherwise); ``row_sums``
-    carries G's row sums from the first pass's companion column."""
+    carries G's row sums from the first pass's companion column. A mesh
+    run sets ``mesh`` (its panels carry ``n_padded`` rows, the padding
+    zero), which routes the finish through
+    :func:`~spark_examples_tpu_torch.parallel.sharded.sharded_sketch_finish`."""
 
     y: np.ndarray
     omega: np.ndarray
@@ -163,6 +172,7 @@ class SketchPanel:
     l: int
     seed: int
     power_iters: int
+    mesh: object = None
     host_peak_bytes: int = 0
 
 
@@ -170,14 +180,20 @@ class SketchPanel:
 def _deterministic_algorithms():
     """PyTorch's deterministic algorithms for the scope, then the caller's
     setting back. The setting is process-wide: torch work of other threads
-    during the scope runs under it too."""
+    during the scope runs under it too.
+
+    This sets ATen's switch alone: ``torch.use_deterministic_algorithms``
+    also sets the compiler's flag, and its first call in a process imports
+    ``torch._inductor`` (2.5 s on an 8-core CPU host, 10 s a rank in a
+    four-card pod's first window), which the port, compiling nothing,
+    does not use."""
     enabled = torch.are_deterministic_algorithms_enabled()
     warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
+    torch._C._set_deterministic_algorithms(True)
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        torch._C._set_deterministic_algorithms(enabled, warn_only=warn_only)
 
 
 def _sketch_scatter_update(
@@ -260,6 +276,7 @@ def sketch_panel_blockwise(
     density_threshold: float = DEFAULT_SPARSE_DENSITY_THRESHOLD,
     block_variants: Optional[int] = None,
     device=DEFAULT_DEVICE,
+    sharded: bool = False,
 ) -> SketchPanel:
     """Stream CSR carrier windows into an (N, k+p) sketch panel on
     ``device``: the meshless sketch engine.
@@ -268,6 +285,9 @@ def sketch_panel_blockwise(
     iterator per call: each power iteration re-streams the cohort. The
     panel accumulates on the device; between passes and at the end it
     comes to the host in float64, where Ω ← orth(Y) and the centering run.
+    In a process group each rank streams its manifest slice, and the
+    ranks' partial panels are summed. ``sharded`` tags the accumulate
+    spans as a host-local mesh's (the JAX attribute).
     """
     dev = resolve_device(device)
     if oversample is None:
@@ -289,7 +309,10 @@ def sketch_panel_blockwise(
             _augmented_omega(omega_cur, n_samples, first_pass=first)
         )
         y = torch.zeros((n_samples, l + 1), dtype=torch.float32, device=dev)
-        with obs.span(SKETCH_ACCUMULATE, n=n_samples, l=l, sketch_pass=p):
+        attrs = {"sharded": True} if sharded else {}
+        with obs.span(
+            SKETCH_ACCUMULATE, n=n_samples, l=l, sketch_pass=p, **attrs
+        ):
             for window_idx, lens in windows_factory():
                 lens = np.asarray(lens)
                 window_idx = np.asarray(window_idx)
@@ -397,20 +420,29 @@ def sketch_eig(
     Returns ``(coords, vals)``: coords (n, k) sign-normalized unit
     eigenvector entries, the surface the exact finishes emit, and the k
     approximate eigenvalues. The spectral-gap check runs on the full
-    l-wide Ritz spectrum, as every exact finish's does.
+    l-wide Ritz spectrum, as every exact finish's does. A mesh panel's
+    finish is the TSQR of
+    :func:`~spark_examples_tpu_torch.parallel.sharded.sharded_sketch_finish`.
     """
     with obs.span(SKETCH_FINISH, n=panel.n, k=k, l=panel.l):
-        y, omega = panel.y, panel.omega
-        norm = float(np.linalg.norm(y))
-        if norm == 0.0:
-            # All-zero cohort: C = 0, every coordinate is 0.
-            return np.zeros((panel.n, k)), np.zeros(k)
-        nu = np.sqrt(panel.n) * np.finfo(np.float32).eps * norm
-        y_nu = y + nu * omega
-        q, r = np.linalg.qr(y_nu)
-        b = omega.T @ y_nu
-        u1, vals = _nystrom_core(r, b, nu)
-        coords = q @ u1
+        if panel.mesh is not None:
+            from spark_examples_tpu_torch.parallel.sharded import (
+                sharded_sketch_finish,
+            )
+
+            coords, vals = sharded_sketch_finish(panel, k)
+        else:
+            y, omega = panel.y, panel.omega
+            norm = float(np.linalg.norm(y))
+            if norm == 0.0:
+                # All-zero cohort: C = 0, every coordinate is 0.
+                return np.zeros((panel.n, k)), np.zeros(k)
+            nu = np.sqrt(panel.n) * np.finfo(np.float32).eps * norm
+            y_nu = y + nu * omega
+            q, r = np.linalg.qr(y_nu)
+            b = omega.T @ y_nu
+            u1, vals = _nystrom_core(r, b, nu)
+            coords = q @ u1
         check_spectral_gap(vals, k, timer=timer)
         coords = normalize_eigvec_signs(coords[: panel.n, :k])
         return coords, vals[:k]

@@ -40,6 +40,12 @@ rank raises on every rank at the same step:
   half of itself (the mirror slabs) and :func:`_mirror_fill` swaps and
   transposes the halves at the end.
 
+The sketch engine's mesh half is here too: :func:`sharded_sketch_panel`
+streams CSR windows into a replicated (N, k+p) panel (on a pod through the
+synced carrier stream, its dense steps one all-reduce of each rank's own
+columns' contribution) and :func:`sharded_sketch_finish` factors it with
+the two-level TSQR of :func:`sketch_tsqr` over the mesh's row blocks.
+
 Two transports: payloads on the card use the process group (NCCL on
 cards, gloo on the CPU); the sparse stream's host agreement uses the pod
 exchange's TCP mesh. Only the consumer (main) thread calls
@@ -118,6 +124,9 @@ __all__ = [
     "sharded_gramian_blockwise",
     "sharded_gramian_blockwise_global",
     "sharded_pcoa",
+    "sharded_sketch_finish",
+    "sharded_sketch_panel",
+    "sketch_tsqr",
     "sparse_sharded_gramian_blockwise",
     "topk_eig_randomized",
 ]
@@ -169,6 +178,76 @@ def _grid_shape(mesh: Mesh):
             f"{mesh.axis_names}"
         )
     return mesh.shape[d_axis], (mesh.shape[m_axis] if m_axis else 1)
+
+
+def _split(n: int, parts: int, size: int):
+    """``parts`` slices of ``size`` indices from 0, clipped to n."""
+    return [
+        slice(min(i * size, n), min((i + 1) * size, n)) for i in range(parts)
+    ]
+
+
+def jax_tile_splits(n: int, mesh: Mesh):
+    """The row and the column slices of an (n, n) G's tiles under the JAX
+    package's ``P(data, model)`` sharding: n / parts wide. The port's own
+    grid pads n to a multiple of the device count instead
+    (:meth:`ShardedGramian.splits`), so the two differ where the device
+    count does not divide n. Where an axis does not divide n, JAX refuses
+    the sharding; the split is then ceil(n / parts) wide, the last tiles
+    short or empty."""
+    rows, cols = _grid_shape(mesh)
+    return _split(n, rows, -(-n // rows)), _split(n, cols, -(-n // cols))
+
+
+def _overlap(a: slice, b: slice) -> Optional[slice]:
+    lo, hi = max(a.start, b.start), min(a.stop, b.stop)
+    return slice(lo, hi) if lo < hi else None
+
+
+def _retile(mesh: Mesh, src, src_splits, dst, dst_splits) -> None:
+    """Copy an (n, n) G from one tile grid over the mesh's (data, model)
+    positions into another, in place: ``src`` and ``dst`` are object
+    arrays of this rank's tiles (None for a peer's), tile (i, j) holding
+    the global rows ``splits[0][i]`` and columns ``splits[1][j]`` from its
+    corner. A block whose two tiles are on one rank is copied; a block
+    that changes ranks travels in one all-reduce that every rank joins
+    (its source rank adds the block, the others zeros). Every rank walks
+    the blocks in the same order."""
+    me = distributed.process_index()
+    home = mesh.local_devices()[0]
+
+    def owner(ij):
+        return int(mesh.processes[_grid_index(mesh, *ij)])
+
+    for d_ij in np.ndindex(dst.shape):
+        d_rows, d_cols = dst_splits[0][d_ij[0]], dst_splits[1][d_ij[1]]
+        for s_ij in np.ndindex(src.shape):
+            s_rows, s_cols = src_splits[0][s_ij[0]], src_splits[1][s_ij[1]]
+            rows, cols = _overlap(d_rows, s_rows), _overlap(d_cols, s_cols)
+            if rows is None or cols is None:
+                continue
+            s_own, d_own = owner(s_ij), owner(d_ij)
+            if me not in (s_own, d_own) and s_own == d_own:
+                continue
+            if s_own == me:
+                block = src[s_ij][
+                    rows.start - s_rows.start:rows.stop - s_rows.start,
+                    cols.start - s_cols.start:cols.stop - s_cols.start,
+                ]
+            if s_own != d_own:
+                buf = torch.zeros(
+                    (rows.stop - rows.start, cols.stop - cols.start),
+                    dtype=torch.float32,
+                    device=home,
+                )
+                if s_own == me:
+                    buf.copy_(block)
+                block = distributed.allreduce_sum_(buf)
+            if d_own == me:
+                dst[d_ij][
+                    rows.start - d_rows.start:rows.stop - d_rows.start,
+                    cols.start - d_cols.start:cols.stop - d_cols.start,
+                ] = block.to(dst[d_ij].device)
 
 
 class ShardedGramian:
@@ -250,6 +329,39 @@ class ShardedGramian:
     def tile_origin(self, i: int, j: int):
         """Row and column offset of tile (i, j) in the padded matrix."""
         return i * self.tile_rows, j * self.tile_cols
+
+    def splits(self):
+        """The global row and column slices of the tiles, clipped to n."""
+        rows, cols = self.tiles.shape
+        return (
+            _split(self.n, rows, self.tile_rows),
+            _split(self.n, cols, self.tile_cols),
+        )
+
+    def jax_tiles(self) -> np.ndarray:
+        """This rank's tiles of G in the JAX package's split
+        (:func:`jax_tile_splits`), as an object array like ``tiles``: a
+        collective on a spanning grid, which every rank calls."""
+        splits = jax_tile_splits(self.n, self.mesh)
+        out = np.empty(self.tiles.shape, dtype=object)
+        for (i, j), tile in self.local_tiles():
+            rows, cols = splits[0][i], splits[1][j]
+            out[i, j] = torch.zeros(
+                (rows.stop - rows.start, cols.stop - cols.start),
+                dtype=tile.dtype,
+                device=tile.device,
+            )
+        _retile(self.mesh, self.tiles, self.splits(), out, splits)
+        return out
+
+    @classmethod
+    def from_jax_tiles(cls, tiles: np.ndarray, n: int, mesh: Mesh):
+        """The inverse of :meth:`jax_tiles`: a grid laid out from this
+        rank's tiles in the JAX package's split (a collective on a
+        spanning grid)."""
+        g = cls.zeros(n, mesh)
+        _retile(mesh, tiles, jax_tile_splits(n, mesh), g.tiles, g.splits())
+        return g
 
     def add_(self, g) -> "ShardedGramian":
         """Add an (n, n) tensor or array, or a tile grid of the same
@@ -1567,3 +1679,316 @@ def sharded_pcoa(
         c, k, mesh=mesh, timer=timer, tol=eig_tol
     )
     return coords.cpu().numpy(), vals.cpu().numpy()
+
+
+# -- Gramian-free sketch panels (ops/sketch.py's mesh half) ------------------
+
+
+def _flat_devices(mesh: Mesh):
+    """``(device, owner)`` for every device of ``mesh`` in row-major
+    order: the device axis the JAX package flattens every mesh axis into
+    (``P(all_axes)``), so block ``d`` of a row-split panel lives on
+    entry ``d``."""
+    return list(zip(mesh.devices.flat, (int(p) for p in mesh.processes.flat)))
+
+
+def _sketch_pod_scatter(y: torch.Tensor, om: torch.Tensor, idx) -> None:
+    """A pod scatter step into the replicated panel: the step's global
+    carrier matrix (every rank's rows, sentinel ``n_padded``) back to CSR
+    form and through the meshless scatter update. Every rank applies the
+    same pairs, so the replicas stay equal."""
+    from spark_examples_tpu_torch.ops.sketch import _sketch_scatter_update
+
+    idx = np.asarray(idx)
+    real = idx < y.shape[0]
+    _sketch_scatter_update(
+        y, om, idx[real].astype(np.int64), real.sum(axis=1).astype(np.int64)
+    )
+
+
+def _sketch_pod_dense_contrib(
+    xp_local: torch.Tensor, om: torch.Tensor
+) -> torch.Tensor:
+    """One rank's card work on a dense pod step of the sketch panel: its
+    own packed variant columns unpacked, and ``X_loc·(X_locᵀ·Ω̃)`` in
+    float32 on ``om``'s device."""
+    xb = unpack_indicator_block(
+        xp_local.to(om.device), 8 * xp_local.shape[1]
+    ).to(om.dtype)
+    return (xb @ (xb.T @ om)).contiguous()
+
+
+def _sketch_pod_dense_step(
+    y: torch.Tensor, xp_local: torch.Tensor, om: torch.Tensor
+) -> None:
+    """The dense-route pod step of the sketch panel (JAX
+    ``_sketch_pod_dense_kernel``): this rank's contribution
+    (:func:`_sketch_pod_dense_contrib`), and one all-reduce over the group
+    sums the ranks' contributions into every replica. No (N, V) unpack
+    leaves a rank."""
+    contrib = _sketch_pod_dense_contrib(xp_local, om)
+    distributed.allreduce_sum_(contrib)
+    y += contrib
+
+
+def sketch_tsqr(y, mesh: Mesh):
+    """Tall-skinny QR of an (n_padded, l) panel over the mesh's row blocks
+    (JAX ``sketch_tsqr``): the sketch finish's factorization.
+
+    The rows split into one block a device of the mesh, every axis
+    flattened (:func:`_flat_devices`). Each local block gets a thin QR on
+    its device; the (l, l) R factors are gathered (from the local list
+    on a single-controller mesh, through the process group on a pod);
+    one QR of the stacked (D·l, l) factors runs on every rank; each block
+    composes its Q with its slice of the second-level Q. Returns
+    ``(q, r)``: ``q`` a list of the D row blocks, the ones this process
+    holds (None for a peer's), each on its device; ``r`` the (l, l)
+    factor on this process's first device. Needs ``n_padded / D ≥ l``
+    (:func:`sharded_sketch_finish` takes the host QR below that).
+    """
+    flat = _flat_devices(mesh)
+    d = len(flat)
+    y = torch.as_tensor(y)
+    n_padded, l = int(y.shape[0]), int(y.shape[1])
+    if n_padded % d:
+        raise ValueError(
+            f"panel rows {n_padded} are not a multiple of the mesh's "
+            f"{d} devices"
+        )
+    rows = n_padded // d
+    if rows < l:
+        raise ValueError(
+            f"TSQR needs n_padded / devices >= l; got {rows} rows a "
+            f"device for l = {l}"
+        )
+    rank = distributed.process_index()
+    local = [i for i, (_, owner) in enumerate(flat) if owner == rank]
+    home = flat[local[0]][0]
+    q1, r1 = {}, {}
+    for i in local:
+        block = y[i * rows:(i + 1) * rows].to(flat[i][0], torch.float32)
+        q1[i], r1[i] = torch.linalg.qr(block)
+    if mesh_spans_processes(mesh):
+        counts = distributed.allgather_ints([len(local)]).ravel()
+        if len(set(counts.tolist())) != 1:
+            raise ValueError(
+                f"TSQR over a pod needs as many devices on every rank; got "
+                f"{counts.tolist()}"
+            )
+        mine = torch.stack([r1[i].to(home) for i in local])
+        parts = distributed.allgather_concat(mine, dim=0)
+        owners = [owner for _, owner in flat]
+        order = sorted(range(d), key=lambda i: (owners[i], i))
+        stacked = torch.empty((d, l, l), dtype=parts.dtype, device=home)
+        stacked[order] = parts.to(home)
+        stacked = stacked.reshape(d * l, l)
+    else:
+        stacked = torch.cat([r1[i].to(home) for i in range(d)], dim=0)
+    q2, r = torch.linalg.qr(stacked)
+    q = [None] * d
+    for i in local:
+        dev = flat[i][0]
+        q[i] = q1[i] @ q2[i * l:(i + 1) * l].to(dev)
+    return q, r
+
+
+def sharded_sketch_panel(
+    windows_factory,
+    n_samples: int,
+    k: int,
+    mesh: Mesh,
+    oversample: Optional[int] = None,
+    power_iters: Optional[int] = None,
+    seed: int = 0,
+    density_threshold: Optional[float] = None,
+    block_variants: Optional[int] = None,
+    pipeline_depth: int = 2,
+    coalesce_variants: Optional[int] = None,
+):
+    """Stream CSR carrier windows into a mesh-replicated (N, k+p) sketch
+    panel (JAX ``sharded_sketch_panel``): the ``--pca-mode sketch`` twin
+    of :func:`sparse_sharded_gramian_blockwise`, with no N×N tile
+    anywhere.
+
+    The panel is O(N·(k+p)) float32 and replicated; the mesh buys the
+    window machinery and the TSQR finish. Two paths:
+
+    - a single-controller mesh, and a host-local mesh in a process group:
+      every window updates every row of the panel (the Gramian's
+      sample-range restriction does not apply), so the meshless engine
+      runs on the mesh's first device, over each rank's manifest slice,
+      and sums the ranks' partial panels;
+    - a pod: :func:`_synced_carrier_stream` (``pipeline_depth``,
+      ``coalesce_variants``), scatter steps through the meshless scatter
+      update on the global carrier matrix, dense steps through
+      :func:`_sketch_pod_dense_step`.
+
+    ``windows_factory`` returns a fresh window iterator per call: each of
+    the ``power_iters + 1`` passes re-streams the cohort with Ω ← orth(Y).
+    Returns a :class:`~spark_examples_tpu_torch.ops.sketch.SketchPanel`
+    of host float64 panels with ``n_padded`` rows (a multiple of the
+    mesh's device count, the pad rows zero) and ``mesh`` set.
+    """
+    from spark_examples_tpu_torch.ops.pcoa import DEFAULT_SKETCH_POWER_ITERS
+    from spark_examples_tpu_torch.ops.sketch import (
+        SketchPanel,
+        sketch_host_bytes,
+        sketch_panel_blockwise,
+    )
+
+    if density_threshold is None:
+        density_threshold = DEFAULT_SPARSE_DENSITY_THRESHOLD
+    if oversample is None:
+        oversample = DEFAULT_RANDOMIZED_OVERSAMPLE
+    if power_iters is None:
+        power_iters = DEFAULT_SKETCH_POWER_ITERS
+    l = randomized_panel_width(n_samples, k, oversample)
+    n_padded = round_up_multiple(n_samples, mesh.size)
+    local = mesh.local_devices()
+    if not local:
+        raise ValueError(
+            f"process {distributed.process_index()} holds no device of "
+            f"{mesh}: every rank of a pod needs one"
+        )
+    if mesh_spans_processes(mesh):
+        y, omega, row_sums = _pod_sketch_passes(
+            windows_factory, n_samples, n_padded, l, power_iters, seed,
+            density_threshold, block_variants or DEFAULT_BLOCK_VARIANTS,
+            mesh.size, local[0], pipeline_depth, coalesce_variants,
+        )
+    else:
+        panel = sketch_panel_blockwise(
+            windows_factory, n_samples, k, oversample=oversample,
+            power_iters=power_iters, seed=seed,
+            density_threshold=density_threshold,
+            block_variants=block_variants, device=local[0], sharded=True,
+        )
+        y, omega, row_sums = panel.y, panel.omega, panel.row_sums
+    pad = ((0, n_padded - n_samples), (0, 0))
+    return SketchPanel(
+        y=np.pad(y, pad),
+        omega=np.pad(omega, pad),
+        row_sums=row_sums,
+        n=n_samples,
+        k=k,
+        l=l,
+        seed=seed,
+        power_iters=power_iters,
+        mesh=mesh,
+        host_peak_bytes=sketch_host_bytes(n_padded, l),
+    )
+
+
+def _pod_sketch_passes(
+    windows_factory, n, n_padded, l, power_iters, seed, density_threshold,
+    width, n_devices, dev, pipeline_depth, coalesce_variants,
+):
+    """A pod's ``power_iters + 1`` sketch passes over the synced carrier
+    stream, every rank holding the whole replicated panel on ``dev``.
+    Returns the host float64 ``(y, omega, row_sums)`` over the n real
+    rows, as :func:`~spark_examples_tpu_torch.ops.sketch.sketch_panel_blockwise`
+    returns them."""
+    from spark_examples_tpu_torch.ops.sketch import (
+        SKETCH_WINDOWS,
+        _augmented_omega,
+        _center_columns,
+        _note_sketch_window,
+        gaussian_test_matrix,
+    )
+    from spark_examples_tpu_torch.utils.tracing import (
+        SKETCH_ACCUMULATE,
+        SKETCH_WINDOW,
+    )
+
+    omega_cur = gaussian_test_matrix(n, l, seed)
+    for p in range(power_iters + 1):
+        first = p == 0
+        # One zero row past the padding: the carrier sentinel n_padded
+        # gathers it.
+        om = torch.zeros((n_padded + 1, l + 1), dtype=torch.float32,
+                         device=dev)
+        om[:n_padded] = torch.from_numpy(_augmented_omega(
+            np.pad(omega_cur, ((0, n_padded - n), (0, 0))), n, first
+        ))
+        y = torch.zeros((n_padded, l + 1), dtype=torch.float32, device=dev)
+        with obs.span(SKETCH_ACCUMULATE, n=n, l=l, sharded=True,
+                      sketch_pass=p):
+            stream = _synced_carrier_stream(
+                windows_factory(),
+                n,
+                n_padded,
+                density_threshold,
+                width,
+                n_devices,
+                pipeline_depth=pipeline_depth,
+                coalesce_variants=coalesce_variants,
+            )
+            for route, payload, nnz, n_variants, step, n_win, sid in stream:
+                with obs.span(
+                    SKETCH_WINDOW,
+                    route=route,
+                    nnz=nnz,
+                    variants=n_variants,
+                    step=step,
+                    stream=sid,
+                    windows=n_win,
+                ):
+                    if route == "scatter":
+                        _sketch_pod_scatter(y, om, payload)
+                    else:
+                        _sketch_pod_dense_step(y, payload, om[:n_padded])
+                SKETCH_WINDOWS[route] += n_win
+                _note_sketch_window(route, count=n_win)
+        y_np = y[:n].cpu().numpy().astype(np.float64)
+        if first:
+            row_sums = y_np[:, -1].copy()
+        y_host = _center_columns(y_np[:, :-1], n)
+        if p < power_iters:
+            q, _ = np.linalg.qr(y_host)
+            omega_cur = q.astype(np.float32)
+    return y_host, _center_columns(omega_cur.astype(np.float64), n), row_sums
+
+
+def sharded_sketch_finish(panel, k: int):
+    """The sketch's Nyström finish on a mesh (JAX
+    ``sharded_sketch_finish``): :func:`sketch_tsqr` of the shifted panel
+    over the mesh's row blocks, the (k+p)×(k+p) core on the host in
+    float64, and the coordinates ``Q·U₁`` on each block's device. Below
+    ``n_padded / D < l`` rows a device, the QR runs on the host. Returns
+    ``(coords (n_padded, l), vals (l,))`` as host float64 arrays; the
+    caller (:func:`~spark_examples_tpu_torch.ops.sketch.sketch_eig`)
+    trims, checks the gap and normalizes the signs."""
+    from spark_examples_tpu_torch.ops.sketch import _nystrom_core
+
+    mesh = panel.mesh
+    y, omega = panel.y, panel.omega
+    norm = float(np.linalg.norm(y))
+    if norm == 0.0:
+        return np.zeros((panel.n, panel.l)), np.zeros(panel.l)
+    nu = float(np.sqrt(panel.n) * np.finfo(np.float32).eps * norm)
+    y_nu = y + nu * omega
+    n_padded, l = y_nu.shape
+    rows_loc = n_padded // mesh.size
+    b = omega.T @ y_nu
+    if rows_loc < l:
+        # Fewer rows a device than panel columns: the local QR's shape
+        # contract breaks, and the whole finish is small on the host.
+        q, r = np.linalg.qr(y_nu)
+        u1, vals = _nystrom_core(r, b, nu)
+        return q @ u1, vals
+    q_blocks, r_dev = sketch_tsqr(
+        torch.from_numpy(y_nu.astype(np.float32)), mesh
+    )
+    r = r_dev.cpu().numpy().astype(np.float64)
+    u1, vals = _nystrom_core(r, b, nu)
+    u = torch.from_numpy(u1.astype(np.float32))
+    home = r_dev.device
+    coords = torch.zeros((n_padded, l), dtype=torch.float32, device=home)
+    for i, qi in enumerate(q_blocks):
+        if qi is not None:
+            rows = qi.shape[0]
+            coords[i * rows:(i + 1) * rows] = (qi @ u.to(qi.device)).to(home)
+    if mesh_spans_processes(mesh):
+        # Each row block comes from one rank, so the sum is a copy.
+        distributed.allreduce_sum_(coords)
+    return coords.cpu().numpy().astype(np.float64), vals

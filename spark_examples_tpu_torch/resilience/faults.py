@@ -70,6 +70,11 @@ Sites wired in the port (glob-matched, so ``transport.*`` works):
                              (torn = the committed file truncated to half,
                              a filesystem without atomic rename: the
                              loader discards it with a warning)
+``checkpoint.lane_write``    elastic lane commit, keyed by its path
+                             (torn/error/stall)
+``checkpoint.lane_supersede`` a crash between a merged lane's write and
+                             the deletion of the lanes it supersedes
+                             (leaves stale subset lanes)
 ===========================  ===============================================
 """
 

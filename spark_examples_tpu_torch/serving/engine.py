@@ -66,9 +66,10 @@ class AnalysisEngine:
     cache doubt. Default 0 runs every job cold.
 
     ``mesh`` (a :class:`~spark_examples_tpu_torch.parallel.mesh.Mesh`)
-    runs every job's driver on that mesh, with G as a tile grid; the
-    delta tier is off under a mesh, and the tier runs no gangs there (it
-    probes ``mesh``).
+    runs every job's driver on that mesh, with G as a tile grid (a
+    sketch job's panel through ``sharded_sketch_panel`` and its TSQR
+    finish); the delta tier is off under a mesh, and the tier runs no
+    gangs there (it probes ``mesh``).
     """
 
     def __init__(

@@ -1,8 +1,9 @@
-"""The mesh layer, the data-parallel regime and the pod across several
-cards.
+"""The mesh layer, the data-parallel regime, the pod, the pod sketch and
+the process-group checkpoints across several cards.
 
     python3 -m spark_examples_tpu_torch.tools.multi_card [--samples N]
-        [--variants V] [--device cuda|cpu] [--legs mesh,ranks,pod]
+        [--variants V] [--device cuda|cpu]
+        [--legs mesh,ranks,pod,sketch,podckpt,elastic]
 
 Over ``chip_smoke.py``'s sparse-slice cohort (N = 2504, V = 65536 rare
 variants, ``synthetic_cohort(seed=0, population_structure=3,
@@ -28,7 +29,19 @@ rare_variant_af=0.01, sparse_calls=True)``) written as a JSONL directory:
    within 1e-4; each rank's scatter launches, ``ingest+gramian`` and run
    seconds, and its launch to exit; then ``sparse`` on the square grid
    with ``--pod-pipeline-depth 0`` against 2 and
-   ``--pod-coalesce-variants 0`` against 256 (protocol steps, seconds).
+   ``--pod-coalesce-variants 0`` against 256 (protocol steps, seconds);
+4. **the pod sketch**: C ranks run ``--pca-mode sketch`` on the same
+   spanning meshes; rank 0's rows must be one process's sketch rows
+   within 1e-4, with no scatter launch;
+5. **pod checkpoints**: C ranks run ``--checkpoint-dir`` over 9 shards
+   (``--bases-per-partition 10000``, one shard a round) on the square
+   spanning mesh, G replicated and sample-sharded; every rank stalls after
+   round 1's snapshot and the tool SIGKILLs them all; C fresh ranks resume
+   from round 1, G bit-identical to the uncheckpointed G;
+6. **elastic checkpoints**: C ranks run ``--elastic-checkpoint`` (one
+   shard a unit); once every rank has written a lane the tool SIGKILLs
+   them; C/2 ranks resume every lane and the rest of the units, G
+   bit-identical.
 
 Prints each reading, the card's name and power limit, and one JSON line.
 ``--device cpu`` tries the tool at a small size without a card (the CPU's
@@ -235,6 +248,335 @@ def _pod_leg(root, device, cards, g_ref, want, alone, coord_tol):
     return summary
 
 
+# The checkpoint legs' manifest: 9 shards of the cohort's region, one
+# shard a round (pod) or a unit (elastic).
+CKPT_BASES, CKPT_EVERY = 10_000, 1
+# A shard stalled this long holds a rank until the tool kills it.
+HOLD_S = 600
+
+
+def _ckpt_conf(device, **kw):
+    return PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID], device=device,
+                     bases_per_partition=CKPT_BASES,
+                     checkpoint_every=CKPT_EVERY, **kw)
+
+
+def _hold_after(shards: int):
+    """A fault plan that stalls this rank's shard ingest after ``shards``
+    shards (the rank then waits to be killed)."""
+    from spark_examples_tpu_torch.resilience import faults
+    from spark_examples_tpu_torch.resilience.faults import FaultPlan, FaultRule
+
+    faults.install_plan(FaultPlan(rules=[FaultRule(
+        site="ingest.shard", kind="stall", stall_s=HOLD_S, after=shards)]))
+
+
+def _scatter_probe(device: str):
+    """Seconds of this process's first and second sketch scatter updates
+    on ``device``, before any pod run (a 2504-row panel and one
+    8192-variant window, the card synced around each): a cost that a
+    process pays once shows as their difference."""
+    from spark_examples_tpu_torch.ops.sketch import _sketch_scatter_update
+
+    rng = np.random.default_rng(0)
+    n, l = 2504, 13
+    lens = rng.integers(1, 9, size=8192)
+    idx = np.concatenate([rng.choice(n, size=int(k), replace=False)
+                          for k in lens])
+    seconds = []
+    for _ in range(2):
+        y = torch.zeros((n, l), device=device)
+        om = torch.ones((n + 1, l), device=device)
+        om[n] = 0  # the carrier sentinel's row
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _sketch_scatter_update(y, om, idx, lens)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(round(time.perf_counter() - t0, 6))
+    return seconds
+
+
+def _span_breakdown(tracer) -> dict:
+    """Where a run's seconds went, from its spans: seconds and count by
+    span name, each sketch pass's start and length, and the first and the
+    longest window, every time in seconds from the run's start."""
+    from spark_examples_tpu_torch.utils.tracing import (
+        SKETCH_ACCUMULATE,
+        SKETCH_WINDOW,
+    )
+
+    events = [e for e in tracer.to_chrome()["traceEvents"]
+              if e.get("ph") == "X"]
+    counts = tracer.stage_counts()
+    out = {"seconds": {k: [round(v, 6), counts[k]]
+                       for k, v in tracer.stage_seconds().items()},
+           "passes": [[e["args"].get("sketch_pass"), round(e["ts"] / 1e6, 6),
+                       round(e["dur"] / 1e6, 6)] for e in events
+                      if e["name"] == SKETCH_ACCUMULATE]}
+    wins = [e for e in events if e["name"] == SKETCH_WINDOW]
+    if wins:
+        first = min(wins, key=lambda e: e["ts"])
+        longest = max(wins, key=lambda e: e["dur"])
+        out["first_window"] = [round(first["ts"] / 1e6, 6),
+                               round(first["dur"] / 1e6, 6)]
+        out["longest_window"] = [round(longest["ts"] / 1e6, 6),
+                                 round(longest["dur"] / 1e6, 6),
+                                 longest["args"].get("route")]
+    return out
+
+
+def _leg_worker(leg: str, root: str, out_dir: str, phase: str,
+                device: str) -> int:
+    """One rank of the sketch and checkpoint legs.
+
+    - ``sketch``: ``--pca-mode sketch`` on every spanning mesh;
+    - ``podckpt``: ``--checkpoint-dir`` on the square spanning mesh with G
+      replicated (``phase`` ``replicated-*``) or sample-sharded
+      (``tiled-*``): ``*-kill`` stalls after the first round's snapshot
+      (the tool kills the rank), ``*-resume`` resumes;
+    - ``elastic``: ``--elastic-checkpoint`` with no mesh: ``kill`` stalls
+      after one unit, ``resume`` (at another world size) resumes.
+    """
+    from spark_examples_tpu_torch.parallel import (
+        ShardedGramian,
+        distributed,
+        mesh_spans_processes,
+    )
+
+    t_start = time.perf_counter()
+    assert distributed.initialize_from_env(device), "no process group"
+    rank, world = distributed.process_index(), distributed.process_count()
+    source = JsonlSource(root)
+    report = {"rank": rank, "world": world, "runs": {}}
+    if leg == "sketch":
+        from spark_examples_tpu_torch import obs
+
+        report["scatter_probe_s"] = _scatter_probe(device)
+        for spec in _mesh_specs(world):
+            mesh = make_mesh(spec, device=device)
+            assert mesh_spans_processes(mesh), spec
+            conf = PcaConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                             device=device, pca_mode="sketch")
+            tracer = obs.SpanTracer()
+            obs.set_tracer(tracer)
+            t0 = time.perf_counter()
+            try:
+                driver, coords, launches = _run(conf, source, mesh)
+            finally:
+                obs.set_tracer(None)
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"rows {spec}.npy"), coords)
+            report["runs"][spec] = {
+                "run_s": time.perf_counter() - t0, "launches": launches,
+                "n_padded": int(driver.g.y.shape[0]),
+                **{k: round(v, 6) for k, v in driver.timer.seconds.items()},
+                "spans": _span_breakdown(tracer),
+            }
+    else:
+        if leg == "podckpt":
+            layout, step = phase.split("-")
+            kw = dict(checkpoint_dir=os.path.join(out_dir, layout),
+                      sample_sharded=layout == "tiled")
+            mesh = make_mesh(_mesh_specs(world)[-1], device=device)
+        else:
+            step = phase
+            kw = dict(checkpoint_dir=os.path.join(out_dir, "elastic"),
+                      elastic_checkpoint=True)
+            mesh = None
+        if step == "kill":
+            _hold_after(1)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        scatter_kernel.SCATTER_KERNEL_LAUNCHES = 0
+        with contextlib.redirect_stdout(out):
+            driver = VariantsPcaDriver(_ckpt_conf(device, **kw), source,
+                                       mesh=mesh)
+            g = driver.get_similarity_matrix_checkpointed()
+            g = g.full() if isinstance(g, ShardedGramian) else g
+            g = g.cpu().numpy()
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"g {phase}.npy"), g)
+        report["runs"][phase] = {
+            "s": time.perf_counter() - t0,
+            "shards_read": source.stats.partitions,
+            "launches": scatter_kernel.SCATTER_KERNEL_LAUNCHES,
+            "lines": [ln for ln in out.getvalue().splitlines()
+                      if ln.startswith(("Resuming", "Elastic"))],
+        }
+    report["worker_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"{leg} {phase} rank{rank}.json"),
+              "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _spawn_ranks(leg, root, out_dir, phase, device, cards, kill_when=None):
+    """``cards`` ranks of one process group running :func:`_leg_worker`.
+    With ``kill_when``, every rank is SIGKILLed once it returns True (the
+    ranks are then held by a stalled shard). Returns (seconds from launch
+    to exit, the rank reports or None after a kill)."""
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "spark_examples_tpu_torch.tools.multi_card",
+             "--leg-worker", leg, root, out_dir, phase, "--device", device],
+            env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": port, "WORLD_SIZE": str(cards),
+                 "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(cards)
+    ]
+    try:
+        if kill_when is not None:
+            deadline = time.perf_counter() + HOLD_S / 2
+            while not kill_when():
+                dead = [r for r, pr in enumerate(procs) if pr.poll() is not None]
+                if dead or time.perf_counter() > deadline:
+                    errs = [pr.communicate()[1][-2000:] for pr in procs
+                            if pr.poll() is not None]
+                    raise SystemExit(f"multi_card: {leg} {phase}: ranks "
+                                     f"{dead} ended before the kill: {errs}")
+                time.sleep(0.05)
+            for pr in procs:
+                pr.kill()
+            for pr in procs:
+                pr.wait(timeout=60)
+            return time.perf_counter() - t0, None
+        outs = [pr.communicate(timeout=900) for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+    for r, (pr, (_, e)) in enumerate(zip(procs, outs)):
+        if pr.returncode:
+            raise SystemExit(f"multi_card: {leg} {phase} rank {r}: "
+                             f"{e[-3000:]}")
+    reports = []
+    for r in range(cards):
+        with open(os.path.join(out_dir, f"{leg} {phase} rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return time.perf_counter() - t0, reports
+
+
+def _sketch_leg(root, device, cards, alone, coord_tol):
+    """Leg 4: the pod sketch on every spanning mesh against one process's
+    sketch."""
+    out_dir = tempfile.mkdtemp(prefix="multi_card_sketch_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    exit_s, reports = _spawn_ranks("sketch", root, out_dir, "run", device,
+                                   cards)
+    summary = {"launch_to_exit_s": exit_s, "runs": {}}
+    for spec in reports[0]["runs"]:
+        coords = np.load(os.path.join(out_dir, f"rows {spec}.npy"))
+        err = float(np.abs(coords - alone).max())
+        per_rank = [rep["runs"][spec] for rep in reports]
+        if err > coord_tol or any(r["launches"] for r in per_rank):
+            raise SystemExit(f"multi_card: pod sketch {spec}: rows {err:.3e} "
+                             "from the one process's, launches "
+                             f"{[r['launches'] for r in per_rank]}")
+        if per_rank[0]["n_padded"] % cards:
+            raise SystemExit(f"multi_card: pod sketch {spec}: n_padded "
+                             f"{per_rank[0]['n_padded']}")
+        summary["runs"][spec] = {"max_abs_err": err, "ranks": per_rank}
+        print(f"pod sketch {spec}: {cards} ranks, rank 0's rows {err:.3e} "
+              f"from the one process's sketch; per rank: ingest+gramian "
+              f"{[r.get('ingest+gramian') for r in per_rank]} s, pca "
+              f"{[r.get('pca') for r in per_rank]} s, run "
+              f"{[round(r['run_s'], 3) for r in per_rank]} s", flush=True)
+        for rank, r in enumerate(per_rank):
+            print(f"  rank {rank} spans: {json.dumps(r['spans'])}",
+                  flush=True)
+    print("pod sketch leg: each rank's first and second sketch scatter "
+          f"updates before its runs: "
+          f"{[rep['scatter_probe_s'] for rep in reports]} s", flush=True)
+    print(f"pod sketch leg: {cards} ranks {exit_s:.2f} s launch to exit",
+          flush=True)
+    return summary
+
+
+def _snapshots_at_round_one(directory, cards, tiled):
+    name = ("gramian_sharded_snapshot.npz" if tiled
+            else "gramian_snapshot.npz")
+    for r in range(cards):
+        path = os.path.join(directory, f"host-{r}", name)
+        try:
+            with np.load(path) as z:
+                if int(z["shards_done"]) < 1:
+                    return False
+        except (OSError, ValueError, KeyError):
+            return False
+    return True
+
+
+def _checkpoint_legs(root, device, cards, g_ckpt, legs):
+    """Legs 5 and 6: a pod checkpoint killed and resumed on both layouts,
+    and an elastic run of ``cards`` ranks killed and resumed at half as
+    many. Every resumed G must be ``g_ckpt`` bit for bit."""
+    out_dir = tempfile.mkdtemp(prefix="multi_card_ckpt_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    summary = {}
+
+    def resumed(name, phase, n_ranks, want_line):
+        exit_s, reports = _spawn_ranks(name, root, out_dir, phase, device,
+                                       n_ranks)
+        g = np.load(os.path.join(out_dir, f"g {phase}.npy"))
+        runs = [rep["runs"][phase] for rep in reports]
+        lines = runs[0]["lines"]
+        if not np.array_equal(g, g_ckpt):
+            raise SystemExit(f"multi_card: {name} {phase}: G is not the "
+                             "uncheckpointed G")
+        if not any(ln.startswith(want_line) for ln in lines):
+            raise SystemExit(f"multi_card: {name} {phase}: {lines}")
+        if any(r["launches"] for r in runs):
+            raise SystemExit(f"multi_card: {name} {phase} launched the "
+                             "scatter kernel")
+        return {"launch_to_exit_s": exit_s, "lines": lines,
+                "shards_read": [r["shards_read"] for r in runs],
+                "s": [round(r["s"], 6) for r in runs]}
+
+    for layout in ("replicated", "tiled") if "podckpt" in legs else ():
+        directory = os.path.join(out_dir, layout)
+        kill_s, _ = _spawn_ranks(
+            "podckpt", root, out_dir, f"{layout}-kill", device, cards,
+            kill_when=lambda: _snapshots_at_round_one(
+                directory, cards, layout == "tiled"))
+        rec = resumed("podckpt", f"{layout}-resume", cards,
+                      "Resuming pod ingest from round 1/")
+        rec["killed_after_s"] = kill_s
+        summary[f"pod checkpoint {layout}"] = rec
+        print(f"pod checkpoint, G {layout}: {cards} ranks SIGKILLed "
+              f"{kill_s:.2f} s after launch, at round 1's snapshots; the "
+              f"resume ({rec['lines'][0]}) read {rec['shards_read']} shards, "
+              f"G bit-identical, {rec['launch_to_exit_s']:.2f} s launch to "
+              f"exit", flush=True)
+    if "elastic" in legs:
+        lanes = os.path.join(out_dir, "elastic", "elastic")
+
+        def all_ranks_banked():
+            try:
+                names = [f for f in os.listdir(lanes)
+                         if f.startswith("lane-") and f.endswith(".npz")]
+            except OSError:
+                return False
+            return len(names) >= cards
+
+        kill_s, _ = _spawn_ranks("elastic", root, out_dir, "kill", device,
+                                 cards, kill_when=all_ranks_banked)
+        half = max(1, cards // 2)
+        rec = resumed("elastic", "resume", half,
+                      f"Elastic resume: {cards}/")
+        rec["killed_after_s"] = kill_s
+        summary[f"elastic {cards} -> {half} ranks"] = rec
+        print(f"elastic: {cards} ranks SIGKILLed {kill_s:.2f} s after launch "
+              f"with a lane each; {half} ranks resumed ({rec['lines'][0]}), "
+              f"read {rec['shards_read']} shards, G bit-identical, "
+              f"{rec['launch_to_exit_s']:.2f} s launch to exit", flush=True)
+    return summary
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -244,6 +586,13 @@ def main(argv=None) -> int:
         w.add_argument("--device", default="cuda")
         a = w.parse_args(argv)
         return _pod_worker(*a.pod_worker, a.device)
+    if argv[:1] == ["--leg-worker"]:
+        w = argparse.ArgumentParser()
+        w.add_argument("--leg-worker", nargs=4,
+                       metavar=("LEG", "ROOT", "OUT", "PHASE"))
+        w.add_argument("--device", default="cuda")
+        a = w.parse_args(argv)
+        return _leg_worker(*a.leg_worker, a.device)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--samples", type=int, default=2504)
     p.add_argument("--variants", type=int, default=65536)
@@ -253,8 +602,8 @@ def main(argv=None) -> int:
     p.add_argument("--cards", type=int, default=None,
                    help="cards (ranks) to use; default: every card, 4 on "
                    "the CPU")
-    p.add_argument("--legs", default="mesh,ranks,pod",
-                   help="comma-separated legs to run (default all three)")
+    p.add_argument("--legs", default="mesh,ranks,pod,sketch,podckpt,elastic",
+                   help="comma-separated legs to run (default all six)")
     args = p.parse_args(argv)
     legs = set(args.legs.split(","))
     on_card = args.device == "cuda"
@@ -366,6 +715,20 @@ def main(argv=None) -> int:
             _, alone[mode], _ = _run(PcaConfig(pca_mode=mode, **base), source)
         summary["pod"] = _pod_leg(root, args.device, cards, g_ref, want,
                                   alone, args.coord_tol)
+
+    # 4. the pod sketch; 5 and 6. pod and elastic checkpoints --------------
+    if "sketch" in legs:
+        _, sketch_alone, _ = _run(PcaConfig(pca_mode="sketch", **base),
+                                  source)
+        summary["sketch"] = _sketch_leg(root, args.device, cards,
+                                        sketch_alone, args.coord_tol)
+    if legs & {"podckpt", "elastic"}:
+        g_ckpt = VariantsPcaDriver(
+            _ckpt_conf(args.device), source).ingest_gramian().cpu().numpy()
+        if not np.array_equal(g_ckpt, g_ref):
+            raise SystemExit("multi_card: the 9-shard G is not the G")
+        summary["checkpoints"] = _checkpoint_legs(root, args.device, cards,
+                                                  g_ckpt, legs)
     print(smi[0])
     print(json.dumps(summary))
     return 0

@@ -1,14 +1,10 @@
 """Flag system: the configuration of ``pca`` and the other subcommands.
 
 The JAX package's ``PcaConfig`` / ``add_pca_flags`` cut to what the port
-serves so far (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
+serves (GenomicsConf/PcaConf parity, ``GenomicsConf.scala:31-101``):
 every field and flag here keeps the JAX package's name and default, and
-:func:`add_analyze_flags` is the analysis tier's surface. Options of routes
-not ported yet (the sketch under a mesh, checkpoints across processes,
-elastic checkpoints) are accepted and then refused with
-``NotImplementedError`` naming the ROADMAP.md item that ports them, never
-silently ignored. ``--device``
-is the port's own: ``cuda`` by default, ``cpu`` only when asked.
+:func:`add_analyze_flags` is the analysis tier's surface. ``--device`` is
+the port's own: ``cuda`` by default, ``cpu`` only when asked.
 """
 
 from __future__ import annotations
@@ -50,7 +46,6 @@ __all__ = [
     "add_analyze_flags",
     "add_pca_flags",
     "pca_config_from_args",
-    "unported",
 ]
 
 # The JAX package's --pca-mode registry.
@@ -70,14 +65,6 @@ def _csv_list(value: str) -> List[str]:
     """argparse type for comma-separated id lists (empty items dropped,
     so a trailing comma is not a silent empty id)."""
     return [item for item in value.split(",") if item]
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error every not-yet-ported option raises."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, Queue 1: {item})"
-    )
 
 
 @dataclass
@@ -131,8 +118,9 @@ class PcaConfig:
     pod_coalesce_variants: int = DEFAULT_POD_COALESCE_VARIANTS
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 64  # shards per Gramian snapshot
-    # World-size-independent checkpointing (the JAX package's
-    # utils/elastic.py): refused until the mesh layer is ported.
+    # World-size-independent checkpointing (utils/elastic.py): work units
+    # over the GLOBAL manifest and self-describing lane files, so a resume
+    # runs on any number of ranks.
     elastic_checkpoint: bool = False
     # Shard the N×N Gramian over the mesh as a tile grid. None = auto
     # (shard when N exceeds sample_shard_threshold); on a sample-sharded
@@ -349,8 +337,12 @@ def add_pca_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--elastic-checkpoint",
         action="store_true",
-        help="World-size-independent checkpointing (not ported yet: it "
-        "needs the mesh layer's process group)",
+        help="World-size-independent checkpointing: fixed work units over "
+        "the GLOBAL manifest with self-describing lane files, so a crashed "
+        "or shrunken process group resumes on ANY number of ranks and the "
+        "survivors re-execute a lost rank's remaining units. Multi-rank "
+        "runs need --checkpoint-dir on a shared filesystem; host-local "
+        "(data-parallel) accumulation only",
     )
     p.add_argument(
         "--dense-eigh-limit",

@@ -506,9 +506,28 @@ class TestRefusals:
         with pytest.raises(ValueError, match="sparse does not compose"):
             VariantsPcaDriver(_port(conf), None)
 
-    def test_elastic_checkpoint_names_item_8(self):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            VariantsPcaDriver(
-                _port(dict(checkpoint_dir="/x", elastic_checkpoint=True)),
-                None,
-            )
+    def test_elastic_checkpoint_names_item_8(self, tmp_path):
+        """``--elastic-checkpoint`` is served now: with a checkpoint
+        directory its G is the uncheckpointed G and the JAX package's
+        elastic G bit for bit. The refusal that stays is the JAX driver's:
+        it needs a checkpoint directory (in either package, before any
+        ingest)."""
+        conf = dict(elastic_checkpoint=True)
+        for make, config in ((VariantsPcaDriver, _port),
+                             (JaxDriver, lambda kw: JaxConfig(**kw))):
+            with pytest.raises(ValueError, match="requires --checkpoint-dir"):
+                make(config(conf), None)
+        settings = _settings(tmp_path, elastic_checkpoint=True)
+        g = VariantsPcaDriver(
+            _port(settings), synthetic_cohort(12, 200, seed=7)
+        ).ingest_gramian().numpy()
+        jax_settings = dict(settings, checkpoint_dir=str(tmp_path / "j"))
+        want = JaxDriver(
+            JaxConfig(**jax_settings), jax_synthetic_cohort(12, 200, seed=7)
+        ).ingest_gramian()
+        plain = VariantsPcaDriver(
+            _port(_plain(settings) | {"elastic_checkpoint": False}),
+            synthetic_cohort(12, 200, seed=7),
+        ).ingest_gramian().numpy()
+        np.testing.assert_array_equal(g, np.asarray(want))
+        np.testing.assert_array_equal(g, plain)

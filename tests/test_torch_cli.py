@@ -3,9 +3,10 @@
 ``generate-fixture`` must write the JAX package's cohort directory byte for
 byte and print the same line; ``search-variants-klotho`` and
 ``-brca1`` must print the same report from the same records (the fixture
-of ``tests/test_search_variants.py`` and a served cohort). Options of later
-ROADMAP.md items raise ``NotImplementedError`` naming their item, before any
-request; the gRPC and mirror options run as the JAX CLI's do.
+of ``tests/test_search_variants.py`` and a served cohort). The options that
+earlier slices refused (gRPC and the mirror, ``serve-cohort --analyze``,
+the sketch under ``--mesh-shape``, ``--elastic-checkpoint``) run as the
+JAX CLI's do.
 """
 
 import filecmp
@@ -303,7 +304,58 @@ def _served_analyze(tmp_path, capsys, monkeypatch, request):
         proc.stdout.close()
 
 
+def _served_mesh(tmp_path, capsys, monkeypatch, request):
+    """``pca --pca-mode sketch --mesh-shape data:2`` (item 7's last part):
+    rows within 1e-4 of the JAX CLI's on its two-device mesh and of the
+    port's meshless sketch."""
+    argv = [*_CK_ARGS, "--pca-mode", "sketch", "--sketch-power-iters", "2"]
+    assert cli.main([*argv, "--mesh-shape", "data:2", "--device",
+                     "cpu"]) == 0
+    port = _tsv_rows(capsys.readouterr().out)
+    assert cli.main([*argv, "--device", "cpu"]) == 0
+    plain = _tsv_rows(capsys.readouterr().out)
+    assert jax_cli.main([*argv, "--mesh-shape", "data:2"]) == 0
+    jax = _tsv_rows(capsys.readouterr().out)
+    assert len(port) == 24
+    _assert_same_rows(port, plain)
+    _assert_same_rows(port, jax)
+
+
+def _served_checkpoint(tmp_path, capsys, monkeypatch, request):
+    """``pca --checkpoint-dir --elastic-checkpoint`` (item 8's last part):
+    rows within 1e-4 of the JAX CLI's; the lanes it leaves resume a port
+    rerun and a JAX run ("Elastic resume: 3/3 units ...") with the same
+    rows."""
+    ck = ["--checkpoint-dir", str(tmp_path / "c"), "--checkpoint-every",
+          "2", "--elastic-checkpoint"]
+    assert cli.main([*_CK_ARGS, *ck, "--device", "cpu"]) == 0
+    port = _tsv_rows(capsys.readouterr().out)
+    assert jax_cli.main([*_CK_ARGS, "--checkpoint-dir", str(tmp_path / "j"),
+                         "--checkpoint-every", "2",
+                         "--elastic-checkpoint"]) == 0
+    _assert_same_rows(port, _tsv_rows(capsys.readouterr().out))
+    resume = ("Elastic resume: 3/3 units already covered by 1 lane(s); "
+              "this process claims 1 lane(s) + 0 new unit(s).")
+    assert cli.main([*_CK_ARGS, *ck, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert resume in out
+    assert _tsv_rows(out) == port
+    assert jax_cli.main([*_CK_ARGS, *ck]) == 0
+    out = capsys.readouterr().out
+    assert resume in out
+    _assert_same_rows(port, _tsv_rows(out))
+
+
+def _assert_same_rows(got, want):
+    assert [(r[0], r[1]) for r in got] == [(r[0], r[1]) for r in want]
+    for a, b in zip(got, want):
+        assert abs(float(a[2]) - float(b[2])) <= 1e-4
+        assert abs(float(a[3]) - float(b[3])) <= 1e-4
+
+
 _SERVED = {
+    "mesh": _served_mesh,
+    "checkpoint": _served_checkpoint,
     "grpc": _served_grpc,
     "cache-dir-network": lambda *a: _served_mirror("full", *a),
     "mirror-mode": lambda *a: _served_mirror("light", *a),
@@ -324,26 +376,19 @@ _SERVED = {
             ("cache-dir-offline", None, None),
             ("grpc-port", None, None),
             ("analyze", None, None),
-            ("mesh",
-             ["pca", "--fixture-samples", "4", "--mesh-shape", "data:2",
-              "--pca-mode", "sketch"],
-             "item 7"),
-            ("checkpoint",
-             ["pca", "--fixture-samples", "4", "--checkpoint-dir", "c",
-              "--elastic-checkpoint"],
-             "item 8"),
+            ("mesh", None, None),
+            ("checkpoint", None, None),
         ]
     ],
 )
 def test_unserved_options_name_their_roadmap_item(
         case, argv, item, request, tmp_path, capsys, monkeypatch):
-    """Options of later items raise naming their item. The item-2 options
-    (gRPC and the cohort mirror) and item 6's ``serve-cohort --analyze``
-    are served now: each case runs them and holds them to the JAX CLI. Of
-    item 7 the sketch under ``--mesh-shape`` is refused (the mesh itself
-    runs: ``tests/test_torch_parallel_pipeline.py``); of item 8 only
-    ``--elastic-checkpoint`` is refused; ``--checkpoint-dir`` runs
-    (``test_checkpointed_pca_prints_the_jax_clis_rows``)."""
+    """The options of the ROADMAP items that earlier slices refused are all
+    served now: the item-2 options (gRPC and the cohort mirror), item 6's
+    ``serve-cohort --analyze``, item 7's sketch under ``--mesh-shape`` and
+    item 8's ``--elastic-checkpoint``. Each case runs its option and holds
+    it to the JAX CLI; a case given an ``argv`` and an ``item`` would
+    expect the refusal naming it."""
     if item is None:
         _SERVED[case](tmp_path, capsys, monkeypatch, request)
         return

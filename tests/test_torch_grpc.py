@@ -475,13 +475,16 @@ def test_stream_reads_over_a_cohort_without_reads(servers):
                 assert src.stats.reads_read == 0
 
 
-def test_compute_pca_names_item_8(servers, cohort_dir, request):
+def test_compute_pca_names_item_8(servers, cohort_dir, request, tmp_path,
+                                  capsys):
     """``ComputePca`` is served (item 8's meshless half): a server given a
     backend answers both packages' clients with the JAX backend's
     coordinates, and ``compute_pca`` works in both packages' clients; a
     server without one still registers no ``ComputePca``, as the JAX
-    package's. The item-8 refusal that remains, ``--elastic-checkpoint``,
-    is refused over ``grpc://`` too."""
+    package's. Item 8's last part, ``--elastic-checkpoint``, runs over
+    ``grpc://`` too: its G is the JAX driver's elastic G over the same
+    server bit for bit, and the JAX driver resumes the port's lanes into
+    it."""
     from spark_examples_tpu.bridge import TpuPcaBackend
     from spark_examples_tpu_torch.bridge import TorchPcaBackend
 
@@ -515,12 +518,23 @@ def test_compute_pca_names_item_8(servers, cohort_dir, request):
         with _open(client_pkg, servers["port"]) as src:
             with pytest.raises(IOError, match="UNIMPLEMENTED"):
                 src.compute_pca(iter([[0, 1]]), 4, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VariantsPcaDriver(
-            PcaConfig(device="cpu", elastic_checkpoint=True,
-                      checkpoint_dir="ck", **SETTINGS),
-            None,
-        )
+    ck = dict(SETTINGS, pca_mode="auto", elastic_checkpoint=True,
+              checkpoint_every=1)
+    with _open("port", servers["port"]) as src:
+        g = VariantsPcaDriver(
+            PcaConfig(device="cpu", checkpoint_dir=str(tmp_path / "p"),
+                      **ck), src,
+        ).ingest_gramian().numpy()
+    with _open("jax", servers["port"]) as src:
+        want = JaxDriver(JaxConfig(checkpoint_dir=str(tmp_path / "j"), **ck),
+                         src).ingest_gramian()
+    with _open("jax", servers["jax"]) as src:
+        resumed = JaxDriver(
+            JaxConfig(checkpoint_dir=str(tmp_path / "p"), **ck), src
+        ).ingest_gramian()
+    assert "Elastic resume:" in capsys.readouterr().out
+    np.testing.assert_array_equal(g, np.asarray(want))
+    np.testing.assert_array_equal(g, np.asarray(resumed))
 
 
 def test_a_taken_port_is_a_loud_bind_error():

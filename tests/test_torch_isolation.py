@@ -106,6 +106,7 @@ def test_every_module_imports_without_jax():
         "utils.checkpoint",
         "utils.collectivecheck",
         "utils.concurrency",
+        "utils.elastic",
         "utils.lockcheck",
         "utils.softcancel",
         "utils.stats",
@@ -119,7 +120,7 @@ def test_every_module_imports_without_jax():
                  "utils/softcancel.py", "parallel/__init__.py",
                  "parallel/distributed.py", "parallel/mesh.py",
                  "parallel/podstream.py", "parallel/sharded.py",
-                 "utils/collectivecheck.py"):
+                 "utils/collectivecheck.py", "utils/elastic.py"):
         assert os.path.join(PKG_DIR, *path.split("/")) in _port_sources()
     assert os.path.join(PKG_DIR, "csrc", "genomics_native.cpp") in (
         _port_sources(_CSRC_EXTS)
@@ -320,6 +321,33 @@ def test_the_pod_modules_import_with_jax_blocked():
         [sys.executable, "-c", script],
         cwd=ROOT,
         env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_the_elastic_and_sketch_mesh_modules_import_with_jax_blocked():
+    """The last slice's modules: the elastic lanes (the JAX package's
+    ``utils/elastic.py`` copied, not imported) and the sketch's mesh half,
+    with jax blocked and nothing of the JAX package loaded."""
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spark_examples_tpu_torch.utils import elastic\n"
+        "from spark_examples_tpu_torch.parallel.sharded import (\n"
+        "    sharded_sketch_finish, sharded_sketch_panel, sketch_tsqr)\n"
+        "assert elastic.unit_ranges(5, 2) == [(0, 2), (2, 4), (4, 5)]\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'spark_examples_tpu'\n"
+        "             or m.startswith('spark_examples_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script],
+        cwd=ROOT,
         capture_output=True,
         text=True,
         timeout=120,

@@ -11,8 +11,10 @@ virtual CPU devices (``tests/conftest.py``). On the same seeded cohorts:
   the JAX driver's and of the host float64 oracle;
 - the CLI (``pca --device cpu --mesh-shape data:4,model:2``) prints the
   JAX CLI's rows within 1e-4;
-- what still raises: the sketch under a mesh (item 7), ``fused`` under a
-  mesh, a checkpoint in a multi-process run (item 8);
+- what a mesh refuses (``fused``, a restricted cohort) and what runs now:
+  the sketch under a mesh, forced or by ``auto``'s flip, and a checkpoint
+  in a multi-process run (each rank's ``host-<p>`` snapshot), held to the
+  JAX driver;
 - checkpointed ingest on a mesh resumes bit for bit;
 - a meshed analysis-engine job and a meshed bridge call give the meshless
   and the JAX package's rows within 1e-4.
@@ -198,40 +200,98 @@ def test_the_mesh_flags_keep_the_jax_names_and_defaults():
 @pytest.mark.parametrize(
     "kw,error,match",
     [
-        (dict(pca_mode="sketch"), NotImplementedError, "item 7"),
+        (dict(pca_mode="sketch"), None, None),
         (dict(pca_mode="fused"), ValueError, "fused requires"),
         (dict(samples=["x"]), ValueError, "meshless"),
     ],
     ids=["sketch", "fused", "restricted"],
 )
 def test_what_a_mesh_refuses_before_ingest(kw, error, match):
-    with pytest.raises(error, match=match):
-        VariantsPcaDriver(
-            PcaConfig(device="cpu", **{**SETTINGS, **kw}), None,
-            mesh=make_mesh(SPEC, device="cpu"),
-        )
+    """``fused`` and a restricted cohort are refused on a mesh; the sketch
+    (``error`` None) runs, its rows within 1e-4 of the JAX driver's on its
+    mesh of the same shape."""
+    conf = PcaConfig(device="cpu", **{**SETTINGS, **kw})
+    if error is not None:
+        with pytest.raises(error, match=match):
+            VariantsPcaDriver(conf, None, mesh=make_mesh(SPEC, device="cpu"))
+        return
+    rows = VariantsPcaDriver(
+        conf, synthetic_cohort(N, V, **COHORT),
+        mesh=make_mesh(SPEC, device="cpu"),
+    ).run()
+    jax_rows = JaxDriver(
+        JaxConfig(**{**SETTINGS, **kw}), jax_synthetic_cohort(N, V, **COHORT),
+        mesh=jax_make_mesh(SPEC),
+    ).run()
+    assert [r[0] for r in rows] == [r[0] for r in jax_rows]
+    assert np.abs(_coords(rows) - _coords(jax_rows)).max() <= COORD_TOL
 
 
 def test_auto_flipping_to_the_sketch_under_a_mesh_raises(monkeypatch):
+    """``auto``'s flip past the G budget runs the sketch on the mesh (the
+    JAX driver's flip, the same rows within 1e-4); the window route of
+    the serving engine still serves meshless runs only."""
     monkeypatch.setattr(VariantsPcaDriver, "SKETCH_AUTO_G_BYTES", 0)
+    monkeypatch.setattr(JaxDriver, "SKETCH_AUTO_G_BYTES", 0)
     driver = VariantsPcaDriver(
         PcaConfig(device="cpu", pca_mode="auto", **SETTINGS),
         synthetic_cohort(N, V, **COHORT), mesh=make_mesh(SPEC, device="cpu"),
     )
     assert driver.sketch_selected()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        driver.ingest_gramian()
+    rows = driver.run()
+    assert driver.g.mesh is not None
+    jax_rows = JaxDriver(
+        JaxConfig(pca_mode="auto", **SETTINGS),
+        jax_synthetic_cohort(N, V, **COHORT), mesh=jax_make_mesh(SPEC),
+    ).run()
+    assert np.abs(_coords(rows) - _coords(jax_rows)).max() <= COORD_TOL
     with pytest.raises(ValueError, match="meshless"):
         driver.ingest_gramian_windows()
 
 
 def test_a_checkpoint_in_a_process_group_raises(monkeypatch, tmp_path):
+    """A checkpoint in a process group runs: each rank snapshots its own
+    manifest slice into ``host-<p>`` under the JAX driver's ``|host=p/P``
+    digest, and the partials sum to the one-process G and the JAX
+    package's (the group is simulated one rank at a time: the merge is
+    recorded in place of the all-reduce). The JAX package's loader reads
+    each rank's snapshot under the JAX digest."""
+    from spark_examples_tpu.genomics.shards import (
+        manifest_digest as jax_manifest_digest,
+    )
+    from spark_examples_tpu.utils.checkpoint import (
+        load_snapshot as jax_load_snapshot,
+    )
+
+    settings = dict(SETTINGS, pca_mode="auto", checkpoint_every=2,
+                    bases_per_partition=20_000)
+    partials = []
     monkeypatch.setattr(distributed, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VariantsPcaDriver(
-            PcaConfig(device="cpu", pca_mode="auto",
-                      checkpoint_dir=str(tmp_path), **SETTINGS), None,
+    monkeypatch.setattr(distributed, "allreduce_gramian",
+                        lambda g: partials.append(g.clone()) or g)
+    for rank in (0, 1):
+        monkeypatch.setattr(distributed, "process_index", lambda r=rank: r)
+        driver = VariantsPcaDriver(
+            PcaConfig(device="cpu", checkpoint_dir=str(tmp_path), **settings),
+            synthetic_cohort(N, V, **COHORT),
         )
+        driver.ingest_gramian()
+        shards = driver._manifest()
+        digest = (f"{jax_manifest_digest(shards)}|{DEFAULT_VARIANT_SET_ID}"
+                  f"|af=None|host={rank}/2")
+        ck = jax_load_snapshot(str(tmp_path / f"host-{rank}"), digest, N)
+        assert ck is not None and ck.shards_done == len(shards)
+        np.testing.assert_array_equal(ck.g, partials[-1].numpy())
+    monkeypatch.undo()
+    g = (partials[0] + partials[1]).numpy()
+    plain = dict(settings)
+    del plain["checkpoint_every"]
+    np.testing.assert_array_equal(g, VariantsPcaDriver(
+        PcaConfig(device="cpu", **plain), synthetic_cohort(N, V, **COHORT)
+    ).ingest_gramian().numpy())
+    np.testing.assert_array_equal(g, np.asarray(JaxDriver(
+        JaxConfig(**plain), jax_synthetic_cohort(N, V, **COHORT)
+    ).ingest_gramian()))
 
 
 def test_mesh_footprint_counts_every_tile():

@@ -154,21 +154,78 @@ def test_cpu_run_launches_no_kernel(tmp_path, capsys):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        ({"mesh_shape": "data:2", "pca_mode": "sketch"}, "item 7"),
-        ({"pca_mode": "auto", "checkpoint_dir": "/nonexistent",
-          "elastic_checkpoint": True}, "item 8"),
+        ({"mesh_shape": "data:2", "pca_mode": "sketch"}, None),
+        ({"pca_mode": "auto", "checkpoint_dir": "<tmp>",
+          "elastic_checkpoint": True, "checkpoint_every": 2,
+          "bases_per_partition": 20_000}, None),
     ],
     ids=["mesh", "checkpoint"],
 )
-def test_unported_options_raise_before_ingest(kw, match):
-    """Options the port does not serve yet raise naming their item: of
-    the mesh routes the sketch under a mesh (``--mesh-shape`` itself runs:
-    ``tests/test_torch_parallel_pipeline.py``), and of the checkpoint
-    options only ``--elastic-checkpoint`` (``--checkpoint-dir`` itself
-    runs: ``test_checkpointed_driver_matches_the_jax_driver``)."""
+def test_unported_options_raise_before_ingest(kw, match, tmp_path):
+    """The options earlier slices refused here run now, and each is held to
+    the JAX driver: the sketch under ``--mesh-shape`` (rows within 1e-4 of
+    the JAX driver on its mesh of the same shape, which builds its mesh in
+    its CLI, so the test passes it one) and ``--elastic-checkpoint`` (G
+    bit-identical to the uncheckpointed G and to the JAX package's elastic
+    G, which also resumes from the port's lanes; each package's lane
+    loader reads the port's lane). A case with a
+    ``match`` would expect the refusal naming its item."""
+    import jax
+
+    from spark_examples_tpu.parallel import make_mesh as jax_make_mesh
+    from spark_examples_tpu.utils import elastic as jax_elastic
+    from spark_examples_tpu_torch.utils import elastic
+
+    kw = {k: (str(tmp_path / "p") if v == "<tmp>" else v)
+          for k, v in kw.items()}
     settings = {**SETTINGS, **kw}
-    with pytest.raises(NotImplementedError, match=match):
-        VariantsPcaDriver(PcaConfig(device="cpu", **settings), None)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            VariantsPcaDriver(PcaConfig(device="cpu", **settings), None)
+        return
+    port = VariantsPcaDriver(PcaConfig(device="cpu", **settings),
+                             synthetic_cohort(N, V, **COHORT))
+    rows = port.run()
+    jax_settings = dict(settings)
+    mesh = None
+    if "mesh_shape" in jax_settings:
+        mesh = jax_make_mesh(jax_settings.pop("mesh_shape"),
+                             devices=jax.devices()[:2])
+    if "checkpoint_dir" in jax_settings:
+        jax_settings["checkpoint_dir"] = str(tmp_path / "j")
+    jax_driver = JaxDriver(JaxConfig(**jax_settings),
+                           jax_synthetic_cohort(N, V, **COHORT), mesh=mesh)
+    jax_rows = jax_driver.run()
+    assert [r[0] for r in rows] == [r[0] for r in jax_rows]
+    np.testing.assert_allclose(np.array([r[1:] for r in rows]),
+                               np.array([r[1:] for r in jax_rows]),
+                               atol=1e-4)
+    if "checkpoint_dir" not in kw:
+        return
+    plain = {k: v for k, v in settings.items()
+             if k not in ("checkpoint_dir", "elastic_checkpoint")}
+    g_plain = VariantsPcaDriver(
+        PcaConfig(device="cpu", **plain), synthetic_cohort(N, V, **COHORT)
+    ).ingest_gramian().numpy()
+    np.testing.assert_array_equal(port.g.numpy(), g_plain)
+    # The JAX driver resumes the port's lanes (every unit covered) into
+    # the same G.
+    resumed = JaxDriver(JaxConfig(**{**jax_settings,
+                                     "checkpoint_dir": kw["checkpoint_dir"]}),
+                        jax_synthetic_cohort(N, V, **COHORT))
+    np.testing.assert_array_equal(port.g.numpy(),
+                                  np.asarray(resumed.ingest_gramian()))
+    lane_dir = os.path.join(kw["checkpoint_dir"], "elastic")
+    (name,) = [f for f in os.listdir(lane_dir) if f.startswith("lane-")]
+    for loader in (elastic.load_lanes, jax_elastic.load_lanes):
+        digest = _lane_digest(lane_dir, name)
+        (lane,) = loader(lane_dir, digest, N)
+        np.testing.assert_array_equal(lane.load_g(), g_plain)
+
+
+def _lane_digest(directory, name):
+    with np.load(os.path.join(directory, name)) as z:
+        return bytes(z["run_digest"]).decode()
 
 
 @pytest.mark.parametrize("mode", ["auto", "fused", "stream"])

@@ -228,6 +228,11 @@ _WORKER = textwrap.dedent(
         report["stdout"][name] = buf.getvalue()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
+    # Tear the group down together before exiting, as torch asks, so no
+    # rank's exit races a peer's teardown.
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
     """
 )
 

@@ -19,6 +19,7 @@ directory the other wrote.
 import http.client
 import json
 import os
+import re
 import socket
 import time
 
@@ -51,6 +52,7 @@ from spark_examples_tpu_torch.serving import (
     job_config,
 )
 from spark_examples_tpu_torch.serving.queue import AdmissionQueue
+from spark_examples_tpu_torch.ops.sketch import SKETCH_FULLRANK_ATOL
 from spark_examples_tpu_torch.utils.config import PcaConfig
 from spark_examples_tpu_torch.utils.lockcheck import set_lock_check
 
@@ -101,6 +103,27 @@ def _base_conf(**kw):
     kw.setdefault("ingest_workers", 2)
     kw.setdefault("device", "cpu")
     return PcaConfig(**kw)
+
+
+def _jax_meshed_sketch_rows():
+    """The JAX engine's sketch job over ``served_source``'s cohort on a
+    ``data:2,model:2`` mesh of its virtual CPU devices."""
+    import jax
+
+    from spark_examples_tpu.genomics.fixtures import (
+        synthetic_cohort as jax_synthetic_cohort,
+    )
+    from spark_examples_tpu.parallel import make_mesh as jax_make_mesh
+    from spark_examples_tpu.serving import AnalysisEngine as JaxEngine
+    from spark_examples_tpu.utils.config import PcaConfig as JaxConfig
+
+    conf = JaxConfig(variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                     references=REFS, bases_per_partition=20_000,
+                     block_variants=16, pca_mode="sketch")
+    engine = JaxEngine(jax_synthetic_cohort(8, 60, seed=9),
+                       mesh=jax_make_mesh("data:2,model:2",
+                                          devices=jax.devices()[:4]))
+    return engine.run(conf)
 
 
 @pytest.fixture(scope="module")
@@ -2140,8 +2163,9 @@ class TestServeCohortCli:
     def test_mesh_shape_still_raises(self, served_source):
         """``--mesh-shape`` is served: the tier's engine runs each job on
         the mesh (rows within 1e-4 of the meshless baseline, no delta
-        tier). What still raises is the sketch under a mesh (item 7's pod
-        slice): such a job fails naming it."""
+        tier), a sketch job too (item 7's last part): its rows are the
+        meshless sketch driver's within 1e-4 and the JAX engine's sketch
+        job's on its mesh of the same shape within the full-rank bar."""
         from spark_examples_tpu_torch.cli.main import _analysis_tier
 
         src, _, baseline = served_source
@@ -2167,8 +2191,23 @@ class TestServeCohortCli:
             np.array([r[1:3] for r in baseline]),
             atol=1e-4,
         )
-        assert sketch.state == "failed"
-        assert "item 7" in sketch.error
+        assert sketch.state == "done", sketch.error
+        from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
+
+        conf = job_config(JobSpec(pca_mode="sketch"), _base_conf())
+        plain = VariantsPcaDriver(conf, src)
+        want = plain.collect_result(plain.compute_pca(plain.ingest_gramian()))
+        jax_rows = _jax_meshed_sketch_rows()
+        # Eight samples: the panel is full rank (l = n), so the JAX engine
+        # is held to the reference's full-rank bar; the float32 sums of
+        # the two packages differ in order on this gapless cohort.
+        for other, tol in ((want, 1e-4), (jax_rows, SKETCH_FULLRANK_ATOL)):
+            assert [r[0] for r in sketch.result] == [r[0] for r in other]
+            np.testing.assert_allclose(
+                np.array([r[1:3] for r in sketch.result]),
+                np.array([r[1:3] for r in other]),
+                atol=tol,
+            )
 
 
 class TestJobCheckpoints:
@@ -2357,9 +2396,10 @@ class TestJobCheckpoints:
                 line = proc.stdout.readline()
                 assert line, f"server exited: {seen}"
                 seen.append(line)
-                if "listening on http://" in line:
-                    port = int(line.rsplit(":", 1)[1].split()[0])
-                    return proc, port, seen
+                found = re.search(r"listening on http://[^:\s]+:(\d+)",
+                                  line)
+                if found:
+                    return proc, int(found.group(1)), seen
             proc.kill()
             raise TimeoutError(seen)
 

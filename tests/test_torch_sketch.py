@@ -534,3 +534,31 @@ def test_cli_sketch_on_the_cpu(tmp_path):
     assert "Non zero rows in matrix: 48 / 48." in out.stdout
     assert sum(l.count("\t") == 3 for l in out.stdout.splitlines()) == 48
     assert len((tmp_path / "cli-pca.tsv").read_text().splitlines()) == 48
+
+
+def test_the_deterministic_scope_restores_the_setting():
+    before = torch.are_deterministic_algorithms_enabled()
+    with sketch._deterministic_algorithms():
+        assert torch.are_deterministic_algorithms_enabled()
+    assert torch.are_deterministic_algorithms_enabled() == before
+
+
+def test_a_scatter_update_imports_no_compiler():
+    """A process's first scatter window sets ATen's deterministic switch
+    alone: ``torch.use_deterministic_algorithms`` would import
+    ``torch._inductor`` (seconds a process, paid in its first window)."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from spark_examples_tpu_torch.ops.sketch import "
+        "_sketch_scatter_update\n"
+        "y = torch.zeros((6, 3)); om = torch.ones((7, 3)); om[6] = 0\n"
+        "_sketch_scatter_update(y, om, np.array([0, 2, 1, 5]), "
+        "np.array([2, 2]))\n"
+        "assert y.sum() == 24, y\n"
+        "print('torch._inductor' in sys.modules)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"
