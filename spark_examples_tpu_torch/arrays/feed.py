@@ -15,7 +15,9 @@ the caching allocator does not hand the block's memory out again while the
 product still reads it. Nothing is copied from pageable memory:
 :data:`PINNED_COPIES` counts the copies made from a page-locked buffer, so
 a caller can hold it against the number of blocks. On the CPU the same
-thread and queue yield ``torch.from_numpy`` tensors.
+thread and queue yield ``torch.from_numpy`` tensors. The consumer's wait
+for each block is a ``feed.wait`` span (:data:`~spark_examples_tpu_torch.
+utils.tracing.FEED_WAIT`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from spark_examples_tpu_torch.utils.tracing import INGEST_PUT
+from spark_examples_tpu_torch.utils.tracing import FEED_WAIT, INGEST_PUT
 
 __all__ = ["PINNED_COPIES", "device_prefetch"]
 
@@ -136,18 +138,14 @@ def device_prefetch(
     t = threading.Thread(target=produce, daemon=True)
     t.start()
     try:
-        while True:
-            item = q.get()
-            if item is _SENTINEL:
-                if err:
-                    raise err[0]
-                return
-            block, copied = item
+        for block, copied in obs.waited(iter(q.get, _SENTINEL), FEED_WAIT):
             if copied is not None:
                 stream = torch.cuda.current_stream(dev)
                 stream.wait_event(copied)
                 block.record_stream(stream)
             yield block
+        if err:
+            raise err[0]
     finally:
         # Consumer abandoned the generator (close/GeneratorExit or an
         # exception in its loop body): release the producer.

@@ -14,7 +14,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.genomics.sources import VariantSource
+from spark_examples_tpu_torch.utils.tracing import CALLSETS_INDEX
 
 __all__ = ["CallsetIndex"]
 
@@ -34,11 +36,12 @@ class CallsetIndex:
     ) -> "CallsetIndex":
         indexes: Dict[str, int] = {}
         names: Dict[str, str] = {}
-        for vsid in variant_set_ids:
-            for cs in source.list_callsets(vsid):
-                if cs.id not in indexes:
-                    indexes[cs.id] = len(indexes)
-                    names[cs.id] = cs.name
+        with obs.span(CALLSETS_INDEX):
+            for vsid in variant_set_ids:
+                for cs in source.list_callsets(vsid):
+                    if cs.id not in indexes:
+                        indexes[cs.id] = len(indexes)
+                        names[cs.id] = cs.name
         print(f"Matrix size: {len(indexes)}")  # VariantsCommon.scala:48
         return CallsetIndex(indexes=indexes, names=names)
 

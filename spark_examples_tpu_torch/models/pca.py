@@ -163,6 +163,10 @@ from spark_examples_tpu_torch.utils.stats import COUNTER_FIELDS
 from spark_examples_tpu_torch.utils.tracing import (
     INGEST_FETCH,
     INGEST_STREAM,
+    ROWS_SORT,
+    ROWS_TUPLES,
+    ROWS_WRITE,
+    SHARD_WAIT,
     StageTimer,
     profiler_trace,
 )
@@ -585,8 +589,10 @@ class VariantsPcaDriver:
         bit-identical under any arrival order; only block COMPOSITION
         differs. ``auto`` resolves to completion on a cold-stream run and
         to manifest otherwise. Each shard's extraction is an
-        ``ingest.fetch`` range and the whole stream an ``ingest.stream``
-        range; the ``ingest.stream`` fault seam sits inside each shard's
+        ``ingest.fetch`` range, each pull from the fetch pool a
+        ``shard.wait`` range (the consuming thread's wait for the next
+        shard) and the whole stream an ``ingest.stream`` range; the
+        ``ingest.stream`` fault seam sits inside each shard's
         retry loop (:meth:`_shard_attempt`), so a mid-pipeline
         stall/error/truncate retries per ``--shard-retries`` and G stays
         bit-identical.
@@ -639,7 +645,10 @@ class VariantsPcaDriver:
         with obs.span(
             INGEST_STREAM, shards=len(shards), order=order, cold=cold
         ):
-            for pair in pmap(extract, shards, self._ingest_workers()):
+            for pair in obs.waited(
+                pmap(extract, shards, self._ingest_workers()),
+                SHARD_WAIT,
+            ):
                 if cold:
                     tick_cold_stream_shard("accumulated")
                 yield pair
@@ -1765,15 +1774,20 @@ class VariantsPcaDriver:
         )  # VariantsPca.scala:207-208
 
     def _emit_tuples(self, coords) -> List[Tuple[str, float, float]]:
-        coords = np.asarray(coords)
-        callset_ids = self.cohort.callset_of_index()
-        # The reference emits exactly two components regardless of --num-pc
-        # (VariantsPca.scala:228-230: array(i), array(i + numRows)).
-        pc2 = coords[:, 1] if coords.shape[1] > 1 else np.zeros(len(coords))
-        return [
-            (callset_ids[i], float(coords[i, 0]), float(pc2[i]))
-            for i in range(self.cohort.size)
-        ]
+        with obs.span(ROWS_TUPLES):
+            coords = np.asarray(coords)
+            callset_ids = self.cohort.callset_of_index()
+            # The reference emits exactly two components regardless of
+            # --num-pc (VariantsPca.scala:228-230: array(i),
+            # array(i + numRows)).
+            pc2 = (
+                coords[:, 1] if coords.shape[1] > 1
+                else np.zeros(len(coords))
+            )
+            return [
+                (callset_ids[i], float(coords[i, 0]), float(pc2[i]))
+                for i in range(self.cohort.size)
+            ]
 
     # -- stage 6: emission ---------------------------------------------------
 
@@ -1782,28 +1796,30 @@ class VariantsPcaDriver:
     ) -> List[Tuple[str, float, float, str]]:
         """``emitResult``'s row shape — ``(name, pc1, pc2, dataset)``
         sorted by name — without the emission side effects."""
-        return sorted(
-            (
-                self.cohort.names[cid],
-                pc1,
-                pc2,
-                cid.split("-")[0],  # dataset label, VariantsPca.scala:235
+        with obs.span(ROWS_SORT):
+            return sorted(
+                (
+                    self.cohort.names[cid],
+                    pc1,
+                    pc2,
+                    cid.split("-")[0],  # dataset label, VariantsPca.scala:235
+                )
+                for cid, pc1, pc2 in result
             )
-            for cid, pc1, pc2 in result
-        )
 
     def emit_result(self, result: Sequence[Tuple[str, float, float]]) -> None:
         if not distributed.is_coordinator():
             return  # rank 0 alone emits (the driver role)
         with_names = self.collect_result(result)
-        for name, pc1, pc2, dataset in with_names:
-            print(f"{name}\t{dataset}\t{pc1}\t{pc2}")
-        if self.conf.output_path:
-            path = self.conf.output_path + "-pca.tsv"
-            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            with open(path, "w") as f:
-                for name, pc1, pc2, dataset in with_names:
-                    f.write(f"{name}\t{pc1}\t{pc2}\t{dataset}\n")
+        with obs.span(ROWS_WRITE):
+            for name, pc1, pc2, dataset in with_names:
+                print(f"{name}\t{dataset}\t{pc1}\t{pc2}")
+            if self.conf.output_path:
+                path = self.conf.output_path + "-pca.tsv"
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                with open(path, "w") as f:
+                    for name, pc1, pc2, dataset in with_names:
+                        f.write(f"{name}\t{pc1}\t{pc2}\t{dataset}\n")
 
     # -- observability -------------------------------------------------------
 

@@ -5,8 +5,10 @@ The JAX package's ``obs`` package on PyTorch. Three pillars:
 1. **Span tracer** (:mod:`.tracer`): thread-safe spans/instants emitted as
    Chrome trace-event JSON (Perfetto, TensorBoard), each span also one
    ``torch.profiler.record_function`` range so host-side spans line up
-   with device traces on one timeline. ``utils.tracing.StageTimer`` records
-   through it.
+   with device traces on one timeline, and the trace file carries the
+   profiler's time base (``baseTimeNanoseconds``). ``utils.tracing.
+   StageTimer`` records through it; :func:`waited` names a thread's waits
+   at a pipeline hand-off.
 2. **Metrics registry** (:mod:`.metrics`): counters, gauges and latency
    histograms with a Prometheus text exposition and a JSONL sink. The
    ``IoStats`` parity accumulators surface here through a collector; the
@@ -36,6 +38,7 @@ from spark_examples_tpu_torch.obs.tracer import (
     set_tracer,
     span,
     trace_context,
+    waited,
 )
 from spark_examples_tpu_torch.obs.metrics import (
     Counter,
@@ -70,6 +73,7 @@ __all__ = [
     "span",
     "instant",
     "trace_context",
+    "waited",
     "Counter",
     "Gauge",
     "Histogram",

@@ -211,14 +211,6 @@ class Histogram(_Metric):
             if value > self._max:
                 self._max = value
 
-    @contextlib.contextmanager
-    def time(self) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.observe(time.perf_counter() - t0)
-
     def _state(
         self,
     ) -> Tuple[List[int], float, int, float, float]:

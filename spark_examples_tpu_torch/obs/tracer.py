@@ -9,22 +9,25 @@ so one viewer shows host-side pipeline spans next to device timelines.
 Event kinds used:
 
 - ``ph="X"`` complete events — one per finished span, with ``ts``/``dur``
-  in microseconds relative to the tracer epoch;
+  in microseconds after the tracer's start, which the file gives as
+  ``baseTimeNanoseconds`` (Unix-epoch nanoseconds), as ``torch.profiler``'s
+  exported trace does: ``ts * 1000 + baseTimeNanoseconds`` is the same
+  instant in either file of one run;
 - ``ph="i"`` instant events — point-in-time marks (HTTP retries, breaker
   transitions, injected faults) so anomalies are visible ON the timeline;
 - ``ph="C"`` counter samples;
 - ``ph="M"`` metadata events — the process name.
 
-Concurrency model: the *span stack* is thread-local (a span opened on a
-feeder thread can never corrupt another thread's nesting), while the
-finished-event list and the per-name second accumulators are guarded by one
-lock taken only at span *exit*.
+Concurrency model: the finished-event list and the per-name second
+accumulators are guarded by one lock taken only at span *exit*.
 
 Profiler alignment: every ambient :func:`span` is also ONE
 ``torch.profiler.record_function`` range of the same name, whether or not a
 telemetry session collects it, so a ``torch.profiler`` window over a run
 splits each span's host and device time by name (``chip_smoke.py`` reads
 the ingest and Gramian ranges that way). The tracer itself opens no range.
+:func:`waited` puts each pull from an iterable in a span, so a thread's
+wait at a hand-off between pipeline stages carries a name.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import os
 import socket
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional, TypeVar
 
 from torch.profiler import record_function
 
@@ -51,7 +54,10 @@ __all__ = [
     "span",
     "instant",
     "trace_context",
+    "waited",
 ]
+
+T = TypeVar("T")
 
 # Hard cap on buffered events: a runaway per-record span can otherwise
 # grow the trace without bound; past the cap events are counted, not
@@ -98,10 +104,11 @@ class SpanTracer:
     ) -> None:
         self._lock = threading.Lock()
         self._events: List[Dict[str, Any]] = []
-        self._local = threading.local()
         self._pid = os.getpid()
+        # One wall-clock reading at the start; every event time is a
+        # perf_counter offset from it.
+        self._base_ns = time.time_ns()
         self._t0 = time.perf_counter()
-        self._epoch_unix = time.time()
         self._process_name = process_name
         self._max_events = max_events
         self._dropped = 0
@@ -114,19 +121,6 @@ class SpanTracer:
 
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
-
-    # -- thread-local span stack -------------------------------------------
-
-    def _stack(self) -> list:
-        stack = getattr(self._local, "stack", None)
-        if stack is None:
-            stack = self._local.stack = []
-        return stack
-
-    def current_span(self) -> str:
-        """Name of the innermost open span on THIS thread ('' if none)."""
-        stack = self._stack()
-        return stack[-1][0] if stack else ""
 
     # -- recording ----------------------------------------------------------
 
@@ -141,17 +135,15 @@ class SpanTracer:
     def span(self, name: str, **args: Any) -> Iterator[None]:
         """Record one complete ("X") event around the body.
 
-        Safe from any thread; nesting is tracked per thread. ``args``
-        must be JSON-serializable (they land in the event's ``args``).
+        Safe from any thread. ``args`` must be JSON-serializable (they
+        land in the event's ``args``).
         """
         tid = threading.get_ident()
         trace_id = current_trace_id()
         t_start = self._now_us()
-        self._stack().append((name, t_start))
         try:
             yield
         finally:
-            self._stack().pop()
             dur = self._now_us() - t_start
             event = {
                 "name": name,
@@ -265,7 +257,7 @@ class SpanTracer:
         # process index is always 0.
         other: Dict[str, Any] = {
             "producer": self._process_name,
-            "trace_epoch_unix": self._epoch_unix,
+            "trace_epoch_unix": self._base_ns / 1e9,
             "host": socket.gethostname(),
             "pid": self._pid,
             "process_index": 0,
@@ -273,6 +265,7 @@ class SpanTracer:
         return {
             "traceEvents": meta + events,
             "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": self._base_ns,
             "otherData": other,
         }
 
@@ -355,3 +348,25 @@ def counter(name: str, **series: float) -> None:
     flightrec.note("counter", name, series or None)
     if _active:
         get_tracer().counter(name, **series)
+
+
+def waited(iterable: Iterable[T], name: str) -> Iterator[T]:
+    """Yield the items of ``iterable``, each ``next()`` inside a
+    :func:`span` of ``name``: the span is the calling thread's wait for the
+    producer on the other side of a hand-off (a queue, a worker pool). It
+    closes before the item is yielded, so the consumer's own work on the
+    item is never counted as waiting; the pull that finds the end opens
+    one too. Closing the generator closes ``iterable``'s."""
+    it = iter(iterable)
+    try:
+        while True:
+            with span(name):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+            yield item
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()

@@ -24,6 +24,17 @@ The CSR-direct ingest has :data:`INGEST_STREAM` (the whole shard stream),
 wire) and :data:`INGEST_BUILD` (one CSR window built into a bit-packed
 block, in a builder thread); and a source's per-shard extraction is an
 :func:`rpc_range` (the JAX package's ``rpc_timer`` latency sample).
+
+The port's own spans, which the JAX package does not open, name what the
+stages above leave unlabelled. Two are waits at a hand-off, each pull an
+:func:`~spark_examples_tpu_torch.obs.waited` span: :data:`FEED_WAIT`
+(the product's thread waiting for the feed's next staged block) and
+:data:`SHARD_WAIT` (the window slicer waiting on the fetch pool for the
+next shard's CSR pair). The rest wrap the per-sample host loops, once each
+a job, never per row: :data:`CALLSETS_INDEX` (the callset table read and
+built), :data:`ROWS_TUPLES` (the coordinates made rows), :data:`ROWS_SORT`
+(the rows named and sorted) and :data:`ROWS_WRITE` (the rows printed and
+written).
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ from typing import Dict, Iterator, List, Optional
 from spark_examples_tpu_torch import obs
 
 __all__ = [
+    "CALLSETS_INDEX",
+    "FEED_WAIT",
     "GRAMIAN_ACCUMULATE",
     "INGEST_BUILD",
     "INGEST_FETCH",
@@ -45,6 +58,10 @@ __all__ = [
     "INGEST_STREAM",
     "SKETCH_ACCUMULATE",
     "SKETCH_FINISH",
+    "ROWS_SORT",
+    "ROWS_TUPLES",
+    "ROWS_WRITE",
+    "SHARD_WAIT",
     "SKETCH_WINDOW",
     "StageTimer",
     "profiler_trace",
@@ -60,6 +77,12 @@ GRAMIAN_ACCUMULATE = "gramian.accumulate"
 SKETCH_ACCUMULATE = "gramian.sketch.accumulate"
 SKETCH_WINDOW = "gramian.sketch.window"
 SKETCH_FINISH = "gramian.sketch.finish"
+FEED_WAIT = "feed.wait"
+SHARD_WAIT = "shard.wait"
+CALLSETS_INDEX = "callsets.index"
+ROWS_TUPLES = "rows.tuples"
+ROWS_SORT = "rows.sort"
+ROWS_WRITE = "rows.write"
 
 
 @contextlib.contextmanager
