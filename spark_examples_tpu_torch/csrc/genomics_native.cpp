@@ -19,7 +19,9 @@
 //                            (genomics/sources.py::_CsrCohort).
 //
 // One change from the JAX package's source: the parser's thread count is
-// an argument, never an environment variable.
+// an argument, never an environment variable. One addition, at the end:
+// the row emission (models/emission.py), which the JAX package does in
+// Python.
 //
 // Built by host_build.py with g++ -O3 -shared -fPIC -std=c++17 -pthread
 // at first use and loaded with ctypes (native/__init__.py): everything is
@@ -1031,5 +1033,243 @@ void cohort_csr_free(CohortCsr* c) {
 // Struct-layout handshake: the loader checks this against the version of
 // its ctypes mirror of CohortCsr before it binds parse_cohort_jsonl.
 int64_t cohort_csr_abi_version() { return 2; }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Row emission — the driver's emitResult (models/emission.py).
+//
+// The rows are columns: sample names and callset ids as UTF-8 blobs with
+// offsets in code points (string i holds code points points[i] ..
+// points[i+1] of its blob, as Python counts them), the two coordinates as
+// float64. Each entry finds the strings' byte offsets in one pass. A row's dataset label is its id up to the first
+// '-' (the whole id if it has none): '-' is one byte in UTF-8 and never
+// part of a longer sequence. Strings are encoded with Python's
+// "surrogatepass", so every code point, a lone surrogate too, is one
+// UTF-8 sequence and byte order is code-point order.
+//
+//   * emit_order — the permutation sorted() gives the rows'
+//                  (name, pc1, pc2, dataset) tuples;
+//   * emit_rows  — the rows in that order as one TSV buffer, each float
+//                  byte-identical to Python's repr(float).
+// ---------------------------------------------------------------------------
+
+#include <algorithm>
+#include <charconv>
+#include <numeric>
+
+namespace {
+
+// Longest repr of a double: "-1.7976931348623157e+308" is 24 bytes.
+constexpr int64_t kReprMax = 24;
+
+// Python's repr(float): the shortest digits that round-trip (std::to_chars
+// gives them, the one nearest the value among the shortest), laid out
+// positionally when the decimal exponent lies in [-4, 16) and as
+// d.ddde±XX otherwise; "inf", "-inf", "nan" (a NaN's sign is not shown).
+char* repr_double(double x, char* out) {
+  if (std::isnan(x)) {
+    std::memcpy(out, "nan", 3);
+    return out + 3;
+  }
+  if (std::isinf(x)) {
+    if (x < 0) *out++ = '-';
+    std::memcpy(out, "inf", 3);
+    return out + 3;
+  }
+  char sci[32];
+  const char* end =
+      std::to_chars(sci, sci + sizeof sci, x, std::chars_format::scientific)
+          .ptr;
+  const char* p = sci;
+  if (*p == '-') {
+    *out++ = '-';
+    ++p;
+  }
+  char digits[20];
+  int k = 0;
+  digits[k++] = *p++;
+  if (*p == '.') {
+    for (++p; *p != 'e'; ++p) digits[k++] = *p;
+  }
+  ++p;  // 'e'
+  const bool neg_exp = *p++ == '-';
+  int e = 0;
+  while (p < end) e = e * 10 + (*p++ - '0');
+  if (neg_exp) e = -e;
+  if (e >= -4 && e < 16) {
+    const int point = e + 1;  // digits before the decimal point
+    if (point <= 0) {
+      *out++ = '0';
+      *out++ = '.';
+      for (int i = 0; i < -point; ++i) *out++ = '0';
+      std::memcpy(out, digits, k);
+      out += k;
+    } else if (point >= k) {
+      std::memcpy(out, digits, k);
+      out += k;
+      for (int i = k; i < point; ++i) *out++ = '0';
+      *out++ = '.';
+      *out++ = '0';
+    } else {
+      std::memcpy(out, digits, point);
+      out += point;
+      *out++ = '.';
+      std::memcpy(out, digits + point, k - point);
+      out += k - point;
+    }
+    return out;
+  }
+  *out++ = digits[0];
+  if (k > 1) {
+    *out++ = '.';
+    std::memcpy(out, digits + 1, k - 1);
+    out += k - 1;
+  }
+  *out++ = 'e';
+  *out++ = e < 0 ? '-' : '+';
+  int a = e < 0 ? -e : e;
+  if (a >= 100) {
+    *out++ = static_cast<char>('0' + a / 100);
+    a %= 100;
+  }
+  *out++ = static_cast<char>('0' + a / 10);
+  *out++ = static_cast<char>('0' + a % 10);
+  return out;
+}
+
+// Byte offsets (n + 1) of n strings in a UTF-8 blob from their offsets in
+// code points: a sequence's lead byte gives its length.
+std::vector<int64_t> byte_offsets(const uint8_t* blob, const int64_t* points,
+                                  int64_t n) {
+  std::vector<int64_t> offs(static_cast<size_t>(n + 1));
+  int64_t at = 0, point = 0;
+  for (int64_t i = 0; i <= n; ++i) {
+    for (; point < points[i]; ++point) {
+      const uint8_t c = blob[at];
+      at += c < 0x80 ? 1 : c < 0xE0 ? 2 : c < 0xF0 ? 3 : 4;
+    }
+    offs[i] = at;
+  }
+  return offs;
+}
+
+// Three-way compare of two byte strings: memcmp order, a prefix first.
+inline int compare_bytes(const uint8_t* a, int64_t la, const uint8_t* b,
+                         int64_t lb) {
+  const int c = std::memcmp(a, b, static_cast<size_t>(std::min(la, lb)));
+  if (c != 0) return c;
+  return (la > lb) - (la < lb);
+}
+
+// Byte length of id i's dataset label: up to its first '-'.
+inline int64_t label_len(const uint8_t* ids, const int64_t* id_offs,
+                         int64_t i) {
+  const uint8_t* s = ids + id_offs[i];
+  const int64_t len = id_offs[i + 1] - id_offs[i];
+  const void* dash = std::memchr(s, '-', static_cast<size_t>(len));
+  return dash == nullptr ? len : static_cast<const uint8_t*>(dash) - s;
+}
+
+inline char* put(char* out, const uint8_t* s, int64_t len) {
+  std::memcpy(out, s, static_cast<size_t>(len));
+  return out + len;
+}
+
+}  // namespace
+
+extern "C" {
+
+// order := the permutation of 0..n-1 that Python's sorted() gives the
+// tuples (name_i, pc1_i, pc2_i, dataset_i): names by code point, ties by
+// pc1, then pc2 (as floats: -0.0 equals 0.0), then dataset, and tuples
+// still equal in their first order (a stable sort). Returns 0, or 1 where
+// rows of one name carry a NaN: Python's comparisons are no order there,
+// and the caller sorts the tuples itself.
+int64_t emit_order(const uint8_t* names, const int64_t* name_points,
+                   const uint8_t* ids, const int64_t* id_points,
+                   const double* pc1, const double* pc2, int64_t n,
+                   int64_t* order) {
+  const std::vector<int64_t> name_bytes = byte_offsets(names, name_points, n);
+  const std::vector<int64_t> id_bytes = byte_offsets(ids, id_points, n);
+  const int64_t* name_offs = name_bytes.data();
+  const int64_t* id_offs = id_bytes.data();
+  // A name's first eight bytes, big-endian, decide most comparisons.
+  std::vector<uint64_t> head(static_cast<size_t>(n));
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t len = std::min<int64_t>(name_offs[i + 1] - name_offs[i], 8);
+    uint64_t h = 0;
+    for (int64_t j = 0; j < 8; ++j) {
+      h = (h << 8) | (j < len ? names[name_offs[i] + j] : 0);
+    }
+    head[i] = h;
+  }
+  auto name_cmp = [&](int64_t a, int64_t b) {
+    if (head[a] != head[b]) return head[a] < head[b] ? -1 : 1;
+    return compare_bytes(names + name_offs[a], name_offs[a + 1] - name_offs[a],
+                         names + name_offs[b], name_offs[b + 1] - name_offs[b]);
+  };
+  std::iota(order, order + n, int64_t{0});
+  std::stable_sort(order, order + n, [&](int64_t a, int64_t b) {
+    return name_cmp(a, b) < 0;
+  });
+  auto rest_less = [&](int64_t a, int64_t b) {
+    if (pc1[a] < pc1[b]) return true;
+    if (pc1[b] < pc1[a]) return false;
+    if (pc2[a] < pc2[b]) return true;
+    if (pc2[b] < pc2[a]) return false;
+    return compare_bytes(ids + id_offs[a], label_len(ids, id_offs, a),
+                         ids + id_offs[b], label_len(ids, id_offs, b)) < 0;
+  };
+  for (int64_t lo = 0; lo < n;) {
+    int64_t hi = lo + 1;
+    while (hi < n && name_cmp(order[lo], order[hi]) == 0) ++hi;
+    if (hi - lo > 1) {
+      for (int64_t j = lo; j < hi; ++j) {
+        if (std::isnan(pc1[order[j]]) || std::isnan(pc2[order[j]])) return 1;
+      }
+      std::stable_sort(order + lo, order + hi, rest_less);
+    }
+    lo = hi;
+  }
+  return 0;
+}
+
+// The rows in order as TSV into out (cap bytes): layout 0 is stdout's
+// "name\tdataset\tpc1\tpc2\n", layout 1 the -pca.tsv file's
+// "name\tpc1\tpc2\tdataset\n". Returns the bytes written, or -1 where
+// cap is under the rows' bound (every name and id, two reprs of
+// kReprMax and four separators a row).
+int64_t emit_rows(const uint8_t* names, const int64_t* name_points,
+                  const uint8_t* ids, const int64_t* id_points,
+                  const double* pc1, const double* pc2,
+                  const int64_t* order, int64_t n, int64_t layout,
+                  char* out, int64_t cap) {
+  const std::vector<int64_t> name_bytes = byte_offsets(names, name_points, n);
+  const std::vector<int64_t> id_bytes = byte_offsets(ids, id_points, n);
+  const int64_t* name_offs = name_bytes.data();
+  const int64_t* id_offs = id_bytes.data();
+  if (cap < name_offs[n] + id_offs[n] + n * (2 * kReprMax + 4)) return -1;
+  char* o = out;
+  for (int64_t k = 0; k < n; ++k) {
+    const int64_t i = order[k];
+    const int64_t set_len = label_len(ids, id_offs, i);
+    o = put(o, names + name_offs[i], name_offs[i + 1] - name_offs[i]);
+    *o++ = '\t';
+    if (layout == 0) {
+      o = put(o, ids + id_offs[i], set_len);
+      *o++ = '\t';
+    }
+    o = repr_double(pc1[i], o);
+    *o++ = '\t';
+    o = repr_double(pc2[i], o);
+    if (layout != 0) {
+      *o++ = '\t';
+      o = put(o, ids + id_offs[i], set_len);
+    }
+    *o++ = '\n';
+  }
+  return o - out;
+}
 
 }  // extern "C"

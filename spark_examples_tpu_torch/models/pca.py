@@ -89,7 +89,7 @@ from __future__ import annotations
 import os
 import sys
 import warnings
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,12 @@ from spark_examples_tpu_torch.genomics.datasets import (
 from spark_examples_tpu_torch.genomics.mirror import tick_cold_stream_shard
 from spark_examples_tpu_torch.genomics.shards import SexChromosomeFilter
 from spark_examples_tpu_torch.genomics.types import Variant
+from spark_examples_tpu_torch.models.emission import (
+    FILE_LAYOUT,
+    STDOUT_LAYOUT,
+    RowColumns,
+    note_rows,
+)
 from spark_examples_tpu_torch.ops.fused import fused_finish
 from spark_examples_tpu_torch.ops.gramian import gramian_blockwise
 from spark_examples_tpu_torch.ops.pcoa import (
@@ -1776,50 +1782,78 @@ class VariantsPcaDriver:
     def _emit_tuples(self, coords) -> List[Tuple[str, float, float]]:
         with obs.span(ROWS_TUPLES):
             coords = np.asarray(coords)
-            callset_ids = self.cohort.callset_of_index()
+            n = self.cohort.size
             # The reference emits exactly two components regardless of
             # --num-pc (VariantsPca.scala:228-230: array(i),
             # array(i + numRows)).
             pc2 = (
-                coords[:, 1] if coords.shape[1] > 1
-                else np.zeros(len(coords))
+                coords[:n, 1].tolist() if coords.shape[1] > 1
+                else [0.0] * n
             )
-            return [
-                (callset_ids[i], float(coords[i, 0]), float(pc2[i]))
-                for i in range(self.cohort.size)
-            ]
+            return list(zip(
+                self.cohort.callset_of_index(), coords[:n, 0].tolist(), pc2,
+                strict=True,
+            ))
 
     # -- stage 6: emission ---------------------------------------------------
 
     def collect_result(
-        self, result: Sequence[Tuple[str, float, float]]
+        self, result: Sequence[Tuple[str, float, float]], native: bool = True
     ) -> List[Tuple[str, float, float, str]]:
         """``emitResult``'s row shape — ``(name, pc1, pc2, dataset)``
-        sorted by name — without the emission side effects."""
+        sorted by name — without the emission side effects. ``native=False``
+        sorts the tuples themselves (the tests' reference)."""
         with obs.span(ROWS_SORT):
-            return sorted(
-                (
-                    self.cohort.names[cid],
-                    pc1,
-                    pc2,
-                    cid.split("-")[0],  # dataset label, VariantsPca.scala:235
+            if not native:
+                return sorted(
+                    (
+                        self.cohort.names[cid],
+                        pc1,
+                        pc2,
+                        cid.split("-")[0],  # dataset label, VariantsPca.scala:235
+                    )
+                    for cid, pc1, pc2 in result
                 )
-                for cid, pc1, pc2 in result
-            )
+            rows = RowColumns(result, self.cohort.names)
+            return rows.tuples(rows.order())
 
-    def emit_result(self, result: Sequence[Tuple[str, float, float]]) -> None:
+    def emit_result(
+        self, result: Sequence[Tuple[str, float, float]], native: bool = True
+    ) -> None:
+        """Print the rows in ``collect_result``'s order and write them to
+        ``--output-path``'s ``-pca.tsv``: from columns, each text in one
+        write, or (``native=False``, the tests' reference) row by row."""
         if not distributed.is_coordinator():
             return  # rank 0 alone emits (the driver role)
-        with_names = self.collect_result(result)
-        with obs.span(ROWS_WRITE):
-            for name, pc1, pc2, dataset in with_names:
-                print(f"{name}\t{dataset}\t{pc1}\t{pc2}")
-            if self.conf.output_path:
-                path = self.conf.output_path + "-pca.tsv"
-                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-                with open(path, "w") as f:
-                    for name, pc1, pc2, dataset in with_names:
-                        f.write(f"{name}\t{pc1}\t{pc2}\t{dataset}\n")
+        if native:
+            with obs.span(ROWS_SORT):
+                rows = RowColumns(result, self.cohort.names)
+                order = rows.order()
+            with obs.span(ROWS_WRITE):
+                sys.stdout.write(rows.render(order, STDOUT_LAYOUT))
+                path = self._tsv_path()
+                if path:
+                    with open(path, "w") as f:
+                        f.write(rows.render(order, FILE_LAYOUT))
+        else:
+            with_names = self.collect_result(result, native=False)
+            with obs.span(ROWS_WRITE):
+                for name, pc1, pc2, dataset in with_names:
+                    print(f"{name}\t{dataset}\t{pc1}\t{pc2}")
+                path = self._tsv_path()
+                if path:
+                    with open(path, "w") as f:
+                        for name, pc1, pc2, dataset in with_names:
+                            f.write(f"{name}\t{pc1}\t{pc2}\t{dataset}\n")
+        note_rows("native" if native else "python", len(result))
+
+    def _tsv_path(self) -> Optional[str]:
+        """``--output-path``'s ``-pca.tsv`` file, its directory made."""
+        if not self.conf.output_path:
+            return None
+        path = self.conf.output_path + "-pca.tsv"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        return path
 
     # -- observability -------------------------------------------------------
 

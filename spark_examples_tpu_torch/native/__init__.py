@@ -99,4 +99,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.parse_cohort_jsonl.restype = ctypes.POINTER(CohortCsr)
     lib.cohort_csr_free.argtypes = [ctypes.POINTER(CohortCsr)]
     lib.cohort_csr_free.restype = None
+    lib.emit_order.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.emit_order.restype = i64
+    lib.emit_rows.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, i64,
+    ]
+    lib.emit_rows.restype = i64
     return lib

@@ -3,9 +3,10 @@ per-sample host loops, and the tracer's clock.
 
 A ``pca`` job under a CPU ``torch.profiler`` over every thread opens
 ``callsets.index`` and the ``rows.*`` ranges once each on the job's
-thread, a ``feed.wait`` range a block pulled from the feed and a
-``shard.wait`` range a shard pulled from the fetch pool, each with one
-more for the pull that finds the end.
+thread (with an ``-pca.tsv`` file too, and on the rows' Python route), a
+``feed.wait`` range a block pulled from the feed and a ``shard.wait`` range
+a shard pulled from the fetch pool, each with one more for the pull that
+finds the end.
 :func:`obs.waited` closes its span before it yields, so the consumer's
 work is never counted as waiting. A ``--trace-out`` file and a
 ``--trace-dir`` profiler trace of one run place a span at the same
@@ -105,6 +106,33 @@ def test_a_sketch_job_waits_for_shards_on_its_own_thread(cohort_dir):
     assert len(threads[SHARD_WAIT]) == shards + passes
     assert set(threads[SHARD_WAIT]) == {job}
     assert FEED_WAIT not in threads
+
+
+def test_a_job_writing_its_tsv_opens_each_row_range_once(cohort_dir,
+                                                         tmp_path):
+    threads, job = _profiled_job(cohort_dir, pca_mode="auto",
+                                 output_path=str(tmp_path / "run"))
+    for name in ONCE_A_JOB:
+        assert threads[name] == [job], name
+    assert (tmp_path / "run-pca.tsv").stat().st_size > 0
+
+
+def test_the_python_rows_open_each_row_range_once(cohort_dir, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    driver = VariantsPcaDriver(
+        PcaConfig(device="cpu", variant_set_ids=[DEFAULT_VARIANT_SET_ID],
+                  bases_per_partition=20000,
+                  output_path=str(tmp_path / "run")),
+        JsonlSource(cohort_dir),
+    )
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = driver.run()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            driver.emit_result(rows, native=False)
+    names = collections.Counter(e.name for e in prof.events())
+    assert names[ROWS_SORT] == 1 and names[ROWS_WRITE] == 1
+    assert names[ROWS_TUPLES] == 0
 
 
 def _items(n, produce_s, closed):
