@@ -10,13 +10,29 @@ finishes and counts. Each job is the port's ``pca`` command, built as
 ``cli/main.py``'s ``_cmd_pca`` builds it: ``pca_config_from_args(
 build_parser().parse_args(argv))`` and ``VariantsPcaDriver(conf,
 JsonlSource(dir)).run()``, its standard output sent to a file under
-``TMPDIR``. (``_cmd_pca`` also joins a process group when a launcher's
-variables are set; a run of this benchmark is one process on one card.)
+``TMPDIR``.
 
-Once the window has closed and the card's peak is read, the emitted rows
+A run is one process over the cards of its jobs' mesh: one card, or,
+where the mix passes ``--mesh-shape``, as many as the mesh spans (the
+port's single-controller mesh: one process drives ``cuda:0`` to
+``cuda:n-1``). A mesh that spans other than the cell's ``chips`` cards
+makes the run not correct (a route missed). The run synchronises every
+card, reads each card's peak and reports the largest, and a traced run's
+busy time is each card's mean. The pod regime, one process a card under a launcher
+(``_cmd_pca`` joins a process group when a launcher's variables are set)
+with the ``podstream`` exchange between them, is left out: the benchmark
+starts one process, and a run that started one a card would need the
+whole harness (the window, the peak, the trace, the check) split over
+processes.
+
+Once the window has closed and the cards' peak is read, the emitted rows
 of up to ``KEPT_ROWS`` of the window's jobs, and the Gramian or sketch
 panel of up to ``KEPT_OUTPUTS`` of those, drawn from the seed (the first
-job always), are compared with the reference. A job that raises counts as
+job always), are compared with the reference. In a cell on several
+cards, or where it lies in tiles over a mesh, a Gramian is not kept
+whole: as the job ends, a sample of whole row blocks drawn from the seed,
+some in every tile row, and every row's sum are copied to the host from
+its tiles (``check.RowSample``). A job that raises counts as
 failed, and the run is then not correct.
 
 Every run also prints, on earlier lines of standard error, the process's
@@ -74,7 +90,8 @@ class JobRecord:
     pairs: int
     rows: Optional[list] = None  # the emitted (callset id, pc1, pc2) rows,
     # kept for a sample of the window's jobs
-    kept: Optional[object] = None  # G on the host, or the sketch panel
+    kept: Optional[object] = None  # G on the host (whole, or a sample
+    # of its rows), or the sketch panel
     error: Optional[str] = None
     sketch: bool = False
     cpu_s: float = 0.0  # the process's CPU seconds over the job
@@ -90,6 +107,7 @@ class Run:
 
     jobs: List[JobRecord]
     trace: Optional[Trace]
+    window_s: float = 0.0  # the window's seconds, as ``job_s`` takes them
 
 
 def _log(*parts) -> None:
@@ -121,8 +139,65 @@ def _job_sizes(cohort, job):
                 pairs=int((k * k).sum()))
 
 
-def _run_job(job, out_path, sizes, keep_rows: bool, keep_output: bool):
+# Elements of a tile summed in float64 at a time, so that the copy stays
+# small (64 MiB) beside the tile.
+SUM_ELEMENTS = 1 << 23
+
+
+def _row_sample(g, rng) -> check_mod.RowSample:
+    """Whole row blocks of G drawn from ``rng``, some in every tile row,
+    and every row's sum in float64, read from the tiles on their cards
+    (one tile where G lies whole) and copied to the host."""
     import torch
+
+    from spark_examples_tpu_torch.parallel.sharded import ShardedGramian
+
+    if isinstance(g, ShardedGramian):
+        (row_splits, col_splits), tiles = g.splits(), g.tiles
+    else:
+        row_splits = col_splits = [slice(0, g.shape[0])]
+        tiles = {(0, 0): g}
+    sums = []
+    for i, part in enumerate(row_splits):
+        h = part.stop - part.start
+        acc = np.zeros(h)
+        for j, cols in enumerate(col_splits):
+            tile = tiles[i, j][:h, :cols.stop - cols.start]
+            step = max(1, SUM_ELEMENTS // max(tile.shape[1], 1))
+            if h:
+                acc += torch.cat([tile[r:r + step].to(torch.float64).sum(1)
+                                  for r in range(0, h, step)]).cpu().numpy()
+        sums.append(acc)
+    rows, values = [], []
+    for i, block in check_mod.sample_row_blocks(row_splits, rng):
+        r0 = block.start - row_splits[i].start
+        values.append(np.concatenate([
+            tiles[i, j][r0:r0 + block.stop - block.start,
+                        :cols.stop - cols.start].cpu().numpy()
+            for j, cols in enumerate(col_splits)], axis=1))
+        rows.append(np.arange(block.start, block.stop))
+    return check_mod.RowSample(np.concatenate(rows), np.concatenate(values),
+                               np.concatenate(sums))
+
+
+def _keep_output(g, rng, sample: bool):
+    """What the check reads of a job's G or sketch panel: the panel; a
+    ``RowSample`` where G lies in tiles over a mesh or the cell runs on
+    several cards; else G whole, on the host in float64."""
+    import torch
+
+    from spark_examples_tpu_torch.ops.sketch import SketchPanel
+    from spark_examples_tpu_torch.parallel.sharded import ShardedGramian
+
+    if isinstance(g, SketchPanel):
+        return g
+    if sample or isinstance(g, ShardedGramian):
+        return _row_sample(g, rng)
+    return g.to("cpu").to(torch.float64)
+
+
+def _run_job(job, out_path, sizes, keep_rows: bool, keep_output: bool,
+             rows_rng=None, sample: bool = False):
     from torch.profiler import record_function
 
     from spark_examples_tpu_torch.cli.main import build_parser
@@ -150,8 +225,7 @@ def _run_job(job, out_path, sizes, keep_rows: bool, keep_output: bool):
         if keep_rows:
             rec.rows = rows
         if keep_output:
-            rec.kept = (driver.g if rec.sketch
-                        else driver.g.to("cpu").to(torch.float64))
+            rec.kept = _keep_output(driver.g, rows_rng, sample)
     except Exception as e:  # a job that fails counts as failed, not fatal
         rec.error = f"{type(e).__name__}: {e}"
     rec.end = time.perf_counter()
@@ -169,11 +243,11 @@ def _fresh_heap() -> None:
     gc.freeze()
 
 
-def _sync(device: str) -> None:
+def _sync(cards) -> None:
     import torch
 
-    if device == "cuda":
-        torch.cuda.synchronize()
+    for card in cards:
+        torch.cuda.synchronize(card)
 
 
 def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
@@ -191,6 +265,11 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
         written = cohort_mod.write_jsonl(cohort, root, seed)
         jobs = jobs_mod.plan(cell.config, cell.mix, cohort, root, seed, device)
         sizes = {j.key: _job_sizes(cohort, j) for j in jobs}
+        # The cards the jobs' mesh spans, and of those the run's (none on
+        # the CPU); a mesh that is not the cell's chips is a route missed.
+        used = max(jobs_mod.cards(j.argv) for j in jobs)
+        cards = (list(range(min(used, torch.cuda.device_count())))
+                 if device == "cuda" else [])
         out_path = os.path.join(work, "job.out")
         _log(f"cohort: {cohort.n} samples, {cohort.sites} sites, "
              f"{cohort.carriers.size} carriers, {written} bytes; "
@@ -214,9 +293,9 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
         os.sync()
         _fresh_heap()
 
-        _sync(device)
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+        _sync(cards)
+        for card in cards:
+            torch.cuda.reset_peak_memory_stats(card)
         prof = profiler() if trace else contextlib.nullcontext()
         records: List[JobRecord] = []
         kept_rows = kept_outputs = 0
@@ -233,8 +312,10 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
                     rows = kept_rows < KEPT_ROWS and u < p_rows
                     output = kept_outputs < KEPT_OUTPUTS and u < p_output
                     faulthandler.dump_traceback_later(stall_s)
+                    rows_rng = (np.random.default_rng([seed, 5, len(records)])
+                                if output else None)
                     rec = _run_job(job, out_path, sizes[job.key], rows,
-                                   output)
+                                   output, rows_rng, cell.chips > 1)
                     faulthandler.cancel_dump_traceback_later()
                     kept_rows += rec.rows is not None
                     kept_outputs += rec.kept is not None
@@ -242,14 +323,16 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
                     _fresh_heap()
                     if time.perf_counter() - t_w0 >= seconds:
                         break
-                _sync(device)
+                _sync(cards)
                 t_w1 = time.perf_counter()
         cpu_w = host_mod.cpu_s() - cpu_w0
         gc.unfreeze()
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        peak = max((torch.cuda.max_memory_allocated(card) for card in cards),
+                   default=0)
         after = _counters()
         routes = {k: after.get(k, 0) - before.get(k, 0) for k in after}
         routes["sketch_jobs"] = sum(r.sketch for r in records)
+        routes["cards"] = used
         _log("routes over the window: " + ", ".join(
             f"{k}={v:g}" for k, v in sorted(routes.items())))
         durations = [r.seconds for r in records]
@@ -274,11 +357,13 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
                      + "; host " + host_mod.describe(r.cpu_s, r.seconds, 1))
         digest = None
         if trace:
-            digest = Trace.from_profile(prof, watched=("gramian.accumulate",))
+            digest = Trace.from_profile(prof, watched=("gramian.accumulate",),
+                                        cards=max(len(cards), 1))
             del prof
         gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
+        for card in cards:
+            with torch.cuda.device(card):
+                torch.cuda.empty_cache()
 
         checks = check_mod.compare(cell, cohort, jobs, records, routes,
                                    seed, device)
@@ -291,7 +376,7 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
 
         metrics = {}
         if trace:
-            run = Run(jobs=records, trace=digest)
+            run = Run(jobs=records, trace=digest, window_s=t_w1 - t_w0)
             units = {m["name"]: m["unit"] for m in cell.per_layer}
             for metric, read in readers.items():
                 value = read(run)
@@ -312,7 +397,7 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
             "attempted": len(records),
             "failed": failed,
             "metrics": metrics,
-            "device": _device(device, peak),
+            "device": _device(cards, peak),
         }
         if trace:
             result["device"]["busy_s"] = digest.busy_us() / 1e6
@@ -327,11 +412,12 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _device(device: str, peak: int) -> dict:
+def _device(cards, peak: int) -> dict:
+    """``memory_peak_bytes`` is the fullest card's peak."""
     import torch
 
-    if device != "cuda":
+    if not cards:
         return {"platform": "cpu", "kind": "cpu", "count": 1,
                 "memory_peak_bytes": 0}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": int(peak)}
+            "count": len(cards), "memory_peak_bytes": int(peak)}

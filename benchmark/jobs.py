@@ -23,7 +23,7 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["Job", "plan"]
+__all__ = ["Job", "cards", "plan"]
 
 
 @dataclasses.dataclass
@@ -68,6 +68,19 @@ def plan(config: dict, mix: dict, cohort, root: str, seed: int,
         ]
         jobs.append(Job(key=key, argv=argv, lo=lo, hi=hi))
     return jobs
+
+
+def cards(argv: List[str]) -> int:
+    """The cards a job's mesh spans: the product of its ``--mesh-shape``
+    sizes (``data:2,model:2`` is 4), or 1 without one."""
+    spec = ""
+    for i, arg in enumerate(argv):
+        if arg == "--mesh-shape" and i + 1 < len(argv):
+            spec = argv[i + 1]
+        elif arg.startswith("--mesh-shape="):
+            spec = arg.split("=", 1)[1]
+    return int(np.prod([int(part.split(":")[-1])
+                        for part in spec.split(",") if part.strip()]))
 
 
 def sketch_seed(seed: int) -> int:

@@ -1,5 +1,6 @@
 """Share of the traced window in which no kernel, copy or set ran on the
-card, in percent. Layer: device."""
+card, in percent; on several cards, each card's share averaged over the
+run's cards. Layer: device."""
 
 
 def read(run):

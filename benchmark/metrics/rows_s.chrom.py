@@ -1,0 +1,9 @@
+"""``rows_s`` in ``kg1000.chrom``: the same reading, by the reader in
+``rows_s.py``. That cell reports no ``job_s``, so there it moves
+``peak_card_mib``. Layer: emission."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "rows_s.py"))["read"]

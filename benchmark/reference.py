@@ -9,15 +9,25 @@ SciPy. It imports nothing of the port and takes nothing the port made.
   C's column means are zero, so MLlib's covariance is C²/(n−1), whose
   eigenvectors are C's; the top k by eigenvalue, each column's sign fixed
   so its largest-magnitude entry (the first, on ties) is positive.
+- ``gramian_rows``: the rows of G at given sample indices, X[rows]·Xᵀ from
+  the carrier lists as sparse products in float64, a block of rows at a
+  time, without forming G, and ``row_sums``, X·(Xᵀ·1): what a job on
+  several cards, whose G lies in tiles over them, is checked against.
+- ``coordinates_matrix_free``: the same coordinates as ``coordinates``
+  without forming G or C: the top k eigenvectors of C = H·X·Xᵀ·H by
+  Lanczos (``scipy.sparse.linalg.eigsh``) on an operator that applies C
+  through the carrier lists, so its cost follows the carriers and not N²:
+  the route of a cell on several cards.
 - ``sketch_panel`` and ``sketch_coordinates``: the randomized engine's
   panel Y = H·X·Xᵀ·Ω̃ (Ω̃ = H·Ω) and row sums X·Xᵀ·1, from Ω drawn as
   ``--sketch-seed`` documents it (``numpy.random.default_rng(seed)
   .standard_normal((n, l))`` in float32, l = k + oversample), then the
   shifted Nyström finish on that panel.
 
-``control=True`` computes each in bfloat16 in place of float64: G summed in
-bfloat16, the centered G and the eigenvectors held in bfloat16, the
-panel's two products and its row sums rounded to bfloat16. That is the precision step below
+``control=True`` computes each in bfloat16 in place of float64: G (and its
+rows) summed in bfloat16, the centered G and the eigenvectors held in
+bfloat16, the matrix-free operator's and the panel's products and the row
+sums rounded to bfloat16. That is the precision step below
 the configuration's float32, and it has to fail the comparison.
 """
 
@@ -27,11 +37,15 @@ from typing import Tuple
 
 import numpy as np
 import scipy.sparse
+import scipy.sparse.linalg
 import torch
 
 __all__ = [
     "coordinates",
+    "coordinates_matrix_free",
     "gramian",
+    "gramian_rows",
+    "row_sums",
     "sign_normalized",
     "sketch_coordinates",
     "sketch_omega",
@@ -39,6 +53,15 @@ __all__ = [
 ]
 
 _BLOCK_SITES = 8192
+_BLOCK_ROWS = 256
+# eigsh stops once each Ritz pair's residual is under EIGSH_TOL times its
+# value, and an eigenvector then lies within about that residual over the
+# gap to the next eigenvalue: at 1e-12, 1e-10 or less where λ_k/(λ_k −
+# λ_k+1) is 100 or under, orders below the program's readings (1e-8 and
+# up) and the 1e-4 bar. The control's products carry bfloat16's rounding
+# (2^-8), so no residual under that converges: it stops there.
+EIGSH_TOL = 1e-12
+EIGSH_TOL_CONTROL = 2.0**-8
 
 
 def gramian(cohort, lo: int, hi: int, device="cpu", control=False):
@@ -58,6 +81,45 @@ def gramian(cohort, lo: int, hi: int, device="cpu", control=False):
         x[rows, cols] = 1
         g += x @ x.T
     return g
+
+
+def _sites_csr(cohort, lo: int, hi: int) -> scipy.sparse.csr_matrix:
+    """Xᵀ of sites [lo, hi): a row per site, a 1 in each carrier's column."""
+    a, b = int(cohort.offsets[lo]), int(cohort.offsets[hi])
+    return scipy.sparse.csr_matrix(
+        (np.ones(b - a), cohort.carriers[a:b], cohort.offsets[lo:hi + 1] - a),
+        shape=(hi - lo, cohort.n),
+    )
+
+
+def gramian_rows(cohort, lo: int, hi: int, rows: np.ndarray,
+                 control=False) -> np.ndarray:
+    """(len(rows), n) rows ``rows`` of G of sites [lo, hi): float64 sparse
+    products, exact; with ``control`` summed over blocks of sites in
+    bfloat16."""
+    xt = _sites_csr(cohort, lo, hi)
+    x = xt.T.tocsr()
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.zeros((rows.size, cohort.n))
+    for r0 in range(0, rows.size, _BLOCK_ROWS):
+        xr = x[rows[r0:r0 + _BLOCK_ROWS]]
+        if not control:
+            out[r0:r0 + _BLOCK_ROWS] = (xr @ xt).toarray()
+            continue
+        acc = torch.zeros(out[r0:r0 + _BLOCK_ROWS].shape, dtype=torch.bfloat16)
+        for s0 in range(0, hi - lo, _BLOCK_SITES):
+            part = (xr[:, s0:s0 + _BLOCK_SITES] @ xt[s0:s0 + _BLOCK_SITES])
+            acc += torch.from_numpy(part.toarray()).to(torch.bfloat16)
+        out[r0:r0 + _BLOCK_ROWS] = acc.to(torch.float64).numpy()
+    return out
+
+
+def row_sums(cohort, lo: int, hi: int, control=False) -> np.ndarray:
+    """(n,) row sums of G of sites [lo, hi), X·(Xᵀ·1): exact in float64;
+    rounded to bfloat16 with ``control``."""
+    xt = _sites_csr(cohort, lo, hi)
+    sums = xt.T @ np.asarray(xt.sum(axis=1)).ravel()
+    return _bf16(sums) if control else sums
 
 
 def sign_normalized(vecs: np.ndarray) -> np.ndarray:
@@ -82,6 +144,32 @@ def coordinates(g: torch.Tensor, k: int, control=False) -> np.ndarray:
     return sign_normalized(vecs.to(torch.float64).cpu().numpy())
 
 
+def coordinates_matrix_free(cohort, lo: int, hi: int, k: int, seed: int,
+                            control=False) -> np.ndarray:
+    """(n, k) principal coordinates of sites [lo, hi), in float64, without
+    forming G: the top k eigenvectors of C = H·X·Xᵀ·H (H = I − 11ᵀ/n) by
+    ``eigsh`` (``which="LA"``: C is positive semi-definite, its largest
+    are its top), from a start vector drawn from ``seed``; with
+    ``control`` each of the operator's products rounded to bfloat16."""
+    n = cohort.n
+    xt = _sites_csr(cohort, lo, hi)
+    x = xt.T.tocsr()
+    bf16 = _bf16 if control else (lambda a: a)
+
+    def apply(v):
+        v = np.asarray(v, dtype=np.float64).reshape(n, -1)
+        y = bf16(x @ bf16(xt @ bf16(v - v.mean(0, keepdims=True))))
+        return y - y.mean(0, keepdims=True)
+
+    op = scipy.sparse.linalg.LinearOperator((n, n), matvec=apply,
+                                            matmat=apply, dtype=np.float64)
+    v0 = np.random.default_rng([seed, 6]).standard_normal(n)
+    vals, vecs = scipy.sparse.linalg.eigsh(
+        op, k=k, which="LA", v0=v0,
+        tol=EIGSH_TOL_CONTROL if control else EIGSH_TOL)
+    return sign_normalized(vecs[:, np.argsort(-vals)])
+
+
 def sketch_omega(n: int, width: int, seed: int) -> np.ndarray:
     """Ω as ``--sketch-seed`` documents its draw."""
     rng = np.random.default_rng(seed)
@@ -97,11 +185,7 @@ def sketch_panel(cohort, lo: int, hi: int, width: int, seed: int,
     """``(y, omega, row_sums)``: the centered panel H·X·Xᵀ·Ω̃, the centered
     test matrix Ω̃ and G's row sums, for sites [lo, hi)."""
     n = cohort.n
-    a, b = int(cohort.offsets[lo]), int(cohort.offsets[hi])
-    xt = scipy.sparse.csr_matrix(
-        (np.ones(b - a), cohort.carriers[a:b], cohort.offsets[lo:hi + 1] - a),
-        shape=(hi - lo, n),
-    )  # Xᵀ: a row per site
+    xt = _sites_csr(cohort, lo, hi)
     omega = sketch_omega(n, width, seed).astype(np.float64)
     omega -= omega.mean(0, keepdims=True)
     if control:
@@ -110,10 +194,7 @@ def sketch_panel(cohort, lo: int, hi: int, width: int, seed: int,
     else:
         y = xt.T @ (xt @ omega)
     y -= y.mean(0, keepdims=True)
-    row_sums = xt.T @ np.asarray(xt.sum(axis=1)).ravel()
-    if control:
-        row_sums = _bf16(row_sums)
-    return y, omega, row_sums
+    return y, omega, row_sums(cohort, lo, hi, control=control)
 
 
 def sketch_coordinates(y: np.ndarray, omega: np.ndarray, k: int) -> np.ndarray:

@@ -9,9 +9,10 @@ with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``: each number compared with its limit.
 The same numbers are the last lines of standard error.
 
-The run exits non-zero and prints no result where no CUDA card is
-visible, and where ``jax``, ``jaxlib``, ``flax`` or the JAX package
-``spark_examples_tpu`` is loaded once the window has closed.
+The run exits non-zero and prints no result where fewer CUDA cards are
+visible than the cell's ``chips``, and where ``jax``, ``jaxlib``, ``flax``
+or the JAX package ``spark_examples_tpu`` is loaded once the window has
+closed.
 """
 
 from __future__ import annotations
@@ -52,13 +53,18 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 1:
-        print("benchmark: no CUDA card is visible", file=sys.stderr)
-        return 2
     from benchmark import harness, spec
 
+    bench = spec.load(_ROOT)
+    chips = bench.cell(args.workload).chips
+    seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if seen < chips:
+        print(f"benchmark: {args.workload} runs on {chips} CUDA card(s); "
+              f"{seen} visible", file=sys.stderr)
+        return 2
+
     result = harness.run_cell(
-        spec.load(_ROOT), args.workload, args.seed % 2**63, args.seconds,
+        bench, args.workload, args.seed % 2**63, args.seconds,
         bool(args.trace), device="cuda", t_start=T_START)
     found = forbidden_modules()
     if found:

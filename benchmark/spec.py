@@ -30,10 +30,17 @@ class Cell:
     mix: dict
     end_to_end: List[dict]  # the cell's end-to-end metrics
     per_layer: List[dict]  # the cell's per-layer metrics
+    chips: int  # the cards the cell runs on, as the workload asks
 
 
-def _applies(metric: dict, cell: str) -> bool:
-    return "workloads" not in metric or cell in metric["workloads"]
+def _applies(metric: dict, cell: str, reported=None) -> bool:
+    """Whether ``metric`` is read in ``cell``: in the cells its
+    ``workloads`` lists; else an end-to-end metric in every cell, and a
+    per-layer one in every cell that reports the metric it ``moves``
+    (``reported``: the cell's end-to-end metrics)."""
+    if "workloads" in metric:
+        return cell in metric["workloads"]
+    return reported is None or metric["moves"] in reported
 
 
 class Spec:
@@ -60,12 +67,16 @@ class Spec:
             config = json.load(f)
         with open(self._path("traffic", w["traffic"] + ".json")) as f:
             mix = json.load(f)
+        end_to_end = [m for m in self.doc["end_to_end"] if _applies(m, name)]
+        reported = {m["name"] for m in end_to_end}
         return Cell(
             name=name,
             config=config,
             mix=mix,
-            end_to_end=[m for m in self.doc["end_to_end"] if _applies(m, name)],
-            per_layer=[m for m in self.doc["per_layer"] if _applies(m, name)],
+            end_to_end=end_to_end,
+            per_layer=[m for m in self.doc["per_layer"]
+                       if _applies(m, name, reported)],
+            chips=int(w["chips"]),
         )
 
     def reader(self, metric: str) -> Callable[[object], Optional[float]]:

@@ -51,8 +51,9 @@ def small_configs():
 
 def write_root(path, configs, mixes, workloads, metrics=None):
     """A benchmark root under ``path``: ``BENCHMARK.json`` naming
-    ``workloads`` (name → (config, mix)), the configuration and mix files,
-    and the committed metric readers (or ``metrics``: name → source)."""
+    ``workloads`` (name → (config, mix) on one chip, or (config, mix,
+    chips)), the configuration and mix files, and the committed metric
+    readers (or ``metrics``: name → source)."""
     bench = os.path.join(path, "benchmark")
     os.makedirs(os.path.join(bench, "configs"))
     os.makedirs(os.path.join(bench, "traffic"))
@@ -76,8 +77,13 @@ def write_root(path, configs, mixes, workloads, metrics=None):
         {"name": n, "source": "test", "file": f"benchmark/configs/{n}.json",
          "reduced": [], "why": "test"} for n in configs]
     doc["workloads"] = [
-        {"name": w, "config": c, "traffic": m, "chips": 1, "why": "test"}
-        for w, (c, m) in workloads.items()]
+        {"name": w, "config": c[0], "traffic": c[1],
+         "chips": c[2] if len(c) > 2 else 1, "why": "test"}
+        for w, c in workloads.items()]
+    # Every test cell reports every end-to-end metric: the committed
+    # cells that a metric lists are not the test's.
+    for m in doc["end_to_end"]:
+        m.pop("workloads", None)
     if metrics is not None:
         doc["per_layer"] = [
             {"name": n, "unit": "s", "better": "lower",

@@ -35,7 +35,7 @@ def test_merged_busy_counts_overlaps_once():
 
 
 def _trace():
-    device = [(10, 20, "k1"), (15, 30, "k2"), (60, 70, "k1")]
+    device = [(10, 20, "k1", 0), (15, 30, "k2", 0), (60, 70, "k1", 0)]
     ranges = {
         "bench.window": [(1, 0, 100)],
         "bench.job": [(1, 0, 100)],

@@ -27,8 +27,10 @@ def test_committed_cells_resolve():
         cell = spec.cell(w["name"])
         assert cell.config["name"] == w["config"]
         names = {m["name"] for m in cell.end_to_end}
-        assert {"job_s", "peak_card_mib", "setup_s"} <= names
+        assert {"peak_card_mib", "setup_s"} <= names
         assert cell.per_layer
+        for m in cell.per_layer:
+            assert m["moves"] in names, (w["name"], m["name"])
         for reader in spec.readers(cell).values():
             assert callable(reader)
         limits = cell.config["limits"]
@@ -99,8 +101,55 @@ def test_benchmark_json_keeps_to_its_limits():
         assert set(m.get("workloads", cells)) <= cells
         if "bound" in m:
             assert 0.01 <= m["bound"] <= 0.25
+    reported = {w: {m["name"] for m in doc["end_to_end"]
+                    if w in m.get("workloads", cells)} for w in cells}
+    for w in cells:
+        assert "setup_s" in reported[w] and len(reported[w]) >= 2
     for m in doc["per_layer"]:
-        assert m["moves"] == "job_s" and m["layer"]
+        assert m["moves"] in {e["name"] for e in doc["end_to_end"]}
+        assert m["layer"]
+        for w in m.get("workloads", []):
+            assert m["moves"] in reported[w], (m["name"], w)
         assert os.path.exists(os.path.join(ROOT, "benchmark", "metrics",
                                            m["name"] + ".py"))
     assert os.path.getsize(os.path.join(ROOT, "BENCHMARK.json")) < 64 << 10
+
+
+def test_a_per_layer_metric_without_cells_follows_what_it_moves():
+    """A per-layer metric with no ``workloads`` is read in every cell that
+    reports the end-to-end metric it moves, and only there."""
+    spec = spec_mod.load()
+    doc = _committed()
+    for w in doc["workloads"]:
+        cell = spec.cell(w["name"])
+        names = {m["name"] for m in cell.end_to_end}
+        read = {m["name"] for m in cell.per_layer}
+        for m in doc["per_layer"]:
+            if "workloads" not in m:
+                assert (m["name"] in read) == (m["moves"] in names)
+
+
+def test_the_chrom_readers_read_as_their_originals():
+    """``<name>.chrom`` reads what ``<name>`` reads; ``job_s.chrom`` is the
+    window's seconds over its jobs, as ``job_s``."""
+    import types
+
+    from benchmark.trace import Trace
+
+    spec = spec_mod.load()
+    ranges = {"bench.window": [(1, 0, 4000)],
+              "shard.wait": [(2, 0, 400)], "callsets.index": [(1, 10, 60)],
+              "rows.sort": [(1, 100, 300)]}
+    trace = Trace([(0, 500, "k", 0)], ranges, {}, (0, 4000))
+    jobs = [types.SimpleNamespace(construct_s=0.25 * i, stages={
+        "ingest+gramian": 1.0 + i, "pca": 0.5, "emit": 0.125 * i})
+        for i in range(1, 4)]
+    run = harness.Run(jobs=jobs, trace=trace, window_s=9.0)
+    names = [m["name"] for m in _committed()["per_layer"]]
+    split = [n[:-len(".chrom")] for n in names if n.endswith(".chrom")]
+    assert "construct_s" in split and "device_idle" in split
+    for base in split:
+        if base in names:
+            value = spec.reader(base + ".chrom")(run)
+            assert value == spec.reader(base)(run) and value is not None
+    assert spec.reader("job_s.chrom")(run) == 3.0

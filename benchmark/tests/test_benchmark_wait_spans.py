@@ -29,8 +29,10 @@ def test_the_readers_are_declared_with_their_layers():
               "callsets_s": "driver and callsets", "rows_s": "emission"}
     for name, layer in layers.items():
         m = metrics[name]
-        assert (m["source"], m["moves"], m["layer"]) == (
-            "program_span", "job_s", layer)
+        assert (m["source"], m["layer"]) == ("program_span", layer)
+        # kg1000.chrom reports no job_s: there they move peak_card_mib
+        assert m["moves"] == ("peak_card_mib" if name == "feed_wait_ms"
+                              else "job_s")
     assert metrics["feed_wait_ms"]["workloads"] == ["kg1000.chrom"]
     assert not {"workloads"} & (set(metrics["shard_wait_ms"])
                                 | set(metrics["callsets_s"])

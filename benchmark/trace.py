@@ -1,9 +1,9 @@
 """The traced window: a ``torch.profiler`` profile over every thread,
 reduced to what the per-layer readers and the breakdown need.
 
-- device work: every kernel, copy and set on the card's timeline (the
-  program's ``record_function`` ranges also appear there as annotations,
-  which are not device work and are left out);
+- device work: every kernel, copy and set on each card's timeline, with
+  the card's index (the program's ``record_function`` ranges also appear
+  there as annotations, which are not device work and are left out);
 - host ranges: each ``record_function`` range by name and thread (each of
   the port's ``obs`` spans and stage timers is one, and so are the
   harness's ``bench.*`` ranges);
@@ -11,7 +11,9 @@ reduced to what the per-layer readers and the breakdown need.
   profiler's correlation of a kernel with the op that launched it.
 
 The union of busy intervals and the idle split follow ``chip_smoke.py``'s
-``merged_busy_us`` and ``stage_idle``.
+``merged_busy_us`` and ``stage_idle``. On several cards the busy time is
+each card's union, averaged over the run's cards, and the idle split
+counts the time in which no card is busy.
 """
 
 from __future__ import annotations
@@ -73,26 +75,30 @@ def _is_annotation(name: str) -> bool:
 class Trace:
     """The reduced profile. Times are the profiler's microseconds."""
 
-    def __init__(self, device: Sequence[Tuple[float, float, str]],
+    def __init__(self, device: Sequence[Tuple[float, float, str, int]],
                  ranges: Dict[str, List[Tuple[int, float, float]]],
                  launched: Dict[str, List[Tuple[str, float]]],
-                 window: Tuple[float, float]):
-        self.device = sorted(device)  # (start, end, name)
+                 window: Tuple[float, float], cards: int = 1):
+        self.device = sorted(device)  # (start, end, name, card)
+        self.cards = cards  # the cards the run used
         self.ranges = ranges  # name -> [(thread, start, end)]
         self.launched = launched  # range name -> [(kernel, us)]
         self.lo, self.hi = window
 
     @classmethod
-    def from_profile(cls, prof, watched: Iterable[str] = ()) -> "Trace":
-        """Reduce a finished profile. ``watched`` names the host ranges
-        whose launched kernels are wanted (a kernel counts for every
-        watched range among the launching op's ancestors)."""
+    def from_profile(cls, prof, watched: Iterable[str] = (),
+                     cards: int = 1) -> "Trace":
+        """Reduce a finished profile of a run on ``cards`` cards.
+        ``watched`` names the host ranges whose launched kernels are
+        wanted (a kernel counts for every watched range among the
+        launching op's ancestors)."""
         from torch.autograd import DeviceType
 
         events = prof.events()
         cpu = [e for e in events if e.device_type == DeviceType.CPU]
         cpu_names = {e.name for e in cpu}
-        device = [(e.time_range.start, e.time_range.end, e.name)
+        device = [(e.time_range.start, e.time_range.end, e.name,
+                   e.device_index)
                   for e in events
                   if e.device_type == DeviceType.CUDA
                   and e.name not in cpu_names]
@@ -119,7 +125,7 @@ class Trace:
         if not win:
             raise ValueError(f"the profile holds no {WINDOW} range")
         return cls(device, dict(ranges), dict(launched),
-                   (win[0][1], win[0][2]))
+                   (win[0][1], win[0][2]), cards)
 
     # -- readings --------------------------------------------------------
 
@@ -128,8 +134,13 @@ class Trace:
         return self.hi - self.lo
 
     def busy_us(self) -> float:
-        return merged_busy_us(((a, b) for a, b, _ in self.device),
-                              self.lo, self.hi)
+        """Time some operation ran on a card: each card's union, averaged
+        over the run's cards."""
+        by_card = collections.defaultdict(list)
+        for a, b, _, card in self.device:
+            by_card[card].append((a, b))
+        return sum(merged_busy_us(iv, self.lo, self.hi)
+                   for iv in by_card.values()) / self.cards
 
     def union_us(self, names: Iterable[str],
                  prefix: Optional[str] = None) -> float:
@@ -149,7 +160,7 @@ class Trace:
     def kernel_us(self, contains: Iterable[str]) -> float:
         """Device time of the kernels whose name holds any of ``contains``."""
         subs = tuple(contains)
-        return sum(b - a for a, b, name in self.device
+        return sum(b - a for a, b, name, _ in self.device
                    if any(s in name for s in subs))
 
     def launched_us(self, range_name: str,
@@ -166,7 +177,7 @@ class Trace:
         """The device operations that took most time: [name, seconds], a
         name cut to its first 160 characters."""
         by_name: Dict[str, float] = collections.defaultdict(float)
-        for a, b, name in self.device:
+        for a, b, name, _ in self.device:
             if b > self.lo and a < self.hi:
                 by_name[name[:160]] += (min(b, self.hi) - max(a, self.lo)) / 1e6
         return [[n, s] for n, s in
@@ -201,9 +212,11 @@ class Trace:
         return segments
 
     def idle_gaps(self, top: int = 10) -> List[List]:
-        """Device-idle time inside the window, split by what the job's
-        thread was doing (the innermost range open): [label, seconds]."""
-        busy = _merged(((a, b) for a, b, _ in self.device), self.lo, self.hi)
+        """Device-idle time inside the window, no card busy, split by what
+        the job's thread was doing (the innermost range open): [label,
+        seconds]."""
+        busy = _merged(((a, b) for a, b, _, _ in self.device), self.lo,
+                       self.hi)
         gaps, cursor = [], self.lo
         for a, b in busy:
             if a > cursor:
