@@ -237,8 +237,9 @@ on failure:
     G's block, each timed against its bound; (c) ``sharded_pcoa`` below
     ``dense_eigh_limit``: the randomized eig, fixed and with ``eig_tol``
     (the JAX package's cap of 30 iterations), iterations, seconds and the
-    distance to dense eigh, and the same eig with a cap of 100 held within
-    1e-4 of dense eigh; (d) a
+    distance to dense eigh, and the same eig over the implicitly centred
+    tile grid (``CenteredGramian``) with a cap of 100 held within 1e-4 of
+    dense eigh; (d) a
     cold ``AnalysisEngine`` job on a ``data:1`` mesh and a meshed
     ``TorchPcaBackend`` call, rows within 1e-4 of the meshless ones; (e) a
     CLI ``pca --mesh-shape data:1`` under a one-rank NCCL group
@@ -4147,9 +4148,10 @@ def mesh_and_process_group(torch, root, g_ref, want, windows, device="cuda"):
         make_mesh,
         sharded_pcoa,
     )
+    from spark_examples_tpu_torch.ops.centering import double_center
     from spark_examples_tpu_torch.parallel.sharded import (
+        CenteredGramian,
         _tile_operands,
-        double_center_tiles,
         topk_eig_randomized,
     )
     from spark_examples_tpu_torch.serving import AnalysisEngine
@@ -4309,8 +4311,8 @@ def mesh_and_process_group(torch, root, g_ref, want, windows, device="cuda"):
     # cohort's spectrum is flat past λ2 (the ratios printed below), so the
     # last leg runs the same iteration with a cap of 100, held to the bar.
     mesh1 = stream_g.mesh
-    centered = double_center_tiles(stream_g)
-    lam = torch.linalg.eigvalsh(centered.full().double()).abs()
+    lam = torch.linalg.eigvalsh(
+        double_center(stream_g.full()).double()).abs()
     lam = lam.sort(descending=True).values.cpu().numpy()
     print(f"  (c) the centered G's spectrum: |λ3/λ2| = {lam[2] / lam[1]:.4f}, "
           f"|λ11/λ2| = {lam[10] / lam[1]:.4f} (the panel holds k + 8 = 10 "
@@ -4323,8 +4325,8 @@ def mesh_and_process_group(torch, root, g_ref, want, windows, device="cuda"):
             stream_g, 2, mesh1, dense_eigh_limit=n - 1, timer=timer,
             eig_tol=1e-6)[0]),
         ("topk_eig_randomized, iters=100, tol=1e-6", lambda timer:
-            topk_eig_randomized(centered, 2, iters=100, tol=1e-6,
-                                timer=timer)[0].cpu().numpy()),
+            topk_eig_randomized(CenteredGramian(stream_g), 2, iters=100,
+                                tol=1e-6, timer=timer)[0].cpu().numpy()),
     )
     for label, run_eig in eig_legs:
         timer = StageTimer()

@@ -169,6 +169,7 @@ from spark_examples_tpu_torch.utils.stats import COUNTER_FIELDS
 from spark_examples_tpu_torch.utils.tracing import (
     INGEST_FETCH,
     INGEST_STREAM,
+    PCOA_TILES_SUMS,
     ROWS_SORT,
     ROWS_TUPLES,
     ROWS_WRITE,
@@ -1742,8 +1743,16 @@ class VariantsPcaDriver:
                 self._print_nonzero_rows(row_sums)
                 return self._emit_tuples(coords)
         sharded = isinstance(g, ShardedGramian)
-        row_sums = g.row_sums() if sharded else g.sum(dim=1)
-        self._print_nonzero_rows(row_sums.cpu().numpy())
+        if sharded:
+            # Read once a job, for the report and the centring; the copy
+            # to the host ends the span when the cards' sums are there.
+            with obs.span(PCOA_TILES_SUMS, n=g.n):
+                row_sums = g.row_sums()
+                host_sums = row_sums.cpu().numpy()
+        else:
+            row_sums = g.sum(dim=1)
+            host_sums = row_sums.cpu().numpy()
+        self._print_nonzero_rows(host_sums)
         if self.conf.precise:
             gh = (g.full() if sharded else g).cpu().numpy()
             coords, _ = topk_with_gap_check(
@@ -1761,6 +1770,7 @@ class VariantsPcaDriver:
                 dense_eigh_limit=self.conf.dense_eigh_limit,
                 timer=timer,
                 eig_tol=self.conf.eig_tol,
+                row_sums=row_sums,
             )
         else:
 

@@ -15,10 +15,11 @@ there:
   (:func:`sharded_gramian_blockwise`); rare CSR windows re-base their
   carrier matrix into each tile's frame and launch the scatter kernel
   once per tile (:func:`sparse_sharded_gramian_blockwise`). The top-k
-  eigenvectors come from dense ``eigh`` of the gathered centered matrix
+  eigenvectors come from dense ``eigh`` of the gathered, centered matrix
   or, above ``dense_eigh_limit``, from randomized subspace iteration
-  whose only O(N²) op is the tile-wise ``C @ Q``
-  (:func:`topk_eig_randomized`, :func:`sharded_pcoa`).
+  whose only O(N²) op is the tile-wise ``G @ Q``, centred by rank-one
+  corrections so that C is never formed (:class:`CenteredGramian`,
+  :func:`topk_eig_randomized`, :func:`sharded_pcoa`).
 
 A mesh that spans processes (the pod regime,
 :func:`~spark_examples_tpu_torch.parallel.mesh.mesh_spans_processes`)
@@ -76,6 +77,7 @@ from spark_examples_tpu_torch.arrays.blocks import (
     round_up_multiple,
 )
 from spark_examples_tpu_torch.arrays.feed import device_prefetch
+from spark_examples_tpu_torch.ops.centering import double_center
 from spark_examples_tpu_torch.ops.gramian import (
     mxu_cross_product,
     mxu_cross_product_pair,
@@ -111,9 +113,14 @@ from spark_examples_tpu_torch.parallel.mesh import (
     Mesh,
     mesh_spans_processes,
 )
-from spark_examples_tpu_torch.utils.tracing import GRAMIAN_ACCUMULATE
+from spark_examples_tpu_torch.utils.tracing import (
+    GRAMIAN_ACCUMULATE,
+    PCOA_TILES_PRODUCT,
+    PCOA_TILES_SUMS,
+)
 
 __all__ = [
+    "CenteredGramian",
     "ShardedGramian",
     "SpectralGapWarning",
     "addressable_sample_bounds",
@@ -168,6 +175,20 @@ def _grid_device(mesh: Mesh, i: int, j: int) -> torch.device:
 def _grid_owner(mesh: Mesh, i: int, j: int) -> int:
     """The rank that owns tile (i, j)."""
     return int(mesh.processes[_grid_index(mesh, i, j)])
+
+
+def _wait_if_traced(device: torch.device) -> None:
+    """Under a profiler or a telemetry session, wait for ``device``'s
+    work, so that a span around work on the cards ends when that work does
+    (its results arrive on ``device``, whose stream waits for every card's
+    copy); untraced, the host does not block. The profiler's module flag
+    is read, as ``torch.autograd._profiler_enabled()`` is per thread and
+    reads False under a profiler over every thread."""
+    if device.type == "cuda" and (
+        obs.collection_active()
+        or getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+    ):
+        torch.cuda.synchronize(device)
 
 
 def _grid_shape(mesh: Mesh):
@@ -1521,40 +1542,72 @@ def sparse_sharded_gramian_blockwise(
     return g
 
 
-def double_center_tiles(g: ShardedGramian) -> ShardedGramian:
-    """The centered matrix ``C = G − rowmean − colmean + grandmean`` as a
-    tile grid (the port's ``ops/centering.py`` tile by tile): the means
-    are over the n real rows and columns (summed over the pod with one
-    all-reduce on a spanning grid), and C's padded rows and columns stay
-    zero, so C's spectrum is the trimmed matrix's plus zeros."""
-    n, dev = g.n, g.device
-    sums = torch.zeros((2, g.n_padded), dtype=torch.float32, device=dev)
-    for (i, j), tile in g.local_tiles():
-        r0, c0 = g.tile_origin(i, j)
-        t = tile.to(torch.float32)
-        sums[0, r0:r0 + g.tile_rows] += t.sum(dim=1).to(dev)
-        sums[1, c0:c0 + g.tile_cols] += t.sum(dim=0).to(dev)
-    if g.spans:
-        distributed.allreduce_sum_(sums)
-    rows, cols = sums[0], sums[1]
-    grand = rows.sum() / (n * n)
-    rowmean, colmean = rows / n, cols / n
-    real = torch.zeros_like(rows)
-    real[:n] = 1.0
-    tiles = np.empty(g.tiles.shape, dtype=object)
-    for (i, j), tile in g.local_tiles():
-        r0, c0 = g.tile_origin(i, j)
-        rs = slice(r0, r0 + g.tile_rows)
-        cs = slice(c0, c0 + g.tile_cols)
-        d = tile.device
-        c = (
-            tile.to(torch.float32)
-            - rowmean[rs, None].to(d)
-            - colmean[None, cs].to(d)
-            + grand.to(d)
-        )
-        tiles[i, j] = c * (real[rs, None] * real[None, cs]).to(d)
-    return ShardedGramian(tiles, n, g.mesh)
+class CenteredGramian:
+    """The centred matrix C = H·G·H (H = I − 11ᵀ/n) of a tile grid, as an
+    operator: :meth:`matmul` gives C·Q from the grid's own ``G @ Q`` and
+    G's row sums r, and C is never formed. For symmetric G (a Gramian),
+    with s = Σr,
+
+        C·Q = G·Q − r·(1ᵀQ)/n − 1·(rᵀQ)/n + (s/n²)·1·(1ᵀQ),
+
+    which is ``ops/centering.py``'s ``g − rowmean − colmean + grandmean``
+    applied to Q. The rank-one corrections are computed in float64 on the
+    first local tile's device, added to ``G @ Q`` there and the sum cast
+    back to the panel's dtype; rows past n never enter (``matmul`` drops
+    them). The card holds G's tiles and a few (n, p) panels, and G is left
+    as it was.
+
+    ``row_sums`` are G's row sums where the caller has them already (a
+    spanning grid's, all-reduced, on every rank); else they are read from
+    the tiles, a collective on a spanning grid, in one
+    :data:`~spark_examples_tpu_torch.utils.tracing.PCOA_TILES_SUMS` span.
+    Each product is one
+    :data:`~spark_examples_tpu_torch.utils.tracing.PCOA_TILES_PRODUCT`
+    span and adds one to ``sharded_centered_products_total``. Under a
+    profiler or a telemetry session each span ends when the cards' work
+    does; untraced, the host does not wait (the panel's QR that follows
+    waits for the product all the same).
+    """
+
+    def __init__(self, g: ShardedGramian, row_sums=None):
+        self.g = g
+        self.n = g.n
+        self.device = g.device
+        self.dtype = g.dtype
+        if row_sums is None:
+            with obs.span(PCOA_TILES_SUMS, n=self.n):
+                row_sums = g.row_sums()
+                _wait_if_traced(self.device)
+        self.r = torch.as_tensor(row_sums).to(self.device, torch.float64)
+        self.s = self.r.sum()
+        self.products = 0
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    def matmul(self, q: torch.Tensor) -> torch.Tensor:
+        """``C @ q`` for an (n, p) panel on the first local tile's
+        device."""
+        self.products += 1
+        with obs.span(PCOA_TILES_PRODUCT, products=self.products, n=self.n):
+            y = self.g.matmul(q)
+            q64 = q.to(torch.float64)
+            ones_q = q64.sum(dim=0)  # 1ᵀQ
+            r_q = self.r @ q64  # rᵀQ
+            n = self.n
+            out = (
+                y.to(torch.float64)
+                - self.r[:, None] * (ones_q / n)
+                - r_q / n
+                + (self.s / (n * n)) * ones_q
+            ).to(q.dtype)
+            _wait_if_traced(out.device)
+        obs.get_registry().counter(
+            "sharded_centered_products_total",
+            "Products C·Q of an implicitly centred tile grid",
+        ).inc()
+        return out
 
 
 def _symmetric_eigh(b: torch.Tensor):
@@ -1580,9 +1633,10 @@ def topk_eig_randomized(
 ):
     """Top-|λ| eigenpairs of symmetric C by randomized subspace iteration.
 
-    ``c`` is an (n, n) tensor or a :class:`ShardedGramian` tile grid; the
-    only O(n²) op is ``C @ Q`` against an (n, k+p) panel, tile by tile on
-    a grid, and the QR of the panel runs on the first device. Returns
+    ``c`` is an (n, n) tensor or any operator with ``matmul``, ``shape``,
+    ``device`` and ``dtype`` (a :class:`CenteredGramian` of a tile grid);
+    the only O(n²) op is ``C @ Q`` against an (n, k+p) panel, tile by tile
+    on a grid, and the QR of the panel runs on the first device. Returns
     ``(vecs (n, k), vals (k,))`` ordered by |λ| descending, signs
     normalized, on that device.
 
@@ -1609,7 +1663,7 @@ def topk_eig_randomized(
             np.float32
         )
     ).to(c.device, c.dtype)
-    product = c.matmul if isinstance(c, ShardedGramian) else c.__matmul__
+    product = c.matmul
 
     def sweep(q, length):
         for _ in range(length):
@@ -1653,22 +1707,24 @@ def sharded_pcoa(
     dense_eigh_limit: int = 8192,
     timer=None,
     eig_tol: Optional[float] = None,
+    row_sums=None,
 ):
     """Center + top-k eigenvectors of a mesh-sharded Gramian.
 
     ``g`` is a :class:`ShardedGramian` (a tensor or array is laid out over
-    ``mesh`` first). The tile grid is double-centered in place of the
-    whole matrix; for n ≤ ``dense_eigh_limit`` the centered matrix is
-    gathered and dense ``eigh`` runs with the spectral-gap check on one
-    extra eigenpair, above it randomized subspace iteration runs on the
-    tiles. Returns host ``(coords (n, k), vals (k,))`` arrays.
+    ``mesh`` first); its tiles are left as they are. For n ≤
+    ``dense_eigh_limit`` G is gathered, double-centered and dense
+    ``eigh`` runs with the spectral-gap check on one extra eigenpair;
+    above it randomized subspace iteration runs on the tiles through a
+    :class:`CenteredGramian`, which takes ``row_sums`` (G's, where the
+    caller has read them) or reads them. Returns host ``(coords (n, k),
+    vals (k,))`` arrays.
     """
     if not isinstance(g, ShardedGramian):
         g = ShardedGramian.from_full(g, mesh)
-    c = double_center_tiles(g)
     n = g.n
     if n <= dense_eigh_limit:
-        cf = c.full()
+        cf = double_center(g.full())
 
         def dense(kk):
             coords, vals = principal_components(cf, kk)
@@ -1676,7 +1732,7 @@ def sharded_pcoa(
 
         return topk_with_gap_check(dense, k, n, timer=timer)
     coords, vals = topk_eig_randomized(
-        c, k, mesh=mesh, timer=timer, tol=eig_tol
+        CenteredGramian(g, row_sums), k, mesh=mesh, timer=timer, tol=eig_tol
     )
     return coords.cpu().numpy(), vals.cpu().numpy()
 

@@ -34,7 +34,10 @@ next shard's CSR pair). The rest wrap the per-sample host loops, once each
 a job, never per row: :data:`CALLSETS_INDEX` (the callset table read and
 built), :data:`ROWS_TUPLES` (the coordinates made rows), :data:`ROWS_SORT`
 (the rows named and sorted) and :data:`ROWS_WRITE` (the rows printed and
-written).
+written). Two split the eigensolve of a tile grid: :data:`PCOA_TILES_SUMS`
+(G's row sums read from the tiles, once a job) and
+:data:`PCOA_TILES_PRODUCT` (one product C·Q of the implicitly centred
+grid against the iteration's panel).
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ __all__ = [
     "INGEST_PACK",
     "INGEST_PUT",
     "INGEST_STREAM",
+    "PCOA_TILES_PRODUCT",
+    "PCOA_TILES_SUMS",
     "SKETCH_ACCUMULATE",
     "SKETCH_FINISH",
     "ROWS_SORT",
@@ -83,6 +88,8 @@ CALLSETS_INDEX = "callsets.index"
 ROWS_TUPLES = "rows.tuples"
 ROWS_SORT = "rows.sort"
 ROWS_WRITE = "rows.write"
+PCOA_TILES_SUMS = "pcoa.tiles.sums"
+PCOA_TILES_PRODUCT = "pcoa.tiles.product"
 
 
 @contextlib.contextmanager
