@@ -424,23 +424,40 @@ class ShardedGramian:
         distributed.allreduce_sum_(out)
         return out[: self.n, : self.n].contiguous()
 
+    def _gather_rows(self, out: torch.Tensor, parts) -> None:
+        """Add ``parts`` — one row-block result a local tile, each on its
+        tile's device, in grid order — into ``out``, in grid order, one
+        copy to ``out``'s device at a time. Every part is launched before
+        this call: a copy between two cards makes each card's stream wait
+        for the other's, so gathering one tile's result before the next
+        tile's work is launched runs the cards one after another."""
+        for ((i, j), _), part in zip(self.local_tiles(), parts):
+            r0, _ = self.tile_origin(i, j)
+            out[r0:r0 + self.tile_rows] += part.to(out.device)
+
     def row_sums(self) -> torch.Tensor:
         """Σ_j G[i, j] for the n rows, on the first local tile's device
-        (one all-reduce of the partial sums on a spanning grid)."""
+        (one all-reduce of the partial sums on a spanning grid). Every
+        tile's sum is launched on its own device before any is
+        gathered."""
         sums = torch.zeros(
             self.n_padded, dtype=self.dtype, device=self.device
         )
-        for (i, j), tile in self.local_tiles():
-            r0, _ = self.tile_origin(i, j)
-            sums[r0:r0 + self.tile_rows] += tile.sum(dim=1).to(sums.device)
+        self._gather_rows(
+            sums, [tile.sum(dim=1) for _, tile in self.local_tiles()]
+        )
         if self.spans:
             distributed.allreduce_sum_(sums)
         return sums[: self.n]
 
     def matmul(self, q: torch.Tensor) -> torch.Tensor:
-        """``G @ q`` for an (n, p) panel on the first local tile's device:
-        each tile multiplies its column slab of q on its own device; on a
-        spanning grid one all-reduce of the panel sums the ranks'
+        """``G @ q`` for an (n, p) panel on the first local tile's device,
+        in three passes: each column slab of q is copied once to each
+        device whose tiles multiply it, every tile multiplies its slab on
+        its own device, and only then are the products gathered and added
+        in grid order. Tiles on several cards thus multiply at the same
+        time; ``sharded_overlapped_products_total`` counts such products.
+        On a spanning grid one all-reduce of the panel sums the ranks'
         parts."""
         dev = q.device
         qp = torch.zeros(
@@ -448,10 +465,23 @@ class ShardedGramian:
         )
         qp[: self.n] = q
         out = torch.zeros_like(qp)
-        for (i, j), tile in self.local_tiles():
-            r0, c0 = self.tile_origin(i, j)
-            slab = qp[c0:c0 + self.tile_cols].to(tile.device)
-            out[r0:r0 + self.tile_rows] += (tile @ slab).to(dev)
+        tiles = self.local_tiles()
+        slabs = {}
+        for (i, j), tile in tiles:
+            if (tile.device, j) not in slabs:
+                _, c0 = self.tile_origin(i, j)
+                slabs[tile.device, j] = qp[c0:c0 + self.tile_cols].to(
+                    tile.device
+                )
+        self._gather_rows(
+            out, [tile @ slabs[tile.device, j] for (_, j), tile in tiles]
+        )
+        if len({tile.device for _, tile in tiles}) > 1:
+            obs.get_registry().counter(
+                "sharded_overlapped_products_total",
+                "Tile-grid products G·Q whose tile GEMMs were launched on "
+                "more than one device before any result was gathered",
+            ).inc()
         if self.spans:
             distributed.allreduce_sum_(out)
         return out[: self.n]

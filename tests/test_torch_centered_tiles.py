@@ -10,13 +10,20 @@ On a 2×2 mesh of CPU devices:
   dense and its randomized route;
 - a job over a ``ukb200k``-shaped cohort drawn by ``benchmark/cohort.py``
   (N = 3,001, the randomized route) gives coordinates within 1e-6 of the
-  float64 matrix-free reference and G's row sums exactly.
+  float64 matrix-free reference and G's row sums exactly;
+- the grid's ``matmul`` (widths 10 and 1) and ``row_sums``, which launch
+  every tile's work before gathering any result, equal bit for bit the
+  loop that copies, computes and gathers one tile at a time (kept here as
+  the reference), on the 2×2 grid and on a 1×4 grid, where the order of
+  the additions shows; a grid on one device counts no overlapped product.
 
 Marked ``card``: on the visible CUDA cards, over an N whose tile holds at
 least 1 GB, ``sharded_pcoa`` allocates no tile-sized tensor beside G's
-tiles (each card's peak stays under one tile plus 5 %). Run it on a host
-with cards: ``python -m pytest --noconftest -m card
-tests/test_torch_centered_tiles.py``.
+tiles (each card's peak stays under one tile plus 5 %); on two cards or
+more, one centred product takes under 1.5 times one tile's GEMM (the
+tiles multiply at the same time), equals the one-tile-at-a-time loop bit
+for bit and counts one overlapped product. Run them on a host with cards:
+``python -m pytest --noconftest -m card tests/test_torch_centered_tiles.py``.
 """
 
 import contextlib
@@ -43,6 +50,7 @@ if ROOT not in sys.path:
 
 MESH = "data:2,model:2"
 DENSE = 'sparse_gramian_windows_total{route="dense"}'
+OVERLAPPED = "sharded_overlapped_products_total"
 
 
 def _gramian(n, v=96, seed=0):
@@ -56,6 +64,55 @@ def _gramian(n, v=96, seed=0):
 
 def _tiles(g):
     return [t.clone() for _, t in g.local_tiles()]
+
+
+def _counter(name):
+    return obs.get_registry().snapshot()["counters"].get(name, 0)
+
+
+def _tile_by_tile_matmul(g, q):
+    """``G @ q`` one tile at a time: copy the tile's slab, multiply,
+    gather the result, then the next tile."""
+    dev = q.device
+    qp = torch.zeros((g.n_padded, q.shape[1]), dtype=q.dtype, device=dev)
+    qp[: g.n] = q
+    out = torch.zeros_like(qp)
+    for (i, j), tile in g.local_tiles():
+        r0, c0 = g.tile_origin(i, j)
+        slab = qp[c0:c0 + g.tile_cols].to(tile.device)
+        out[r0:r0 + g.tile_rows] += (tile @ slab).to(dev)
+    return out[: g.n]
+
+
+def _tile_by_tile_row_sums(g):
+    sums = torch.zeros(g.n_padded, dtype=g.dtype, device=g.device)
+    for (i, j), tile in g.local_tiles():
+        r0, _ = g.tile_origin(i, j)
+        sums[r0:r0 + g.tile_rows] += tile.sum(dim=1).to(sums.device)
+    return sums[: g.n]
+
+
+@pytest.mark.parametrize("spec", [MESH, "data:1,model:4"])
+@pytest.mark.parametrize("op,width", [("matmul", 10), ("matmul", 1),
+                                      ("row_sums", None)],
+                         ids=["matmul-10", "matmul-1", "row_sums"])
+def test_launching_every_tile_first_changes_no_bit(op, width, spec):
+    n = 203  # odd, no multiple of 4: the grid pads it to 204
+    g = _gramian(n)
+    # Fractions: across the 1×4 grid's four tiles the order of the
+    # additions shows in the bits.
+    g += torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (n, n)).astype(np.float32))
+    grid = ShardedGramian.from_full(g, make_mesh(spec, device="cpu"))
+    before = _counter(OVERLAPPED)
+    if op == "matmul":
+        q = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (n, width)).astype(np.float32))
+        got, want = grid.matmul(q), _tile_by_tile_matmul(grid, q)
+    else:
+        got, want = grid.row_sums(), _tile_by_tile_row_sums(grid)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert _counter(OVERLAPPED) == before
 
 
 @pytest.mark.parametrize("width", [10, 1])
@@ -192,3 +249,67 @@ def test_centring_allocates_no_second_tile_on_the_cards():
     gap = max(min(np.abs(coords[:, j] - want[:, j]).max(),
                   np.abs(coords[:, j] + want[:, j]).max()) for j in range(2))
     assert gap < 1e-4
+
+
+@pytest.mark.card
+def test_the_tile_products_overlap_across_the_cards(monkeypatch):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(
+        MESH if cards >= 4 else "data:2",
+        devices=[torch.device("cuda", i) for i in range(min(cards, 4))],
+    )
+    # 17 GB tiles or more, padded rows: the GEMM, not the copies of the
+    # 10-column panels and the float64 corrections, sets a product's time,
+    # as on a 40 GB tile of a 200,643-sample G.
+    n = 65536 * mesh.shape["data"] + 1
+    g = ShardedGramian.zeros(n, mesh)
+    tile_bytes = g.tile_rows * g.tile_cols * 4
+    assert tile_bytes >= 1 << 30
+    for k, (_, tile) in enumerate(g.local_tiles()):
+        tile.normal_(
+            generator=torch.Generator(device=tile.device).manual_seed(k))
+    devices = sorted({t.device.index for _, t in g.local_tiles()})
+    assert len(devices) >= 2
+    q = torch.randn((n, 10), device=g.device,
+                    generator=torch.Generator(device=g.device).manual_seed(9))
+    op = CenteredGramian(g)
+
+    def timed(fn, repeats=5):
+        """Median milliseconds of ``fn()`` by events on the first card,
+        after one untimed call; returns (ms, the last result)."""
+        out = fn()
+        times = []
+        for _ in range(repeats):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(g.device))
+            out = fn()
+            end.record(torch.cuda.current_stream(g.device))
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times)), out
+
+    tile0 = g.local_tiles()[0][1]
+    gemm_ms, _ = timed(lambda: tile0 @ q[: g.tile_cols])
+    grid_ms, _ = timed(lambda: g.matmul(q))
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    before, products = _counter(OVERLAPPED), op.products
+    product_ms, got = timed(lambda: op.matmul(q))
+    overlapped, counted = _counter(OVERLAPPED) - before, op.products - products
+    peaks = {d: torch.cuda.max_memory_allocated(d) for d in devices}
+    monkeypatch.setattr(ShardedGramian, "matmul", _tile_by_tile_matmul)
+    serial_ms, want = timed(lambda: op.matmul(q))
+    print(f"{tile_bytes / 1e9:.2f} GB tiles on {len(devices)} cards: one "
+          f"tile's GEMM {gemm_ms:.3f} ms; G·Q {grid_ms:.3f} ms; centred "
+          f"product {product_ms:.3f} ms, tile by tile {serial_ms:.3f} ms")
+    assert overlapped == counted == 6  # one a product
+    for d, peak in peaks.items():
+        assert peak < 1.05 * tile_bytes, (d, peak, tile_bytes)
+    assert product_ms < 1.5 * gemm_ms, (product_ms, gemm_ms)
+    assert torch.equal(got, want)
