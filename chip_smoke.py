@@ -4645,20 +4645,17 @@ def sketch_on_a_mesh(torch, csr, panel10, coords10, common, coords11,
     import dataclasses
     import warnings
 
-    from spark_examples_tpu_torch.arrays.blocks import (
-        _densify_window,
-        csr_windows,
-    )
+    from spark_examples_tpu_torch.arrays.blocks import csr_windows
     from spark_examples_tpu_torch.genomics.fixtures import (
         DEFAULT_VARIANT_SET_ID,
     )
     from spark_examples_tpu_torch.models.pca import VariantsPcaDriver
     from spark_examples_tpu_torch.ops import scatter_kernel as sk
     from spark_examples_tpu_torch.ops import sketch
-    from spark_examples_tpu_torch.ops.gramian import pack_indicator_block
     from spark_examples_tpu_torch.ops.pcoa import normalize_eigvec_signs
     from spark_examples_tpu_torch.ops.sparse import (
         _carrier_bucket,
+        _dense_operand,
         _pad_rows_for_scan,
         padded_carrier_matrix,
     )
@@ -4895,14 +4892,10 @@ def sketch_on_a_mesh(torch, csr, panel10, coords10, common, coords11,
         cut = lens.size // 2
         split = [(widx[:int(lens[:cut].sum())], lens[:cut]),
                  (widx[int(lens[:cut].sum()):], lens[cut:])]
-        packed = []
-        for w, ln in split:
-            xb = _densify_window(w, ln, nc, ln.size)
-            packed.append(torch.from_numpy(pack_indicator_block(
-                np.pad(xb, ((0, nc_pad - nc), (0, 0))))).to(device))
-        full = torch.from_numpy(pack_indicator_block(np.pad(
-            _densify_window(widx, lens, nc, lens.size),
-            ((0, nc_pad - nc), (0, 0))))).to(device)
+        packed = [torch.from_numpy(_dense_operand(
+            w, ln, nc, ln.size, nc_pad)).to(device) for w, ln in split]
+        full = torch.from_numpy(_dense_operand(
+            widx, lens, nc, lens.size, nc_pad)).to(device)
         sync()
         t0 = time.perf_counter()
         for xp in packed:
@@ -5174,10 +5167,7 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     from spark_examples_tpu_torch import cuda_build
-    from spark_examples_tpu_torch.arrays.blocks import (
-        _densify_window,
-        round_up_multiple,
-    )
+    from spark_examples_tpu_torch.arrays.blocks import round_up_multiple
     from spark_examples_tpu_torch.genomics.fixtures import (
         DEFAULT_VARIANT_SET_ID,
         synthetic_cohort,
@@ -5253,8 +5243,8 @@ def main() -> int:
     t0 = time.perf_counter()
     g_ref = np.zeros((N_SAMPLES, N_SAMPLES), np.float64)
     for idx, lens in windows:
-        x = _densify_window(idx, lens, N_SAMPLES, lens.size).astype(
-            np.float64)
+        x = np.zeros((N_SAMPLES, lens.size))
+        x[idx, np.repeat(np.arange(lens.size), lens)] = 1.0
         g_ref += x @ x.T  # 0/1 products: exact integers below 2^53
     g_ref = g_ref.astype(np.int64)
     g_dev = driver.g.cpu().numpy()

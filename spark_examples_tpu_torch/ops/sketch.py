@@ -76,13 +76,9 @@ from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     DEFAULT_BLOCK_VARIANTS,
     _check_indices,
-    _densify_window,
 )
 from spark_examples_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from spark_examples_tpu_torch.ops.gramian import (
-    pack_indicator_block,
-    unpack_indicator_block,
-)
+from spark_examples_tpu_torch.ops.gramian import unpack_indicator_block
 from spark_examples_tpu_torch.ops.pcoa import (
     DEFAULT_RANDOMIZED_OVERSAMPLE,
     DEFAULT_SKETCH_POWER_ITERS,
@@ -93,9 +89,9 @@ from spark_examples_tpu_torch.ops.pcoa import (
 from spark_examples_tpu_torch.ops.sparse import (
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
     SCATTER_CHUNK_VARIANTS,
-    _pad_rows_for_scan,
+    _carrier_operand,
+    _dense_operand,
     dense_panel_width,
-    padded_carrier_matrix,
     window_route,
 )
 from spark_examples_tpu_torch.utils.tracing import (
@@ -212,10 +208,8 @@ def _sketch_scatter_update(
     """
     n = y.shape[0]
     dev = y.device
-    idx = padded_carrier_matrix(
-        window_idx, lens, sentinel=n, n_rows=_pad_rows_for_scan(lens.size)
-    )
-    idx = torch.from_numpy(idx).to(dev).long()
+    idx = torch.from_numpy(_carrier_operand(window_idx, lens, n))
+    idx = idx.to(dev).long()
     # The window's real (carrier, variant) pairs in CSR order: a chunk's
     # pairs are one contiguous run of them.
     offsets = np.concatenate([[0], np.cumsum(lens)])
@@ -327,13 +321,9 @@ def sketch_panel_blockwise(
                     if route == "scatter":
                         _sketch_scatter_update(y, om_dev, window_idx, lens)
                     else:
-                        xp = pack_indicator_block(
-                            _densify_window(
-                                window_idx,
-                                lens,
-                                n_samples,
-                                dense_panel_width(int(lens.size), width),
-                            )
+                        cols = dense_panel_width(int(lens.size), width)
+                        xp = _dense_operand(
+                            window_idx, lens, n_samples, cols, n_samples
                         )
                         _sketch_dense_update(
                             y,

@@ -23,7 +23,7 @@ engine.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +171,30 @@ def _pad_rows_for_scan(rows: int) -> int:
     return round_up_multiple(max(rows, 1), SCATTER_CHUNK_VARIANTS)
 
 
+def _carrier_operand(window_idx, lens, n_rows: int) -> np.ndarray:
+    """A scatter-route window's operand: its carrier matrix with sentinel
+    ``n_rows`` (the accumulator's row count), padded to whole chunks."""
+    rows = _pad_rows_for_scan(np.asarray(lens).size)
+    return padded_carrier_matrix(
+        window_idx, lens, sentinel=n_rows, n_rows=rows
+    )
+
+
+def _dense_operand(window_idx, lens, n_samples, width, n_rows) -> np.ndarray:
+    """A dense-route window's operand: densified to ``width`` columns,
+    zero-padded to the accumulator's ``n_rows`` rows, bit-packed."""
+    xb = _densify_window(window_idx, lens, n_samples, width)
+    if n_rows != n_samples:
+        xb = np.pad(xb, ((0, n_rows - n_samples), (0, 0)))
+    return pack_indicator_block(xb)
+
+
+def _scatter_into(g: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """Scatter one carrier operand into G, on G's device."""
+    idx = torch.from_numpy(idx).to(g.device)
+    return scatter_pairs(g, idx, idx)
+
+
 def sparse_gramian_accumulate(g: torch.Tensor, window_idx, lens):
     """One sparse accumulation step: scatter a CSR window into G in place.
 
@@ -179,14 +203,7 @@ def sparse_gramian_accumulate(g: torch.Tensor, window_idx, lens):
     window is host CSR ``(indices, lens)``. Bit-identical to densifying
     the window and accumulating its product.
     """
-    idx = padded_carrier_matrix(
-        window_idx,
-        lens,
-        sentinel=g.shape[0],
-        n_rows=_pad_rows_for_scan(np.asarray(lens).size),
-    )
-    idx = torch.from_numpy(idx).to(g.device)
-    return scatter_pairs(g, idx, idx)
+    return _scatter_into(g, _carrier_operand(window_idx, lens, g.shape[0]))
 
 
 def _note_window(route: str, nnz: int, count: int = 1) -> None:
@@ -226,6 +243,40 @@ def _note_pod_sync(outcome: str) -> None:
     ).labels(outcome=outcome).inc()
 
 
+def _accumulate_windows(
+    windows: Iterable[Tuple[np.ndarray, np.ndarray]],
+    n_samples: int,
+    density_threshold: float,
+    block_variants: Optional[int],
+    n_rows: int,
+    scatter: Callable[[np.ndarray], object],
+    add_packed: Callable[[np.ndarray], object],
+) -> None:
+    """The CSR-window step of every G accumulator: check, route by density,
+    build the route's operand for an accumulator of ``n_rows`` rows, hand
+    it to ``scatter`` or ``add_packed``; one span and one count a window."""
+    width = block_variants or DEFAULT_BLOCK_VARIANTS
+    for window_idx, lens in windows:
+        lens = np.asarray(lens)
+        _check_indices(np.asarray(window_idx), n_samples)
+        route = window_route(lens, n_samples, density_threshold)
+        nnz = int(lens.sum())
+        with obs.span(
+            "gramian.sparse.window",
+            route=route,
+            nnz=nnz,
+            variants=int(lens.size),
+        ):
+            if route == "scatter":
+                scatter(_carrier_operand(window_idx, lens, n_rows))
+            else:
+                cols = dense_panel_width(int(lens.size), width)
+                add_packed(_dense_operand(
+                    window_idx, lens, n_samples, cols, n_rows
+                ))
+        _note_window(route, nnz)
+
+
 def sparse_gramian_blockwise(
     windows: Iterable[Tuple[np.ndarray, np.ndarray]],
     n_samples: int,
@@ -242,31 +293,11 @@ def sparse_gramian_blockwise(
     Returns the (N, N) G tensor.
     """
     dev = resolve_device(device)
-    width = block_variants or DEFAULT_BLOCK_VARIANTS
     g = torch.zeros((n_samples, n_samples), dtype=torch.float32, device=dev)
     with obs.span("gramian.sparse.accumulate", n=n_samples):
-        for window_idx, lens in windows:
-            lens = np.asarray(lens)
-            _check_indices(np.asarray(window_idx), n_samples)
-            route = window_route(lens, n_samples, density_threshold)
-            nnz = int(lens.sum())
-            with obs.span(
-                "gramian.sparse.window",
-                route=route,
-                nnz=nnz,
-                variants=int(lens.size),
-            ):
-                if route == "scatter":
-                    sparse_gramian_accumulate(g, window_idx, lens)
-                else:
-                    xp = pack_indicator_block(
-                        _densify_window(
-                            window_idx,
-                            lens,
-                            n_samples,
-                            dense_panel_width(int(lens.size), width),
-                        )
-                    )
-                    gramian_accumulate_packed(g, xp)
-            _note_window(route, nnz)
+        _accumulate_windows(
+            windows, n_samples, density_threshold, block_variants, n_samples,
+            scatter=lambda idx: _scatter_into(g, idx),
+            add_packed=lambda xp: gramian_accumulate_packed(g, xp),
+        )
     return g

@@ -72,12 +72,9 @@ from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     DEFAULT_BLOCK_VARIANTS,
     _check_indices,
-    _densify_window,
-    restrict_window_to_sample_range,
     round_up_multiple,
 )
 from spark_examples_tpu_torch.arrays.feed import device_prefetch
-from spark_examples_tpu_torch.ops.centering import double_center
 from spark_examples_tpu_torch.ops.gramian import (
     mxu_cross_product,
     mxu_cross_product_pair,
@@ -89,7 +86,7 @@ from spark_examples_tpu_torch.ops.pcoa import (
     SpectralGapWarning,
     check_spectral_gap,
     normalize_eigvec_signs,
-    principal_components,
+    pcoa,
     randomized_panel_width,
     topk_with_gap_check,
 )
@@ -97,7 +94,9 @@ from spark_examples_tpu_torch.ops.scatter_kernel import scatter_pairs
 from spark_examples_tpu_torch.ops.sparse import (
     DEFAULT_POD_COALESCE_VARIANTS,
     DEFAULT_SPARSE_DENSITY_THRESHOLD,
+    _accumulate_windows,
     _carrier_bucket,
+    _dense_operand,
     _note_pod_gang,
     _note_pod_sync,
     _note_window,
@@ -1350,14 +1349,13 @@ def _synced_carrier_stream(
                 # all-sentinel block from its −1 header.
             else:
                 if gang:
-                    xb = _densify_window(
-                        gang[0][0], gang[0][1], n_samples, g_dense
+                    xp = _dense_operand(
+                        gang[0][0], gang[0][1], n_samples, g_dense, n_padded
                     )
                 else:
-                    xb = np.zeros((n_samples, g_dense), dtype=np.int8)
-                if n_padded != n_samples:
-                    xb = np.pad(xb, ((0, n_padded - n_samples), (0, 0)))
-                xp = pack_indicator_block(xb)
+                    xp = pack_indicator_block(
+                        np.zeros((n_padded, g_dense), dtype=np.int8)
+                    )
                 cols = round_up_multiple(xp.shape[1], v_div)
                 if cols != xp.shape[1]:
                     # Zero bytes unpack to inert zero columns; every rank
@@ -1454,25 +1452,23 @@ def sparse_sharded_gramian_blockwise(
     windows,
     n_samples: int,
     mesh: Mesh,
-    accum_dtype=torch.float32,
     density_threshold: Optional[float] = None,
     block_variants: Optional[int] = None,
-    compute_dtype=None,
     pipeline_depth: int = 2,
     coalesce_variants: Optional[int] = None,
 ) -> ShardedGramian:
     """Stream CSR carrier windows into a mesh-sharded (tiled) Gramian.
 
-    Each window is routed by density
-    (:func:`~spark_examples_tpu_torch.ops.sparse.window_route`): a rare
-    window's padded carrier matrix (sentinel ``n_padded``) is copied to
-    every tile's device, re-based into each tile's frame and scattered
-    there; a dense window is densified, bit-packed and added to every
-    tile as an int8 product. Both routes add exact integer counts, so G
-    is bit-identical to the meshless engine's at any mesh shape and
-    window order. On a single-controller mesh ingest first drops carriers
-    outside this process's sample-range bounds
-    (:func:`addressable_sample_bounds`), the full range there.
+    G is float32. On a single-controller mesh the windows run through the
+    meshless engine's window step
+    (:func:`~spark_examples_tpu_torch.ops.sparse._accumulate_windows`)
+    against ``n_padded`` rows: a rare window's padded carrier matrix
+    (sentinel ``n_padded``) is copied to every tile's device, re-based
+    into each tile's frame and scattered there (:func:`_tile_scatter`); a
+    dense window's packed panel is unpacked and added to every tile as an
+    int8 product (:func:`_accumulate_tiles`). Both routes add exact
+    integer counts, so G is bit-identical to the meshless engine's at any
+    mesh shape and window order.
 
     On a mesh that SPANS processes each rank feeds its own windows through
     :func:`_synced_carrier_stream` (``pipeline_depth``,
@@ -1487,11 +1483,8 @@ def sparse_sharded_gramian_blockwise(
     """
     if density_threshold is None:
         density_threshold = DEFAULT_SPARSE_DENSITY_THRESHOLD
-    width = block_variants or DEFAULT_BLOCK_VARIANTS
-    g = ShardedGramian.zeros(n_samples, mesh, accum_dtype)
+    g = ShardedGramian.zeros(n_samples, mesh)
     n_padded = g.n_padded
-    if compute_dtype is None:
-        compute_dtype = torch.int8
     with obs.span("gramian.sparse.accumulate", n=n_samples, sharded=True):
         if g.spans:
             grid_rows, grid_cols = g.tiles.shape
@@ -1501,7 +1494,7 @@ def sparse_sharded_gramian_blockwise(
                 n_samples,
                 n_padded,
                 density_threshold,
-                width,
+                block_variants or DEFAULT_BLOCK_VARIANTS,
                 _axis_product(mesh, (tuple(mesh.axis_names),)),
                 pipeline_depth=pipeline_depth,
                 coalesce_variants=coalesce_variants,
@@ -1524,51 +1517,18 @@ def sparse_sharded_gramian_blockwise(
                         xp = distributed.allgather_concat(
                             payload.to(g.device), dim=1
                         )
-                        _tile_dense_pod(g, xp, compute_dtype, mirror)
+                        _tile_dense_pod(g, xp, torch.int8, mirror)
                 _note_window(route, nnz, count=n_win)
             if mirror:
                 _mirror_fill(g)
             return g
-        lo, hi = addressable_sample_bounds(mesh, n_padded)
-        for window_idx, lens in windows:
-            lens = np.asarray(lens)
-            _check_indices(np.asarray(window_idx), n_samples)
-            window_idx, lens = restrict_window_to_sample_range(
-                window_idx, lens, lo, hi
-            )
-            route = window_route(lens, n_samples, density_threshold)
-            nnz = int(lens.sum())
-            with obs.span(
-                "gramian.sparse.window",
-                route=route,
-                nnz=nnz,
-                variants=int(lens.size),
-            ):
-                if route == "scatter":
-                    _tile_scatter(g, padded_carrier_matrix(
-                        window_idx,
-                        lens,
-                        sentinel=n_padded,
-                        n_rows=_pad_rows_for_scan(lens.size),
-                    ))
-                else:
-                    xb = _densify_window(
-                        window_idx,
-                        lens,
-                        n_samples,
-                        dense_panel_width(int(lens.size), width),
-                    )
-                    if n_padded != n_samples:
-                        xb = np.pad(xb, ((0, n_padded - n_samples), (0, 0)))
-                    xp = torch.from_numpy(pack_indicator_block(xb))
-                    _accumulate_tiles(
-                        g,
-                        unpack_indicator_block(
-                            xp.to(g.device), 8 * xp.shape[1]
-                        ),
-                        compute_dtype,
-                    )
-            _note_window(route, nnz)
+        _accumulate_windows(
+            windows, n_samples, density_threshold, block_variants, n_padded,
+            scatter=lambda idx: _tile_scatter(g, idx),
+            add_packed=lambda xp: _accumulate_tiles(g, unpack_indicator_block(
+                torch.from_numpy(xp).to(g.device), 8 * xp.shape[1]
+            ), torch.int8),
+        )
     return g
 
 
@@ -1655,7 +1615,6 @@ def topk_eig_randomized(
     oversample: int = DEFAULT_RANDOMIZED_OVERSAMPLE,
     iters: int = 30,
     seed: int = 0,
-    mesh: Optional[Mesh] = None,
     timer=None,
     gap_warn_ratio: float = 0.95,
     tol: Optional[float] = None,
@@ -1754,15 +1713,14 @@ def sharded_pcoa(
         g = ShardedGramian.from_full(g, mesh)
     n = g.n
     if n <= dense_eigh_limit:
-        cf = double_center(g.full())
 
         def dense(kk):
-            coords, vals = principal_components(cf, kk)
+            coords, vals = pcoa(g.full(), kk)
             return coords.cpu().numpy(), vals.cpu().numpy()
 
         return topk_with_gap_check(dense, k, n, timer=timer)
     coords, vals = topk_eig_randomized(
-        CenteredGramian(g, row_sums), k, mesh=mesh, timer=timer, tol=eig_tol
+        CenteredGramian(g, row_sums), k, timer=timer, tol=eig_tol
     )
     return coords.cpu().numpy(), vals.cpu().numpy()
 

@@ -44,6 +44,7 @@ from spark_examples_tpu.parallel import (
     sparse_sharded_gramian_blockwise as jax_sparse_sharded,
     topk_eig_randomized as jax_topk,
 )
+from spark_examples_tpu_torch import obs
 from spark_examples_tpu_torch.arrays.blocks import (
     restrict_window_to_sample_range,
     windows_from_calls,
@@ -113,6 +114,20 @@ def _port_mesh(spec):
     return make_mesh(spec, device="cpu")
 
 
+def _window_telemetry(run):
+    """``run()``'s result with its window telemetry: the
+    ``sparse_gramian_windows_total`` counts by route and the number of
+    ``gramian.sparse.window`` spans."""
+    with obs.telemetry_session() as session:
+        out = run()
+        counters = session.registry.snapshot()["counters"]
+        events = session.tracer.to_chrome()["traceEvents"]
+    counts = {k: v for k, v in counters.items()
+              if k.startswith("sparse_gramian_windows_total") and v}
+    spans = sum(e["name"] == "gramian.sparse.window" for e in events)
+    return out, (counts, spans)
+
+
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("spec", SHAPES)
 @pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
@@ -139,9 +154,11 @@ def test_sparse_is_the_jax_and_the_meshless_g(spec, n):
     assert routes == {"scatter", "dense"}
     mesh = _port_mesh(spec)
     before = scatter_kernel.SCATTER_KERNEL_LAUNCHES
-    got = sparse_sharded_gramian_blockwise(
-        iter(windows), n, mesh, density_threshold=THRESHOLD,
-        block_variants=BLOCK,
+    got, grid_windows = _window_telemetry(
+        lambda: sparse_sharded_gramian_blockwise(
+            iter(windows), n, mesh, density_threshold=THRESHOLD,
+            block_variants=BLOCK,
+        )
     )
     # CPU tiles take the plain version: no kernel launch.
     assert scatter_kernel.SCATTER_KERNEL_LAUNCHES == before
@@ -149,10 +166,21 @@ def test_sparse_is_the_jax_and_the_meshless_g(spec, n):
         iter(windows), n, jax_make_mesh(spec), density_threshold=THRESHOLD,
         block_variants=BLOCK,
     )
-    meshless = sparse_gramian_blockwise(
-        iter(windows), n, density_threshold=THRESHOLD, block_variants=BLOCK,
-        device="cpu",
+    meshless, meshless_windows = _window_telemetry(
+        lambda: sparse_gramian_blockwise(
+            iter(windows), n, density_threshold=THRESHOLD,
+            block_variants=BLOCK, device="cpu",
+        )
     )
+    # One window step for both layouts: the same routes counted, the same
+    # window spans, at least one window of each route.
+    assert grid_windows == meshless_windows
+    counts, spans = grid_windows
+    assert spans == len(windows) == sum(counts.values())
+    assert set(counts) == {
+        f'sparse_gramian_windows_total{{route="{r}"}}'
+        for r in ("scatter", "dense")
+    }
     np.testing.assert_array_equal(got.full().numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.full().numpy(), meshless.numpy())
     np.testing.assert_array_equal(got.full().numpy(), x.astype(np.float32)
